@@ -9,15 +9,29 @@ Phases, in order; any failure raises and the script exits nonzero:
   3. K1, the fused FAST kernel, against its plain PyTorch version on the
      four pyramid levels of a rendered 640x480 frame;
   4. K2, the streaming Hamming matcher, against its plain version at
-     N=2048 features x M=8192 map points, guided and unguided;
-  5. the tracked-frame slice at full width: frame 0 seeds the map at its
-     ray-cast 3D points, DeviceVO tracks frames 1-24 of the bench orbit on
-     the card; every frame must track, camera centres must stay within
-     5 cm of ground truth, the first 8 frames must agree with the same
-     slice run on the CPU with the plain versions, and both kernels' launch
-     counters must show the main path went through them;
-  6. the kernels and their plain versions timed at the shapes of phases
-     3 and 4 (device time from the profiler, wall time per call).
+     N=2048 features x M=8192 map points, guided (r=20, 8 and the
+     keyframes' 32) and unguided, and at the keyframes' 2048 x 2048;
+  5. the tracked-frame slice at full width with keyframes off
+     (``slice_config()``): frame 0 seeds the map at its ray-cast 3D points,
+     DeviceVO tracks frames 1-24 of the bench orbit on the card; every
+     frame must track, camera centres must stay within 5 cm of ground
+     truth, the first 8 frames must agree with the same slice run on the
+     CPU with the plain versions, and both kernels' launch counters must
+     show the main path went through them;
+  6. the default ``SlamConfig()`` at full width, keyframes and windowed BA
+     on: the same seed, DeviceVO tracks frames 1-188 of the orbit (the
+     longest prefix the JAX reference tracks wholly: a keyframe comes about
+     every 16 frames at this width, and the 11th, which rolls the 10-slot
+     window and starts the culling, near frame 172); every frame must
+     track, the window must roll, the map must gain landmarks, the
+     camera-centre error must stay within 2 cm of the JAX reference's own
+     on this sequence, frames 1-53 (three keyframes, the first BA) must
+     agree with the CPU plain path, the launch counters must show K1 and K2
+     on the path, and a frame may synchronize with the host at most 3 times
+     (4 on a keyframe);
+  7. the kernels and their plain versions timed at the shapes of phases
+     3 and 4 (device time from the profiler, wall time per call), and the
+     device time of one keyframe insertion.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -33,7 +47,13 @@ import numpy as np
 
 WIDTH, HEIGHT = 640, 480
 N_FRAMES = 25          # frame 0 seeds the map, frames 1-24 are tracked
+N_KF_FRAMES = 189      # phase 6: frames 1-188 are tracked with keyframes
 CHUNK = 8
+N_CPU_KF = 53          # phase 6 frames held against the CPU: 3 keyframes, 1 BA
+# Max camera-centre error of the JAX reference (tinyslam_tpu, default
+# SlamConfig, on the CPU) over phase 6's seeded frames 1-188:
+# python tools/jax_reference_orbit.py --frames 189 (see PERF.md).
+REF_MAX_ERR = 3.6051011085510254
 K1_EXACT = ("score_raw", "score_nms")
 K1_TOL = {"m10": 1e-4, "m01": 1e-4, "blurred": 1e-6}   # absolute
 
@@ -98,6 +118,178 @@ def _seeded(cfg, feats, room, cam, pose):
     return VOState.seeded(cfg, feats, X, R, t)
 
 
+def _with_sync_count(fn):
+    """Run fn with PyTorch's sync debug mode on; returns (result, number of
+    synchronizing CUDA calls it made).  PyTorch calls the mode a prototype
+    that may miss some syncs."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _keyframe_phase(cam, room, poses, frames, dev, smi):
+    """Phase 6: the default SlamConfig() (keyframe insertion, windowed BA,
+    culling) at full width through DeviceVO on frames 1-188.  Returns the
+    kernels' launch counts of the run and a callable that inserts one
+    keyframe into the final state (timed in phase 7)."""
+    import torch
+
+    from tinyslam_tpu_torch import SlamConfig
+    from tinyslam_tpu_torch.frontend.orb import extract_features
+    from tinyslam_tpu_torch.models import vo_device as vd
+    from tinyslam_tpu_torch.models.vo import _triangulate_and_insert, row
+    from tinyslam_tpu_torch.models.vo_device import SUMMARY_FIELDS, DeviceVO, VOState
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops.hamming import match_descriptors
+
+    cfg = SlamConfig()
+    fe = cfg.frontend
+    n = N_KF_FRAMES - 1
+    col = {name: i for i, name in enumerate(SUMMARY_FIELDS)}
+    thr = torch.tensor(fe.threshold, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    fast_cuda.LAUNCHES = 0
+    match_cuda.LAUNCHES = 0
+    feats0 = extract_features(torch.from_numpy(frames[0]).to(dev), thr, fe)
+    seed = _seeded(cfg, feats0, room, cam, poses[0])
+    n_seed = int(seed.map.valid.sum())
+    vo = DeviceVO(cfg, cam, chunk=CHUNK)
+    vo.state = seed
+    chunk_s = []    # the first chunk is the warm-up
+    for c in range(n // CHUNK):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for im in frames[1 + c * CHUNK: 1 + (c + 1) * CHUNK]:
+            vo.process(im)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t_start)
+    for im in frames[1 + len(chunk_s) * CHUNK:]:      # the partial last chunk
+        vo.process(im)
+    vo.flush()
+    launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
+                "match_reduce_streaming": match_cuda.LAUNCHES}
+    stats = vo.stats
+    kf = np.array([s.is_keyframe for s in stats])
+    n_kf = int(kf.sum())
+    est = vo.positions
+    gt = _centres([p[0] for p in poses[1:]], [p[1] for p in poses[1:]])
+    err = np.linalg.norm(est - gt, axis=1) if est.shape == gt.shape else np.array([np.inf])
+    made = int((vo.map.valid & (vo.map.anchor_kf >= 0)).sum())
+    print("keyframes at frames", (np.flatnonzero(kf) + 1).tolist(),
+          "landmarks per frame", [s.num_landmarks for s in stats])
+    print(f"tracked {sum(s.tracking for s in stats)}/{n}, {n_kf} keyframes, "
+          f"num_keyframes {vo.num_keyframes}, window ids {vo.state.win_kf_id.tolist()}; "
+          f"map {int(vo.map.valid.sum())} landmarks ({n_seed} seeded, {made} triangulated "
+          f"and alive); centre error vs ground truth max {err.max():.4f} m, mean "
+          f"{err.mean():.4f} m (JAX reference max {REF_MAX_ERR} m)")
+    print(f"keyframe path tracked fps (frames {CHUNK + 1}-{len(chunk_s) * CHUNK}, after "
+          f"a warm-up chunk): {(len(chunk_s) - 1) * CHUNK / sum(chunk_s[1:]):.2f}; "
+          f"ms/frame per chunk "
+          f"{[round(t * 1e3 / CHUNK, 3) for t in chunk_s]}  [{smi}]")
+    print("launches during the keyframe run:", launches)
+
+    # Per frame: wall time and host syncs, tracked again from the seed.
+    images = torch.from_numpy(np.stack(frames[1:])).to(dev)
+    state = VOState.from_numpy(seed.to_numpy(), dev)
+    frame_ms, syncs, is_kf = [], [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        (state, ys), k = _with_sync_count(
+            lambda: vd.track_step(cam, cfg, state, images[i]))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t_start) * 1e3)
+        syncs.append(k)
+        is_kf.append(bool(ys["summary"][col["is_keyframe"]] > 0))
+    frame_ms, syncs, is_kf = np.array(frame_ms), np.array(syncs), np.array(is_kf)
+    late = np.arange(n) >= CHUNK                # after the warm-up frames
+    print(f"ms per keyframe frame {frame_ms[late & is_kf].mean():.3f} "
+          f"(n={int((late & is_kf).sum())}), per plain frame "
+          f"{frame_ms[late & ~is_kf].mean():.3f} (n={int((late & ~is_kf).sum())}), "
+          f"with a synchronize after each; syncs per plain frame "
+          f"{sorted(set(syncs[late & ~is_kf].tolist()))}, per keyframe frame "
+          f"{sorted(set(syncs[late & is_kf].tolist()))} (warm-up frames 1-{CHUNK}: "
+          f"{syncs[~late].tolist()})  [{smi}]")
+
+    # Where a keyframe's time goes, on the final state (window full).
+    feats = extract_features(images[-1], state.threshold, cfg.frontend)
+    ref = vd._best_baseline_slot(state)
+    ref_feats = state.win_feats.map(lambda x: row(x, ref))
+    none = torch.zeros_like(feats.valid)
+    kf_insert = lambda: vd._insert_keyframe(cam, cfg, state, feats, none, none)
+    match = lambda: match_descriptors(feats.desc, feats.valid, ref_feats.desc,
+                                      ref_feats.valid)
+    m = match()
+    parts = {
+        "K2 unguided match (x2)": match,
+        "_triangulate_and_insert (x2)": lambda: _triangulate_and_insert(
+            cam, state.map, state.num_keyframes, state.R, state.t, feats,
+            row(state.win_R, ref), row(state.win_t, ref), ref_feats,
+            m["idx_b"], m["valid"], none, max_new=fe.features_per_level,
+            band_lo=cfg.vo.tri_band_lo, band_hi=cfg.vo.tri_band_hi,
+            dup_radius_px=cfg.vo.dup_radius_px, local_band=cfg.vo.tri_local_band),
+        "_record_kf_obs, K2 guided r=32 (x3)": lambda: vd._record_kf_obs(
+            cam, cfg, state, ref, ref_feats),
+        "_push_keyframe": lambda: vd._push_keyframe(state, state.R, state.t, feats,
+                                                    state.num_keyframes),
+        "_local_ba": lambda: vd._local_ba(cam, cfg, state),
+        "_insert_keyframe (all, 1 sync)": kf_insert,
+    }
+    part_ms = {k: _time_ms(f, reps=5, warmup=1) for k, f in parts.items()}
+    print("keyframe breakdown, wall ms per call: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in part_ms.items())
+          + f"; BA per LM iteration {part_ms['_local_ba'] / cfg.ba.max_iters:.3f}"
+          + f"  [{smi}]")
+
+    # Reference on a small input: the same run on the CPU plain path.
+    cpu_state = VOState.from_numpy(seed.to_numpy(), "cpu")
+    _, ys = vd.track_chunk(cam, cfg, cpu_state,
+                           torch.from_numpy(np.stack(frames[1:1 + N_CPU_KF])),
+                           [True] * N_CPU_KF)
+    s_cpu = ys["summary"].numpy()
+    cpu_c = _centres(ys["R"].numpy(), ys["t"].numpy())
+    dc = float(np.abs(cpu_c - est[:N_CPU_KF]).max())
+    lm_gpu = np.array([s.num_landmarks for s in stats[:N_CPU_KF]])
+    dlm = float(np.max(np.abs(s_cpu[:, col["num_landmarks"]] - lm_gpu) / lm_gpu))
+    kf_same = np.array_equal(s_cpu[:, col["is_keyframe"]] > 0, kf[:N_CPU_KF])
+    print(f"card vs CPU plain path, frames 1-{N_CPU_KF} "
+          f"({int(kf[:N_CPU_KF].sum())} keyframes): keyframes equal {kf_same}, max "
+          f"centre diff {dc:.2e} m, max relative landmark diff {dlm:.4f}")
+
+    failures = []
+    if sum(s.tracking for s in stats) != n or len(stats) != n:
+        failures.append(f"tracked {sum(s.tracking for s in stats)}/{n} frames")
+    if n_kf < 10 or vo.num_keyframes <= cfg.ba.max_keyframes:
+        failures.append(f"{n_kf} keyframes: the window did not roll")
+    if made <= 0 or max(s.num_landmarks for s in stats) <= n_seed:
+        failures.append("the map gained no landmarks")
+    if not err.max() <= REF_MAX_ERR + 0.02:
+        failures.append(f"centre error {err.max():.4f} m > reference "
+                        f"{REF_MAX_ERR} m + 0.02 m")
+    if not (kf_same and dc < 2e-3 and dlm <= 0.02):
+        failures.append("card and CPU plain path disagree")
+    if launches["fast_score_map_fused"] != 4 * N_KF_FRAMES:
+        failures.append(f"K1 launched {launches['fast_score_map_fused']} times, "
+                        f"expected {4 * N_KF_FRAMES}")
+    if launches["match_reduce_streaming"] < n + 5 * n_kf:
+        failures.append(f"K2 launched {launches['match_reduce_streaming']} times, "
+                        f"expected >= {n + 5 * n_kf}")
+    if syncs[late & ~is_kf].max() > 3 or syncs[late & is_kf].max() > 4:
+        failures.append(f"syncs per frame {syncs.tolist()} exceed 3 (4 on a keyframe)")
+    if failures:
+        raise AssertionError("keyframe phase: " + "; ".join(failures))
+    return launches, kf_insert
+
+
 def main() -> None:
     import torch
 
@@ -138,7 +330,7 @@ def main() -> None:
     cam = PinholeCamera.create(fx=520.0, fy=520.0, cx=WIDTH / 2 - 0.5,
                                cy=HEIGHT / 2 - 0.5)
     room = TexturedRoom(np.random.default_rng(3), tex_res=64, octaves=2)
-    poses = orbit_trajectory(N_FRAMES, radius=2.0, step=0.02, start=-0.35,
+    poses = orbit_trajectory(N_KF_FRAMES, radius=2.0, step=0.02, start=-0.35,
                              target=(0.0, 0.0, 2.0))
     t0 = time.perf_counter()
     frames = [room.render(cam, R, t, WIDTH, HEIGHT) for R, t in poses]
@@ -147,7 +339,7 @@ def main() -> None:
     # ---- 3. K1 against plain ---------------------------------------------
     thr = torch.tensor(fe.threshold, dtype=torch.float32, device=dev)
     levels = build_pyramid(torch.from_numpy(frames[0]).to(dev), fe.num_levels)
-    timed = []      # (label, kernel call, plain call), timed in phase 6
+    timed = []      # (label, kernel call, plain call), timed in phase 7
     k1_err = 0.0
     names = ("score_raw", "score_nms", "m10", "m01", "blurred")
     for lvl in levels:
@@ -194,10 +386,16 @@ def main() -> None:
     real = dict(desc_a=feats1.desc, valid_a=feats1.valid, desc_b=m_state.desc,
                 valid_b=m_state.valid, xy_a=feats1.xy, proj_b=proj)
     unguided = lambda c: {k: v for k, v in c.items() if k not in ("xy_a", "proj_b")}
+    # Keyframe insertion matches a frame's features to a window keyframe's
+    # without a gate, and re-observes the map guided at r=32.
+    kf_pair = dict(desc_a=feats1.desc, valid_a=feats1.valid, desc_b=seed_feats.desc,
+                   valid_b=seed_feats.valid)
     cases = [("real guided r=20", real, 20.0), ("real guided r=8", real, 8.0),
              ("real unguided", unguided(real), 0.0),
              ("random guided r=20", rand_case, 20.0),
-             ("random unguided", unguided(rand_case), 0.0)]
+             ("random unguided", unguided(rand_case), 0.0),
+             ("keyframe unguided", kf_pair, 0.0),
+             ("keyframe guided r=32", real, 32.0)]
     for name, case, r in cases:
         got = match_cuda.match_reduce(**case, radius_px=r)
         want = match_reduce_plain(**case, radius_px=r)
@@ -212,6 +410,12 @@ def main() -> None:
     timed.append(("K2 real guided r=20",
                   lambda: match_cuda.match_reduce(**real, radius_px=20.0),
                   lambda: match_reduce_plain(**real, radius_px=20.0)))
+    timed.append(("K2 keyframe unguided 2048x2048",
+                  lambda: match_cuda.match_reduce(**kf_pair),
+                  lambda: match_reduce_plain(**kf_pair)))
+    timed.append(("K2 keyframe guided r=32",
+                  lambda: match_cuda.match_reduce(**real, radius_px=32.0),
+                  lambda: match_reduce_plain(**real, radius_px=32.0)))
 
     # ---- 5. the slice on the card ----------------------------------------
     torch.cuda.synchronize()
@@ -243,7 +447,7 @@ def main() -> None:
 
     tracked = sum(s.tracking for s in stats)
     est = vo.positions
-    gt = _centres([p[0] for p in poses[1:]], [p[1] for p in poses[1:]])
+    gt = _centres([p[0] for p in poses[1:N_FRAMES]], [p[1] for p in poses[1:N_FRAMES]])
     if est.shape != (N_FRAMES - 1, 3) or not np.isfinite(est).all():
         raise AssertionError(f"trajectory shape {est.shape} or non-finite")
     err = np.linalg.norm(est - gt, axis=1)
@@ -277,9 +481,16 @@ def main() -> None:
     if not (dc < 2e-3 and din <= 0.02):
         raise AssertionError("card and CPU plain path disagree")
 
-    # ---- 6. kernel times -----------------------------------------------------
+    # ---- 6. keyframes and windowed BA on the card -------------------------
+    kf_launches, kf_insert = _keyframe_phase(cam, room, poses, frames, dev, smi)
+
+    # ---- 7. kernel times -----------------------------------------------------
     # Last: once the profiler has run in a process, every later launch
     # costs more on the host, which would distort the tracked fps above.
+    ins_wall = _time_ms(kf_insert, reps=5, warmup=1)
+    ins_dev = _device_ms(kf_insert, reps=5)
+    print(f"one keyframe insertion (window full, BA included): wall {ins_wall:.3f} ms, "
+          f"device {ins_dev:.3f} ms, card busy {100 * ins_dev / ins_wall:.1f}%  [{smi}]")
     ms = {}
     for label, run_k, run_p in timed:
         ms[label] = (_device_ms(run_k), _device_ms(run_p))
@@ -296,12 +507,13 @@ def main() -> None:
         {"name": "fast_score_map_fused", "route": "cuda",
          "source": "tinyslam_tpu_torch/csrc/fast.cu",
          "replaces": "tinyslam_tpu/ops/fast_pallas.py:258",
-         "launches": launches["fast_score_map_fused"],
+         "launches": launches["fast_score_map_fused"] + kf_launches["fast_score_map_fused"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
         {"name": "match_reduce_streaming", "route": "cuda",
          "source": "tinyslam_tpu_torch/csrc/match.cu",
          "replaces": "tinyslam_tpu/ops/match_pallas.py:140",
-         "launches": launches["match_reduce_streaming"],
+         "launches": launches["match_reduce_streaming"]
+         + kf_launches["match_reduce_streaming"],
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -80,6 +80,19 @@ def test_match_kernel_equal(dev, n, m, guided):
         assert torch.equal(g, w.to(g.dtype)), name
 
 
+@pytest.mark.parametrize("n,m,guided,radius", [(2048, 2048, False, 0.0),
+                                               (2048, 8192, True, 32.0)],
+                         ids=["keyframe unguided", "keyframe guided r=32"])
+def test_match_kernel_equal_at_keyframe_shapes(dev, n, m, guided, radius):
+    """Keyframe insertion matches 2048 features to a keyframe's 2048
+    without a gate, and re-observes the map guided at r=32."""
+    case = _match_case(n * 3 + m, n, m, guided, dev)
+    got = match_cuda.match_reduce(**case, radius_px=radius)
+    want = hamming.match_reduce_plain(**case, radius_px=radius)
+    for name, g, w in zip(("best", "second", "idx_b", "col_idx"), got, want):
+        assert torch.equal(g, w.to(g.dtype)), name
+
+
 def test_explicit_pair_mask_raises_on_cuda(dev):
     case = _match_case(0, 16, 32, False, dev)
     with pytest.raises(NotImplementedError):
@@ -87,10 +100,12 @@ def test_explicit_pair_mask_raises_on_cuda(dev):
                                                              device=dev))
 
 
-def test_small_slice_card_matches_cpu(dev):
+@pytest.mark.parametrize("keyframes", [False, True])
+def test_small_slice_card_matches_cpu(dev, keyframes):
     """The slice on the card (kernels) and on the CPU (plain versions):
-    equal features and tracking flags, matches and inliers within 2%."""
-    tcfg = P.torch_config()
+    equal features, tracking and keyframe flags and landmark counts,
+    matches and inliers within 2%.  With keyframes, frame 3 inserts one."""
+    tcfg = P.torch_config(keyframes)
     frames, poses, room = P.orbit(5)
     feats = extract_features(torch.from_numpy(frames[0]), 0.06, tcfg.frontend)
     xy = feats.xy[feats.valid].numpy().astype(np.float64)
@@ -106,3 +121,4 @@ def test_small_slice_card_matches_cpu(dev):
     np.testing.assert_array_equal(sg[:, [0, 3, 4, 5]], sc[:, [0, 3, 4, 5]])
     np.testing.assert_allclose(sg[:, 1:3], sc[:, 1:3], rtol=0.02)
     np.testing.assert_allclose(gpu["t"].cpu().numpy(), cpu["t"].numpy(), atol=1e-4)
+    assert sc[:, 4].sum() == int(keyframes)

@@ -179,13 +179,24 @@ def test_lost_frame_raises_relocalization(slice_run):
                    torch.from_numpy(_FRAMES[1]))
 
 
-def test_keyframe_needed_raises_under_default_vo_config(slice_run):
+def test_keyframe_needed_inserts_keyframe_0_under_default_vo_config(slice_run):
     _, kcfg = P.configs(keyframes=True)          # default keyframe policy
     # 138 inliers < keyframe_min_inliers, past keyframe_min_interval.
     state = VOState.from_numpy(slice_run["seed"]).replace(
         frames_since_kf=torch.tensor(3, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="keyframe insertion"):
-        track_step(slice_run["cam"], kcfg, state, torch.from_numpy(_FRAMES[1]))
+    new, ys = track_step(slice_run["cam"], kcfg, state, torch.from_numpy(_FRAMES[1]))
+    s = dict(zip(SUMMARY_FIELDS, ys["summary"].tolist()))
+    assert s["tracking"] == 1 and s["is_keyframe"] == 1
+    assert int(new.num_keyframes) == 1 and int(new.frames_since_kf) == 0
+    assert new.win_valid.tolist() == [True] + [False] * (len(new.win_valid) - 1)
+    assert int(new.win_kf_id[0]) == 0
+    assert torch.equal(new.win_R[0], new.R) and torch.equal(new.kf_ring.valid[0],
+                                                             new.win_feats.valid[0])
+    # The seeded window is empty, so keyframe 0 triangulates nothing; its
+    # observations of the seeded map are recorded in slot 0.
+    assert s["num_landmarks"] == int(state.map.valid.sum())
+    assert int(new.win_mask[0].sum()) > 100
+    assert int((new.map.last_seen == 0).sum()) == int(new.win_mask[0].sum())
 
 
 def test_device_vo_needs_a_state(slice_run):

@@ -25,21 +25,41 @@ NO_KEYFRAMES = dict(keyframe_min_inliers=0, keyframe_critical_inliers=0,
                     keyframe_max_interval=2**30)
 
 
-def torch_config(keyframes: bool = False):
-    """The port's SlamConfig of the small set-up (no JAX import)."""
+def _config(c, keyframes: bool, ba: dict):
+    vo = dict(max_map_points=MAP_POINTS, **({} if keyframes else NO_KEYFRAMES))
+    return c.SlamConfig(frontend=c.FrontendConfig(**FRONTEND), vo=c.VOConfig(**vo),
+                        ba=c.BAConfig(**ba))
+
+
+def torch_config(keyframes: bool = False, **ba):
+    """The port's SlamConfig of the small set-up (no JAX import); ``ba``
+    overrides BAConfig fields."""
     from tinyslam_tpu_torch import config as tc
 
-    vo = dict(max_map_points=MAP_POINTS, **({} if keyframes else NO_KEYFRAMES))
-    return tc.SlamConfig(frontend=tc.FrontendConfig(**FRONTEND), vo=tc.VOConfig(**vo))
+    return _config(tc, keyframes, ba)
 
 
-def configs(keyframes: bool = False):
+def configs(keyframes: bool = False, **ba):
     """(JAX SlamConfig, torch SlamConfig) of the small set-up."""
     from tinyslam_tpu import config as jc
 
-    vo = dict(max_map_points=MAP_POINTS, **({} if keyframes else NO_KEYFRAMES))
-    return (jc.SlamConfig(frontend=jc.FrontendConfig(**FRONTEND), vo=jc.VOConfig(**vo)),
-            torch_config(keyframes))
+    return _config(jc, keyframes, ba), torch_config(keyframes, **ba)
+
+
+FEATURE_FIELDS = ("xy", "level", "angle", "score", "desc", "valid")
+
+
+def features_numpy(f) -> dict:
+    """The JAX package's Features as a dict of numpy arrays (uint32 desc)."""
+    return {k: np.asarray(getattr(f, k)) for k in FEATURE_FIELDS}
+
+
+def jax_features(d: dict):
+    """The JAX package's Features from a dict of numpy arrays."""
+    import jax.numpy as jnp
+    from tinyslam_tpu.types import Features
+
+    return Features(**{k: jnp.asarray(d[k]) for k in FEATURE_FIELDS})
 
 
 def cameras():

@@ -9,9 +9,10 @@ images, (N, 2) xy, (N, 8) packed descriptors).  This package imports
 - ``ops``       image ops, FAST (plain + ``fast_cuda`` kernel), top-k,
                 binned BRIEF, Hamming matching (plain + ``match_cuda``).
 - ``frontend``  ``extract_features``, ``adapt_threshold``, ``OrbFrontend``.
-- ``geometry``  pinhole camera, SE(3), Gauss-Newton PnP.
-- ``models``    ``MapState``, ``VOState``, ``track_step``, ``track_chunk``,
-                ``DeviceVO``.
+- ``geometry``  pinhole camera, SE(3), Gauss-Newton PnP, triangulation.
+- ``backend``   BA residuals and the Schur-complement LM bundle adjustment.
+- ``models``    ``MapState``, ``VOState``, ``track_step`` (keyframes and
+                windowed BA included), ``track_chunk``, ``DeviceVO``.
 - ``data``      the numpy room renderer and orbit trajectories.
 """
 

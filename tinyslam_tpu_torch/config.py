@@ -174,8 +174,8 @@ _TYPES = {c.__name__: c for c in (
 def slice_config(base: SlamConfig | None = None) -> SlamConfig:
     """``base`` (default: full-width ``SlamConfig()``) with keyframe
     insertion switched off through existing VOConfig fields, so that
-    ``need_kf`` is always false: the tracked-frame slice this package
-    ports."""
+    ``need_kf`` is always false: the tracked frame alone, which
+    ``chip_smoke.py`` times as the keyframe-off tracked-fps series."""
     base = base or SlamConfig()
     return base.replace(vo=base.vo.replace(
         keyframe_min_inliers=0, keyframe_critical_inliers=0,

@@ -1,1 +1,1 @@
-"""Pinhole camera, SE(3) and PnP."""
+"""Pinhole camera, SE(3), PnP and two-view triangulation."""

@@ -1,21 +1,20 @@
-"""Device-resident visual odometry: the tracked frame (mirrors
-``tinyslam_tpu/models/vo_device.py:VOState, track_step, track_chunk,
-DeviceVO``).
+"""Device-resident visual odometry: tracking, keyframe insertion and
+windowed bundle adjustment (mirrors ``tinyslam_tpu/models/vo_device.py:
+VOState, track_step, track_chunk, DeviceVO`` and its keyframe helpers).
 
 The JAX package compiles all per-frame control flow into ``lax.cond`` and
-runs a chunk of frames as one ``lax.scan``.  Here the two data-dependent
-decisions of a tracked frame are Python ``if`` statements on device
-scalars: whether the last frame tracked, and whether the second PnP pass
-runs.  A third read checks ``need_kf``, so each tracked frame synchronizes
-with the device three times; everything else (pose update, velocity
-model, adaptive threshold, summary row) stays on the device.
+runs a chunk of frames as one ``lax.scan``.  Here the data-dependent
+decisions are Python ``if`` statements on device scalars: whether the last
+frame tracked, whether the second PnP pass runs, whether the frame becomes
+a keyframe, and on a keyframe whether the window holds the three keyframes
+BA needs.  So a frame synchronizes with the device three times, a keyframe
+four; everything else (pose update, velocity model, adaptive threshold,
+window roll, slot choice, BA accepts, the summary row) is ``torch.where``
+on the device, and no 0-d index tensor is read back (``row``/``set_row``).
 
-Ported: guided matching, two-pass PnP, pose/velocity update, adaptive
-threshold.  Not ported yet, and raising ``NotImplementedError`` where the
-JAX package would run them: relocalization (``last_tracking`` false),
-keyframe insertion with windowed BA (``need_kf`` true) and the two-view
-bootstrap that creates the first state.  ``VOState`` already carries every
-field those parts use.
+Not ported yet, and raising ``NotImplementedError`` where the JAX package
+would run them: relocalization (``last_tracking`` false) and the two-view
+bootstrap that creates the first state.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tinyslam_tpu_torch.backend.ba import bundle_adjust
 from tinyslam_tpu_torch.config import SlamConfig
 from tinyslam_tpu_torch.frontend.orb import adapt_threshold, extract_features
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
@@ -36,20 +36,32 @@ from tinyslam_tpu_torch.geometry.se3 import (
     se3_inverse,
     se3_log,
 )
-from tinyslam_tpu_torch.models.vo import MapState, VOStats, _match_to_map, _track_pnp
+from tinyslam_tpu_torch.models.vo import (
+    MapState,
+    VOStats,
+    _last_writer,
+    _match_to_map,
+    _record_obs,
+    _scatter_set,
+    _track_pnp,
+    _triangulate_and_insert,
+    row,
+    set_row,
+)
+from tinyslam_tpu_torch.ops.hamming import match_descriptors
 from tinyslam_tpu_torch.types import Features, from_numpy, to_numpy
 
-# Ring of per-keyframe features (the keyframe slice uses it).
+# Ring of per-keyframe features, slot kf_id % KF_RING; it must cover the
+# keyframes of one chunk (at most one a frame), so chunk <= KF_RING.
 KF_RING = 32
 
 _RELOC_TODO = ("relocalization (PnP-RANSAC after a lost frame) is not ported "
                "yet; see ROADMAP.md queue 1, relocalization")
-_KEYFRAME_TODO = ("keyframe insertion with windowed BA is not ported yet; "
-                  "see ROADMAP.md queue 1, keyframe insertion")
 _BOOTSTRAP_TODO = ("the two-view bootstrap is not ported yet (ROADMAP.md "
                    "queue 1, bootstrap): assign DeviceVO.state a VOState "
                    "built from a seeded map first")
 
+_FEATURE_FIELDS = tuple(f.name for f in dataclasses.fields(Features))
 _TENSOR_FIELDS = ("win_R", "win_t", "win_obs", "win_mask", "win_valid",
                   "win_kf_id", "R", "t", "vel_R", "vel_t", "num_keyframes",
                   "frames_since_kf", "frame_idx", "last_tracking", "threshold")
@@ -174,16 +186,160 @@ def _select(pred: torch.Tensor, a, b):
     return torch.where(pred, a, b)
 
 
+def _newest_slot(win_kf_id: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(win_kf_id)
+
+
+def _record_kf_obs(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
+                   slot: torch.Tensor, feats: Features) -> VOState:
+    """Match a window keyframe's features to the map, guided by its pose at
+    a wider radius than tracking (re-observing old landmarks re-anchors
+    them in the BA window), gate by reprojection, store the window
+    observations and refresh descriptors, obs_count and last_seen."""
+    R, t = row(state.win_R, slot), row(state.win_t, slot)
+    idx, mvalid = _match_to_map(
+        feats, state.map, cfg.matcher.max_distance, cfg.matcher.ratio,
+        cam=cam, R=R, t=t, radius_px=32.0)
+    win_obs, win_mask, gated = _record_obs(
+        state.win_obs, state.win_mask, slot, idx, feats.xy, mvalid,
+        cam=cam, map_X=state.map.X, R=R, t=t)
+    m = state.map
+    ix = idx.long()
+    writer = _last_writer(ix, m.desc.shape[0])
+    kf_id = row(state.win_kf_id, slot)
+    return state.replace(
+        win_obs=win_obs, win_mask=win_mask,
+        map=m.replace(
+            desc=_scatter_set(m.desc, writer,
+                              torch.where(gated[:, None], feats.desc, m.desc[ix])),
+            obs_count=m.obs_count.index_add(0, ix, gated.to(torch.int32)),
+            last_seen=_scatter_set(m.last_seen, writer,
+                                   torch.where(gated, kf_id, m.last_seen[ix]))))
+
+
+def _push_keyframe(state: VOState, R, t, feats: Features,
+                   kf_id) -> tuple[VOState, torch.Tensor]:
+    """Put a keyframe into the window: roll every window array when the
+    window is full (slot order = age) and write the last slot, else write
+    the first free slot.  Returns the state and the slot."""
+    K = state.win_valid.shape[0]
+    full = state.win_valid.all()
+
+    def rolled(x):
+        return torch.where(full, torch.roll(x, -1, 0), x)
+
+    win_valid = rolled(state.win_valid)
+    slot = torch.where(full, torch.full_like(kf_id, K - 1, dtype=torch.long),
+                       torch.argmin(win_valid.to(torch.int32)))
+    return state.replace(
+        win_R=set_row(rolled(state.win_R), slot, R),
+        win_t=set_row(rolled(state.win_t), slot, t),
+        win_obs=set_row(rolled(state.win_obs), slot, 0.0),
+        win_mask=set_row(rolled(state.win_mask), slot, False),
+        win_valid=set_row(win_valid, slot, True),
+        win_kf_id=set_row(rolled(state.win_kf_id), slot, kf_id),
+        win_feats=Features(**{
+            f: set_row(rolled(getattr(state.win_feats, f)), slot, getattr(feats, f))
+            for f in _FEATURE_FIELDS}),
+    ), slot
+
+
+def _local_ba(cam: PinholeCamera, cfg: SlamConfig, state: VOState) -> VOState:
+    """Windowed BA over the ``cfg.ba.max_landmarks`` window landmarks with
+    the most observations (ties to the lowest slot, as ``lax.top_k``); the
+    first two window slots fix the gauge.  Updated points scatter back;
+    the current pose becomes the newest keyframe's."""
+    K = cfg.ba.max_keyframes
+    C = min(cfg.ba.max_landmarks, cfg.vo.max_map_points)
+    dev = state.device
+    pose_free = state.win_valid & (torch.arange(K, device=dev) >= 2)
+    z = state.win_obs.transpose(0, 1)                   # (M, K, 2)
+    mask = state.win_mask.T & state.win_valid[None, :]
+    obs_cnt = mask.sum(1, dtype=torch.int32)
+    score = torch.where(state.map.valid & (obs_cnt >= 2), obs_cnt,
+                        torch.full_like(obs_cnt, -1))
+    sel = torch.sort(score, descending=True, stable=True).indices[:C]
+    sel_ok = score[sel] > 0
+    X_sel = state.map.X[sel]
+    out = bundle_adjust(
+        cam, state.win_R, state.win_t, X_sel, z[sel], mask[sel], pose_free,
+        point_valid=sel_ok, max_iters=cfg.ba.max_iters, huber=cfg.ba.huber_delta,
+        lam0=cfg.ba.damping_init, lam_up=cfg.ba.damping_up,
+        lam_down=cfg.ba.damping_down)
+    X_new = state.map.X.index_copy(
+        0, sel, torch.where(sel_ok[:, None], out["X"], X_sel))
+    newest = _newest_slot(state.win_kf_id)
+    return state.replace(
+        win_R=out["R"], win_t=out["t"], map=state.map.replace(X=X_new),
+        R=row(out["R"], newest), t=row(out["t"], newest))
+
+
+def _cull_landmarks(state: VOState, kf_id, max_age: int = 10,
+                    min_obs: int = 2) -> VOState:
+    age = kf_id - state.map.last_seen
+    weak = (state.map.obs_count < min_obs) & (age > max_age)
+    return state.replace(map=state.map.replace(valid=state.map.valid & ~weak))
+
+
+def _best_baseline_slot(state: VOState) -> torch.Tensor:
+    """Window slot whose camera centre lies farthest from the current one:
+    back-to-back keyframes triangulate nothing."""
+    C_cur = -(state.R.T @ state.t)
+    C_win = -torch.einsum("kij,ki->kj", state.win_R, state.win_t)  # (K, 3)
+    d = torch.linalg.norm(C_win - C_cur, dim=-1)
+    return torch.argmax(torch.where(state.win_valid, d, torch.full_like(d, -1.0)))
+
+
+def _insert_keyframe(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
+                     feats: Features, match_valid, inliers) -> VOState:
+    """Make the current frame a keyframe: triangulate new landmarks against
+    the newest and the widest-baseline window keyframes (the first matches
+    best, the second triangulates best; the gates keep what is well
+    conditioned), push it into the window, record its observations, cull
+    weak landmarks, and run the windowed BA once three keyframes exist."""
+    kf_id = state.num_keyframes
+    already = match_valid & inliers
+    for ref in (_newest_slot(state.win_kf_id), _best_baseline_slot(state)):
+        ref_feats = state.win_feats.map(lambda x: row(x, ref))
+        m = match_descriptors(
+            feats.desc, feats.valid, ref_feats.desc, ref_feats.valid,
+            max_distance=cfg.matcher.max_distance, ratio=cfg.matcher.ratio,
+            cross_check=True)
+        new_map, _ = _triangulate_and_insert(
+            cam, state.map, kf_id, state.R, state.t, feats,
+            row(state.win_R, ref), row(state.win_t, ref), ref_feats,
+            m["idx_b"], m["valid"], already,
+            max_new=cfg.frontend.features_per_level,
+            band_lo=cfg.vo.tri_band_lo, band_hi=cfg.vo.tri_band_hi,
+            dup_radius_px=cfg.vo.dup_radius_px, local_band=cfg.vo.tri_local_band)
+        state = state.replace(map=new_map)
+        # Second-view registration of the landmarks just triangulated.
+        state = _record_kf_obs(cam, cfg, state, ref, ref_feats)
+    state, slot = _push_keyframe(state, state.R, state.t, feats, kf_id)
+    state = _record_kf_obs(cam, cfg, state, slot, feats)
+    ring_slot = torch.remainder(kf_id, KF_RING)
+    state = state.replace(
+        num_keyframes=kf_id + 1,
+        frames_since_kf=torch.zeros_like(state.frames_since_kf),
+        kf_ring=Features(**{
+            f: set_row(getattr(state.kf_ring, f), ring_slot, getattr(feats, f))
+            for f in _FEATURE_FIELDS}))
+    state = _cull_landmarks(state, kf_id)
+    if bool(state.win_valid.sum() >= 3):                    # sync 4
+        state = _local_ba(cam, cfg, state)
+    return state
+
+
 def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
                image: torch.Tensor) -> tuple[VOState, dict]:
-    """One tracked frame.  Mirrors the tracking branch of the JAX
-    ``track_step`` decision for decision.
+    """One tracked frame, a keyframe where the policy asks for one.
+    Mirrors the JAX ``track_step`` decision for decision.
 
     ``image`` (H, W) is float in [0, 1] or uint8, on the state's device.
     Returns the new state and {"R", "t", "summary"} (summary as in
-    ``SUMMARY_FIELDS``).  Raises ``NotImplementedError`` where the JAX
-    package would relocalize or insert a keyframe; ``state`` is then left
-    as it was.
+    ``SUMMARY_FIELDS``; ``num_landmarks`` counts after insertion and
+    culling).  Raises ``NotImplementedError`` where the JAX package would
+    relocalize; ``state`` is then left as it was.
     """
     if image.dtype == torch.uint8:
         image = image.to(torch.float32) * (1.0 / 255.0)
@@ -246,7 +402,8 @@ def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
            & (frames_since_kf >= vo.keyframe_min_interval))
         | (n_in < vo.keyframe_critical_inliers))
     if bool(need_kf):                                        # sync 3
-        raise NotImplementedError(_KEYFRAME_TODO)
+        new_state = _insert_keyframe(cam, cfg, new_state, feats, mvalid,
+                                     out["inliers"])
 
     summary = torch.stack([
         feats.count.to(torch.float32),
@@ -369,6 +526,17 @@ class DeviceVO:
             self.process(im)
         self.flush()
         return self.stats
+
+    @property
+    def num_keyframes(self) -> int:
+        return 0 if self.state is None else int(self.state.num_keyframes)
+
+    @property
+    def map(self) -> MapState:
+        """Landmark slotmap (on the state's device); empty before a state."""
+        if self.state is None:
+            return MapState.empty(self.cfg.vo.max_map_points)
+        return self.state.map
 
     @property
     def positions(self) -> np.ndarray:

@@ -1,0 +1,124 @@
+"""The JAX reference on chip_smoke.py's keyframe sequence.
+
+Runs ``tinyslam_tpu``'s ``track_chunk`` (default ``SlamConfig()``, 640x480)
+on the CPU over the seeded bench orbit that ``chip_smoke.py`` phase 6
+tracks with the PyTorch port: frame 0's features at their ray-cast 3D
+points seed the map, frames 1..N-1 are tracked.  Prints one line per frame
+(summary row and camera-centre error against ground truth) and the max
+error, which ``chip_smoke.REF_MAX_ERR`` holds.
+
+    python tools/jax_reference_orbit.py --frames 189 [--out ref.json]
+
+Full width takes about 3 minutes and a few GB on an 8-core CPU.  Where
+``flax`` is not installed, a minimal stand-in for ``flax.struct`` (a frozen
+dataclass registered as a pytree, all the JAX package uses of flax) is put
+in its place.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+import types
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _flax_stand_in() -> None:
+    import jax
+
+    def dataclass(cls):
+        cls = dataclasses.dataclass(frozen=True)(cls)
+        names = [f.name for f in dataclasses.fields(cls)]
+        jax.tree_util.register_pytree_node(
+            cls, lambda x: ([getattr(x, n) for n in names], None),
+            lambda _, children: cls(*children))
+        cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+        return cls
+
+    struct = types.ModuleType("flax.struct")
+    struct.dataclass = dataclass
+    flax = types.ModuleType("flax")
+    flax.struct = struct
+    sys.modules.update({"flax": flax, "flax.struct": struct})
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=189)
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args()
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    try:
+        import flax.struct  # noqa: F401
+    except ImportError:
+        _flax_stand_in()
+    import jax.numpy as jnp
+    import torch
+
+    import chip_smoke
+    import torch_parity as P
+    from tinyslam_tpu.config import SlamConfig as JaxSlamConfig
+    from tinyslam_tpu.frontend.orb import extract_features
+    from tinyslam_tpu.geometry.camera import PinholeCamera as JaxCamera
+    from tinyslam_tpu.models.vo_device import track_chunk
+    from tinyslam_tpu_torch import SlamConfig
+    from tinyslam_tpu_torch.data.synthetic import TexturedRoom, orbit_trajectory
+    from tinyslam_tpu_torch.geometry.camera import PinholeCamera
+    from tinyslam_tpu_torch.models.vo_device import VOState
+    from tinyslam_tpu_torch.types import Features
+
+    n = args.frames
+    w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
+    cam = PinholeCamera.create(fx=520.0, fy=520.0, cx=w / 2 - 0.5, cy=h / 2 - 0.5)
+    jcam = JaxCamera.create(520.0, 520.0, w / 2 - 0.5, h / 2 - 0.5)
+    room = TexturedRoom(np.random.default_rng(3), tex_res=64, octaves=2)
+    poses = orbit_trajectory(n, radius=2.0, step=0.02, start=-0.35,
+                             target=(0.0, 0.0, 2.0))
+    t0 = time.perf_counter()
+    frames = [room.render(cam, R, t, w, h) for R, t in poses]
+    print(f"jax {jax.__version__}; rendered {n} frames in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    jcfg = JaxSlamConfig()
+    f0 = extract_features(jnp.asarray(frames[0]), jnp.float32(jcfg.frontend.threshold),
+                          jcfg.frontend)
+    feats = Features.from_numpy(P.features_numpy(f0))
+    xy = feats.xy[feats.valid].numpy().astype(np.float64)
+    X = torch.from_numpy(room.raycast(cam, *poses[0], xy).astype(np.float32))
+    R0, t0_ = (torch.from_numpy(np.asarray(a, np.float32)) for a in poses[0])
+    seed = VOState.seeded(SlamConfig(), feats, X, R0, t0_).to_numpy()
+    t0 = time.perf_counter()
+    _, ys = track_chunk(jcam, jcfg, P.jax_state(seed), jnp.asarray(np.stack(frames[1:])),
+                        jnp.ones(n - 1, bool))
+    ys = {k: np.asarray(v) for k, v in ys.items()}
+    print(f"tracked {n - 1} frames in {time.perf_counter() - t0:.1f} s (compile included)")
+
+    s = ys["summary"]
+    err = np.linalg.norm(np.einsum("nji,nj->ni", ys["R"], -ys["t"])
+                         - np.stack([-R.T @ t for R, t in poses[1:]]), axis=1)
+    for i in range(n - 1):
+        print(i + 1, s[i].tolist(), float(err[i]))
+    lost = np.flatnonzero(s[:, 3] < 0.5)
+    result = {"frames": n, "max_err": float(err.max()),
+              "keyframes": (np.flatnonzero(s[:, 4]) + 1).tolist(),
+              "first_lost": int(lost[0] + 1) if len(lost) else None,
+              "err": err.tolist(), "summary": s.tolist()}
+    print(f"max centre error {result['max_err']}; keyframes at {result['keyframes']}; "
+          f"first lost frame {result['first_lost']}")
+    if args.out is not None:
+        args.out.write_text(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()
