@@ -9,8 +9,10 @@ Phases, in order; any failure raises and the script exits nonzero:
   3. K1, the fused FAST kernel, against its plain PyTorch version on the
      four pyramid levels of a rendered 640x480 frame;
   4. K2, the streaming Hamming matcher, against its plain version at
-     N=2048 features x M=8192 map points, guided (r=20, 8 and the
-     keyframes' 32) and unguided, and at the keyframes' 2048 x 2048;
+     N=2048 features x M=8192 map points, guided (r=20, 8, the keyframes'
+     32 and the relocalization's 64) and unguided (the global
+     relocalization), and at the keyframes' and the two-view bootstrap's
+     2048 x 2048;
   5. the tracked-frame slice at full width with keyframes off
      (``slice_config()``): frame 0 seeds the map at its ray-cast 3D points,
      DeviceVO tracks frames 1-24 of the bench orbit on the card; every
@@ -31,7 +33,21 @@ Phases, in order; any failure raises and the script exits nonzero:
      (4 on a keyframe);
   7. the kernels and their plain versions timed at the shapes of phases
      3 and 4 (device time from the profiler, wall time per call), and the
-     device time of one keyframe insertion.
+     device time of one keyframe insertion and of one relocalization frame;
+  8. DeviceVO from frame 0 under the default ``SlamConfig()``, no state
+     handed over: (a) the host-phase two-view bootstrap must succeed within
+     14 frames; (b) every later frame to 100 must track, the Sim(3)-aligned
+     ATE over frames 14-100 within 2 cm of the JAX reference's own
+     (``REF_BOOT_ATE``); (c) the same run on the CPU plain path with the same
+     draws bootstraps on the same frame with the same landmarks, poses
+     within 2e-3 over the next 16 frames; (d) a relocalization forced after
+     a flush at frame 60 tracks, within 4 syncs (5 on a keyframe); (e) a
+     kidnap (relocalization forced, then a frame 10 orbit steps ahead,
+     beyond the guided radius) is re-acquired by the global fallback; (f)
+     8 blank frames reboot the tracker, and the host phase bootstraps a
+     second submap anchored at the last tracked pose; (g) K1 launches 4
+     times a frame, host-phase frames included, and K2 at least once per
+     bootstrap attempt and per relocalization attempt.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -54,6 +70,16 @@ N_CPU_KF = 53          # phase 6 frames held against the CPU: 3 keyframes, 1 BA
 # SlamConfig, on the CPU) over phase 6's seeded frames 1-188:
 # python tools/jax_reference_orbit.py --frames 189 (see PERF.md).
 REF_MAX_ERR = 3.6051011085510254
+N_BOOT_FRAMES = 101    # phase 8: DeviceVO from frame 0 to frame 100
+BOOT_BUDGET = 14       # the bootstrap must succeed within this many frames
+RELOC_FRAME = 60       # phase 8d: relocalization forced after a flush
+KIDNAP_STEPS = 10      # phase 8e: the frame fed after frame 100
+N_BLANK = 8            # phase 8f: blank frames, = reloc_max_frames
+N_CPU_BOOT = 16        # phase 8c: frames after the bootstrap held against the CPU
+# Sim(3)-aligned ATE of the JAX reference's DeviceVO from frame 0 over
+# frames 14-100 of the orbit: python tools/jax_reference_orbit.py
+# --bootstrap --frames 101 (see PERF.md).
+REF_BOOT_ATE = 0.28026400986635236
 K1_EXACT = ("score_raw", "score_nms")
 K1_TOL = {"m10": 1e-4, "m01": 1e-4, "blurred": 1e-6}   # absolute
 
@@ -91,14 +117,15 @@ def _device_ms(fn, reps: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / reps / 1e3
+    for _ in range(3):      # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages())
+        if us > 0:
+            return us / reps / 1e3
+    raise RuntimeError("the profiler recorded no device time in three traces")
 
 
 def _centres(R, t) -> np.ndarray:
@@ -150,6 +177,7 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
     from tinyslam_tpu_torch.models.vo_device import SUMMARY_FIELDS, DeviceVO, VOState
     from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
     from tinyslam_tpu_torch.ops.hamming import match_descriptors
+    from tinyslam_tpu_torch.utils.draws import Sampler
 
     cfg = SlamConfig()
     fe = cfg.frontend
@@ -162,7 +190,7 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
     feats0 = extract_features(torch.from_numpy(frames[0]).to(dev), thr, fe)
     seed = _seeded(cfg, feats0, room, cam, poses[0])
     n_seed = int(seed.map.valid.sum())
-    vo = DeviceVO(cfg, cam, chunk=CHUNK)
+    vo = DeviceVO(cfg, cam, chunk=CHUNK, device=dev)
     vo.state = seed
     chunk_s = []    # the first chunk is the warm-up
     for c in range(n // CHUNK):
@@ -205,7 +233,7 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
         torch.cuda.synchronize()
         t_start = time.perf_counter()
         (state, ys), k = _with_sync_count(
-            lambda: vd.track_step(cam, cfg, state, images[i]))
+            lambda: vd.track_step(cam, cfg, state, images[i], Sampler(0)))
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t_start) * 1e3)
         syncs.append(k)
@@ -254,7 +282,7 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
     cpu_state = VOState.from_numpy(seed.to_numpy(), "cpu")
     _, ys = vd.track_chunk(cam, cfg, cpu_state,
                            torch.from_numpy(np.stack(frames[1:1 + N_CPU_KF])),
-                           [True] * N_CPU_KF)
+                           [True] * N_CPU_KF, Sampler(0))
     s_cpu = ys["summary"].numpy()
     cpu_c = _centres(ys["R"].numpy(), ys["t"].numpy())
     dc = float(np.abs(cpu_c - est[:N_CPU_KF]).max())
@@ -290,6 +318,299 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
     return launches, kf_insert
 
 
+def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
+    """Phase 8: DeviceVO from frame 0, no state handed over (the default
+    SlamConfig() unless ``cfg``): bootstrap, tracking, the CPU comparison, a
+    forced relocalization, a kidnap and a reboot.  Returns the kernels'
+    launch counts of the run and a callable that tracks one relocalization
+    frame (timed in phase 7)."""
+    import torch
+
+    from tinyslam_tpu_torch import SlamConfig
+    from tinyslam_tpu_torch.frontend.orb import extract_features
+    from tinyslam_tpu_torch.geometry.pnp import pnp_ransac
+    from tinyslam_tpu_torch.geometry.se3 import se3_compose
+    from tinyslam_tpu_torch.models import vo_device as vd
+    from tinyslam_tpu_torch.models.two_view import TwoViewEstimator
+    from tinyslam_tpu_torch.models.vo import VisualOdometry, _match_to_map
+    from tinyslam_tpu_torch.models.vo_device import SUMMARY_FIELDS, DeviceVO, VOState
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.utils.draws import Sampler
+    from tinyslam_tpu_torch.utils.evaluation import ate_rmse
+
+    class LoggingSampler(Sampler):
+        """Sampler(0) that records each draw's stream and K2's launch count
+        when it was drawn."""
+
+        def __init__(self):
+            super().__init__(0)
+            self.log = []             # (key, K2 launches so far)
+
+        def uniform(self, shape, device, key=None):
+            self.log.append((key, match_cuda.LAUNCHES))
+            return super().uniform(shape, device, key)
+
+    def clone_sampler(state):
+        out = Sampler()
+        out.generator.set_state(state)
+        return out
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t_start) * 1e3
+
+    cfg = SlamConfig() if cfg is None else cfg
+    col = {name: i for i, name in enumerate(SUMMARY_FIELDS)}
+    gt = _centres([p[0] for p in poses], [p[1] for p in poses])
+    blank = np.zeros_like(frames[0])
+    failures = []
+
+    sampler = LoggingSampler()
+    vo = DeviceVO(cfg, cam, chunk=CHUNK, device=dev, sampler=sampler)
+    fed, host_ms = [], []         # orbit index of each frame fed (None: blank)
+    calls = []                    # per process call: (K2 launches, log length) before it
+    boot = []                     # global frames where a bootstrap succeeded
+    boot_pair = None              # the first bootstrap's two views and draws
+
+    def feed(i):
+        nonlocal boot_pair
+        fed.append(i)
+        image = frames[i] if i is not None else blank
+        calls.append((match_cuda.LAUNCHES, len(sampler.log)))
+        if vo.initialized:
+            vo.process(image)
+            return
+        draws = sampler.generator.get_state()
+        _, ms = sync_ms(lambda: vo.process(image))
+        host_ms.append((len(fed) - 1, ms))
+        if vo.initialized:
+            boot.append(len(fed) - 1)
+            if boot_pair is None:
+                boot_pair = (vo._host.kf0_feats, vo._host.kf_feats, draws)
+
+    def per_attempt(kind):
+        """(frame fed, key, K2 launches) for each attempt of ``kind``
+        ("two_view" or "reloc"): the launches before its draw since the
+        start of the process call (or flush) it fell in, or since the
+        attempt before it there.  A two-view attempt draws E
+        after its match, then H; a relocalization attempt matches, then
+        draws.  Counted from the draws and the counters only."""
+        out = []
+        ends = [lo for _, lo in calls[1:]] + [len(sampler.log)]
+        for c, ((k2_start, lo), hi) in enumerate(zip(calls, ends)):
+            prev = k2_start
+            for key, k2 in sampler.log[lo:hi]:
+                if key[0] == "reloc" or key[-1] == "E":
+                    if key[0] == kind:
+                        out.append((c, key, k2 - prev))
+                    prev = k2
+        return out
+
+    torch.cuda.synchronize()
+    fast_cuda.LAUNCHES = 0
+    match_cuda.LAUNCHES = 0
+    # a, b, d: bootstrap, tracking to frame 100, a forced relocalization.
+    for i in range(RELOC_FRAME):
+        feed(i)
+    vo.flush()
+    snap_reloc = VOState.from_numpy(vo.state.to_numpy(), dev) if vo.initialized else None
+    gen_reloc = sampler.generator.get_state()
+    vo.force_reloc = True
+    n_calls = len(calls)
+    for i in range(RELOC_FRAME, N_BOOT_FRAMES):
+        feed(i)
+    vo.flush()
+    reloc_keys = [k for k, _ in sampler.log[calls[n_calls][1]:]
+                  if k[0] == "reloc" and int(k[1]) == RELOC_FRAME]
+    main_stats, main_pos = list(vo.stats), vo.positions.copy()
+    # e: the kidnap.
+    kid = N_BOOT_FRAMES - 1 + KIDNAP_STEPS
+    snap_kid = VOState.from_numpy(vo.state.to_numpy(), dev)
+    gen_kid = sampler.generator.get_state()
+    vo.force_reloc = True
+    feed(kid)
+    vo.flush()
+    kid_stat = vo.stats[-1]
+    for i in range(kid + 1, kid + 11):
+        feed(i)
+    vo.flush()
+    # f: blank frames, the reboot, a second submap.
+    last_tracked = max(j for j, st in enumerate(vo.stats) if st.tracking)
+    for _ in range(N_BLANK):
+        feed(None)
+    reboot_at = len(fed) - 1
+    for i in range(kid + 11, len(frames)):
+        feed(i)
+    vo.flush()
+    torch.cuda.synchronize()
+    launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
+                "match_reduce_streaming": match_cuda.LAUNCHES}
+    attempts = per_attempt("two_view")
+    reloc_attempts = per_attempt("reloc")
+    # The forced relocalizations (frames 60 and 101 of the first submap)
+    # open their chunk, so their counts are theirs alone.
+    forced = [n for c, key, n in reloc_attempts
+              if c < reboot_at and int(key[1]) in (RELOC_FRAME, N_BOOT_FRAMES)]
+
+    # a. The bootstrap.
+    if not boot or boot[0] >= BOOT_BUDGET:
+        raise AssertionError(f"phase 8: no bootstrap within {BOOT_BUDGET} frames "
+                             f"(attempts at {[c for c, _, _ in attempts]})")
+    b0 = boot[0]
+    # The winning attempt again, from the same two views and the same draws.
+    two_view = TwoViewEstimator(cam, cfg.matcher, cfg.ransac)
+    won = two_view.estimate(boot_pair[0], boot_pair[1], clone_sampler(boot_pair[2]), b0)
+    first = [c for c, _, _ in attempts if c <= b0]
+    att_ms = [ms for f, ms in host_ms if 3 <= f <= b0]
+    print(f"bootstrap at frame {b0}: model {won['model']}, "
+          f"{int(won['num_inliers'])} inliers, {main_stats[b0].num_landmarks} landmarks; "
+          f"attempts at frames {first}; host-phase ms per frame "
+          f"{[round(ms, 1) for f, ms in host_ms if f <= b0]}, per attempt "
+          f"{np.mean(att_ms):.1f}  [{smi}]")
+    # b. Tracking from the bootstrap to frame 100.
+    n_main = N_BOOT_FRAMES
+    lost = [j for j in range(b0, n_main) if not main_stats[j].tracking]
+    ate = ate_rmse(main_pos[BOOT_BUDGET:n_main], gt[BOOT_BUDGET:n_main])
+    print(f"tracked {n_main - b0 - len(lost)}/{n_main - b0} frames after the bootstrap, "
+          f"lost {lost}; {vo.num_keyframes if vo.num_reboots == 0 else '-'} keyframes; "
+          f"Sim(3)-aligned ATE frames {BOOT_BUDGET}-{n_main - 1}: {ate:.4f} (JAX "
+          f"reference {REF_BOOT_ATE}), from the bootstrap frame "
+          f"{ate_rmse(main_pos[b0:n_main], gt[b0:n_main]):.4f}")
+    if lost:
+        failures.append(f"frames {lost} lost after the bootstrap")
+    if REF_BOOT_ATE is None or not ate <= REF_BOOT_ATE + 0.02:
+        failures.append(f"ATE {ate:.4f} > reference {REF_BOOT_ATE} + 0.02")
+    # d. The forced relocalization at frame 60.
+    if not reloc_keys or not main_stats[RELOC_FRAME].tracking:
+        failures.append(f"frame {RELOC_FRAME}: no relocalization draw ({len(reloc_keys)}) "
+                        f"or not tracked")
+    print(f"forced relocalization at frame {RELOC_FRAME}: {len(reloc_keys)} attempt(s), "
+          f"{main_stats[RELOC_FRAME].num_inliers} inliers, tracked "
+          f"{main_stats[RELOC_FRAME].tracking}")
+    # e. The kidnap.
+    feats = extract_features(torch.from_numpy(frames[kid]).to(dev), snap_kid.threshold,
+                             cfg.frontend)
+    R_pred, t_pred = se3_compose(snap_kid.vel_R, snap_kid.vel_t, snap_kid.R, snap_kid.t)
+    diag = clone_sampler(gen_kid)
+    guided = vd._reloc_attempt(cam, cfg, snap_kid, feats, R_pred, t_pred, diag, True)
+    globl = vd._reloc_attempt(cam, cfg, snap_kid, feats, R_pred, t_pred, diag, False)
+    n_g, n_w = int(globl[2]["num_inliers"]), int(guided[2]["num_inliers"])
+    print(f"kidnap: frame {kid} after frame {N_BOOT_FRAMES - 1} ({KIDNAP_STEPS} orbit "
+          f"steps): guided attempt {n_w} inliers, global {n_g}; tracked "
+          f"{kid_stat.tracking} with {kid_stat.num_inliers} inliers")
+    if not (n_w < 20 and n_g >= 20 and kid_stat.tracking):
+        failures.append("kidnap not re-acquired by the global fallback")
+    sweep = {}                    # the same two attempts for other jumps
+    for jump in range(2, 2 * KIDNAP_STEPS + 1, 2):
+        fj = extract_features(torch.from_numpy(frames[N_BOOT_FRAMES - 1 + jump]).to(dev),
+                              snap_kid.threshold, cfg.frontend)
+        diag = clone_sampler(gen_kid)
+        sweep[jump] = tuple(int(vd._reloc_attempt(cam, cfg, snap_kid, fj, R_pred, t_pred,
+                                                  diag, g)[2]["num_inliers"])
+                            for g in (True, False))
+    print(f"kidnap sweep, orbit steps -> (guided, global) inliers: {sweep}")
+    # f. The reboot.
+    ev = vo.submap_events
+    second = [j for j in boot if j > reboot_at]
+    print(f"reboot: {vo.num_reboots} reboot(s), events "
+          f"{[(e['frame'], np.round(e['base'][1], 4).tolist()) for e in ev]}; second "
+          f"bootstrap at frame {second[0] if second else None}")
+    if not (vo.num_reboots == 1 and len(ev) == 1 and ev[0]["frame"] == reboot_at
+            and np.allclose(ev[0]["base"][0], vo.trajectory[last_tracked][0])
+            and np.allclose(ev[0]["base"][1], vo.trajectory[last_tracked][1]) and second):
+        failures.append("the reboot or the second bootstrap failed")
+    else:
+        idx = np.arange(second[0], len(fed))
+        orbit_idx = np.array([fed[j] for j in idx])
+        tracked2 = [vo.stats[j].tracking for j in idx]
+        print(f"second submap: {sum(tracked2)}/{len(idx)} frames tracked, Sim(3)-aligned "
+              f"ATE {ate_rmse(vo.positions[idx], gt[orbit_idx]):.4f}")
+    # g. Launch counters.
+    print("launches during phase 8:", launches, f"for {len(fed)} frames "
+          f"({vo.host_frames} on the host path); K2 per bootstrap attempt "
+          f"{[n for _, _, n in attempts]}, per relocalization attempt "
+          f"{[n for _, _, n in reloc_attempts]} (the forced ones {forced})")
+    if launches["fast_score_map_fused"] != cfg.frontend.num_levels * len(fed):
+        failures.append(f"K1 launched {launches['fast_score_map_fused']} times, expected "
+                        f"{cfg.frontend.num_levels * len(fed)}")
+    if (not attempts or min(n for _, _, n in attempts) < 1 or not reloc_attempts
+            or min(n for _, _, n in reloc_attempts) < 1 or len(forced) < 2
+            or min(forced) < 1):
+        failures.append("a bootstrap or relocalization attempt launched no K2")
+
+    # c. The same draws on the CPU plain path: bootstrap and 16 frames.
+    cpu = DeviceVO(cfg, cam, chunk=CHUNK, device="cpu", sampler=Sampler(0))
+    for i in range(b0 + N_CPU_BOOT + 1):
+        cpu.process(frames[i])
+    cpu.flush()
+    span = slice(b0, b0 + N_CPU_BOOT + 1)
+    dpos = float(np.abs(cpu.positions[span] - main_pos[span]).max())
+    same = (cpu.host_frames == b0 + 1
+            and cpu.stats[b0].num_landmarks == main_stats[b0].num_landmarks)
+    print(f"card vs CPU plain path: bootstrap frame {cpu.host_frames - 1} vs {b0}, "
+          f"landmarks {cpu.stats[b0].num_landmarks} vs {main_stats[b0].num_landmarks}; "
+          f"max centre diff over frames {b0}-{b0 + N_CPU_BOOT}: {dpos:.2e}")
+    if not (same and dpos < 2e-3):
+        failures.append("card and CPU plain path disagree")
+
+    # Costs, with a synchronize after each, from the snapshots.
+    lost_state = lambda s: s.replace(last_tracking=torch.zeros(  # noqa: E731
+        (), dtype=torch.bool, device=dev))
+    img60 = torch.from_numpy(frames[RELOC_FRAME]).to(dev)
+    img_kid = torch.from_numpy(frames[kid]).to(dev)
+    reloc_frame = lambda: vd.track_step(cam, cfg, lost_state(snap_reloc), img60,  # noqa: E731
+                                        clone_sampler(gen_reloc))
+    kid_frame = lambda: vd.track_step(cam, cfg, lost_state(snap_kid), img_kid,  # noqa: E731
+                                      clone_sampler(gen_kid))
+    plain_frame = lambda: vd.track_step(cam, cfg, snap_reloc, img60,  # noqa: E731
+                                        clone_sampler(gen_reloc))
+    syncs = {}
+    for name, fn in (("plain", plain_frame), ("reloc", reloc_frame), ("kidnap", kid_frame)):
+        fn()                                                 # warm-up
+        (_, ys), syncs[name] = _with_sync_count(fn)
+        syncs[name] = (syncs[name], bool(ys["summary"][col["is_keyframe"]] > 0))
+    ms = {name: np.mean([sync_ms(fn)[1] for _ in range(5)])
+          for name, fn in (("plain", plain_frame), ("reloc", reloc_frame),
+                           ("kidnap", kid_frame))}
+    f60 = extract_features(img60, snap_reloc.threshold, cfg.frontend)
+    R_pred, t_pred = se3_compose(snap_reloc.vel_R, snap_reloc.vel_t, snap_reloc.R,
+                                 snap_reloc.t)
+    idx, mvalid = _match_to_map(f60, snap_reloc.map, cfg.matcher.max_distance,
+                                cfg.matcher.ratio, cam=cam, R=R_pred, t=t_pred,
+                                radius_px=64.0)
+    sample = Sampler(1).choice(mvalid, (cfg.vo.reloc_hypotheses, 6))
+    X = snap_reloc.map.X[idx.long()]
+    ransac_ms = np.mean([sync_ms(lambda: pnp_ransac(
+        cam, X, f60.xy, mvalid, sample, inlier_px=cfg.vo.pnp_inlier_px,
+        refine_iters=cfg.vo.pnp_iters, R_prior=R_pred, t_prior=t_pred))[1]
+        for _ in range(5)])
+    two_view_ms = np.mean([sync_ms(lambda: two_view.estimate(
+        boot_pair[0], boot_pair[1], clone_sampler(boot_pair[2]), b0))[1] for _ in range(3)])
+    host = VisualOdometry(cfg, cam, device=dev, sampler=Sampler(2))
+    host.map, host.win_R, host.win_t = snap_kid.map, snap_kid.win_R, snap_kid.win_t
+    host.win_obs, host.win_mask = snap_kid.win_obs, snap_kid.win_mask
+    host.win_valid = snap_kid.win_valid.cpu().numpy()
+    host._local_ba()
+    ba_ms = np.mean([sync_ms(host._local_ba)[1] for _ in range(3)])
+    print(f"wall ms, synchronize after each: two-view estimate {two_view_ms:.1f}, "
+          f"bootstrap attempt {np.mean(att_ms):.1f}; host _local_ba (L="
+          f"{cfg.vo.max_map_points}, not compacted, {int(host.win_valid.sum())} "
+          f"keyframes) {ba_ms:.1f} (at the bootstrap it returns at once: 2 keyframes); "
+          f"plain frame {ms['plain']:.2f}, relocalization frame (guided) "
+          f"{ms['reloc']:.2f}, with the global fallback {ms['kidnap']:.2f}; pnp_ransac "
+          f"{ransac_ms:.2f}; syncs (count, keyframe) {syncs}  [{smi}]")
+    for name in ("reloc", "kidnap"):
+        k, is_kf = syncs[name]
+        if k > 4 + int(is_kf):
+            failures.append(f"{name} frame: {k} syncs > {4 + int(is_kf)}")
+    if failures:
+        raise AssertionError("bootstrap phase: " + "; ".join(failures))
+    return launches, reloc_frame
+
+
 def main() -> None:
     import torch
 
@@ -304,6 +625,7 @@ def main() -> None:
     from tinyslam_tpu_torch.ops.fast import fast_maps
     from tinyslam_tpu_torch.ops.hamming import match_reduce_plain
     from tinyslam_tpu_torch.ops.image import build_pyramid
+    from tinyslam_tpu_torch.utils.draws import Sampler
 
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
@@ -386,8 +708,10 @@ def main() -> None:
     real = dict(desc_a=feats1.desc, valid_a=feats1.valid, desc_b=m_state.desc,
                 valid_b=m_state.valid, xy_a=feats1.xy, proj_b=proj)
     unguided = lambda c: {k: v for k, v in c.items() if k not in ("xy_a", "proj_b")}
-    # Keyframe insertion matches a frame's features to a window keyframe's
-    # without a gate, and re-observes the map guided at r=32.
+    # Keyframe insertion and the two-view bootstrap match a frame's features
+    # to another frame's without a gate; a keyframe re-observes the map
+    # guided at r=32, relocalization matches it guided at r=64, then
+    # unguided.
     kf_pair = dict(desc_a=feats1.desc, valid_a=feats1.valid, desc_b=seed_feats.desc,
                    valid_b=seed_feats.valid)
     cases = [("real guided r=20", real, 20.0), ("real guided r=8", real, 8.0),
@@ -395,7 +719,8 @@ def main() -> None:
              ("random guided r=20", rand_case, 20.0),
              ("random unguided", unguided(rand_case), 0.0),
              ("keyframe unguided", kf_pair, 0.0),
-             ("keyframe guided r=32", real, 32.0)]
+             ("keyframe guided r=32", real, 32.0),
+             ("relocalization guided r=64", real, 64.0)]
     for name, case, r in cases:
         got = match_cuda.match_reduce(**case, radius_px=r)
         want = match_reduce_plain(**case, radius_px=r)
@@ -425,7 +750,7 @@ def main() -> None:
     seed = _seeded(cfg, feats0, room, cam, poses[0])
     print(f"seeded map: {int(seed.map.valid.sum())} landmarks of "
           f"{cfg.vo.max_map_points}")
-    vo = DeviceVO(cfg, cam, chunk=CHUNK)
+    vo = DeviceVO(cfg, cam, chunk=CHUNK, device=dev)
     vo.state = seed
     chunk_s = []    # the first chunk is the warm-up
     for c in range((N_FRAMES - 1) // CHUNK):
@@ -470,7 +795,7 @@ def main() -> None:
     cpu_state = VOState.from_numpy(seed.to_numpy(), "cpu")
     _, ys = track_chunk(cam, cfg, cpu_state,
                         torch.from_numpy(np.stack(frames[1:1 + CHUNK])),
-                        [True] * CHUNK)
+                        [True] * CHUNK, Sampler(0))
     cpu_c = _centres(ys["R"].numpy(), ys["t"].numpy())
     cpu_in = ys["summary"][:, 2].numpy()
     gpu_in = np.array([s.num_inliers for s in stats[:CHUNK]])
@@ -483,6 +808,9 @@ def main() -> None:
 
     # ---- 6. keyframes and windowed BA on the card -------------------------
     kf_launches, kf_insert = _keyframe_phase(cam, room, poses, frames, dev, smi)
+
+    # ---- 8. DeviceVO from frame 0: bootstrap, relocalization, reboot ------
+    boot_launches, reloc_frame = _bootstrap_phase(cam, poses, frames, dev, smi)
 
     # ---- 7. kernel times -----------------------------------------------------
     # Last: once the profiler has run in a process, every later launch
@@ -502,18 +830,24 @@ def main() -> None:
     k2_ms, k2_plain_ms = ms["K2 real guided r=20"]
     print(f"K1 one frame (4 levels), device: kernel {k1_ms:.4f} ms, plain "
           f"{k1_plain_ms:.4f} ms  [{smi}]")
+    # A relocalization frame's trace is the largest; it goes last.
+    rel_wall = _time_ms(reloc_frame, reps=5, warmup=1)
+    rel_dev = _device_ms(reloc_frame, reps=5)
+    print(f"one relocalization frame (phase 8d, guided): wall {rel_wall:.3f} ms, device "
+          f"{rel_dev:.3f} ms, card busy {100 * rel_dev / rel_wall:.1f}%  [{smi}]")
 
     kernels = [
         {"name": "fast_score_map_fused", "route": "cuda",
          "source": "tinyslam_tpu_torch/csrc/fast.cu",
          "replaces": "tinyslam_tpu/ops/fast_pallas.py:258",
-         "launches": launches["fast_score_map_fused"] + kf_launches["fast_score_map_fused"],
+         "launches": sum(x["fast_score_map_fused"]
+                         for x in (launches, kf_launches, boot_launches)),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
         {"name": "match_reduce_streaming", "route": "cuda",
          "source": "tinyslam_tpu_torch/csrc/match.cu",
          "replaces": "tinyslam_tpu/ops/match_pallas.py:140",
-         "launches": launches["match_reduce_streaming"]
-         + kf_launches["match_reduce_streaming"],
+         "launches": sum(x["match_reduce_streaming"]
+                         for x in (launches, kf_launches, boot_launches)),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}))

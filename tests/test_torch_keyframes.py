@@ -38,6 +38,7 @@ from tinyslam_tpu_torch.models.vo import MapState
 from tinyslam_tpu_torch.models.vo_device import SUMMARY_FIELDS, DeviceVO, VOState
 from tinyslam_tpu_torch.ops.hamming import match_descriptors
 from tinyslam_tpu_torch.types import Features
+from tinyslam_tpu_torch.utils.draws import Sampler
 
 N_TRACKED = 15
 KEYFRAMES = [3, 6, 9, 12, 15]            # where the reference inserts them
@@ -223,7 +224,7 @@ def slice_run(feats):
     jstate, jys = jvd.track_chunk(jcam, jcfg, P.jax_state(seed), jnp.asarray(images),
                                   jnp.ones(N_TRACKED, bool))
     tstate, tys = tvd.track_chunk(tcam, tcfg, VOState.from_numpy(seed),
-                                  torch.from_numpy(images), [True] * N_TRACKED)
+                                  torch.from_numpy(images), [True] * N_TRACKED, Sampler(0))
     return {"seed": seed, "cfg": (jcfg, tcfg), "cam": (jcam, tcam),
             "state": (jstate, tstate),
             "jax": {k: np.asarray(v) for k, v in jys.items()},
@@ -283,7 +284,7 @@ def test_record_kf_obs_matches_jax(slice_run):
 
 def test_device_vo_run_with_keyframes_matches_track_chunk(slice_run):
     _, tcfg = slice_run["cfg"]
-    vo = DeviceVO(tcfg, slice_run["cam"][1], chunk=4)
+    vo = DeviceVO(tcfg, slice_run["cam"][1], chunk=4, device="cpu")
     assert vo.num_keyframes == 0 and int(vo.map.valid.sum()) == 0
     vo.state = VOState.from_numpy(slice_run["seed"])
     stats = vo.run(_FRAMES[1:])                  # 3 chunks of 4 + a partial 3

@@ -1,5 +1,5 @@
-"""The port's geometry, PnP and the tracked-frame slice against the JAX
-package's.
+"""The port's geometry, PnP, the tracked-frame slice and its
+relocalization branch against the JAX package's.
 
 Tolerances: SE(3) maps atol 1e-5; PnP poses atol 1e-4.  The slice: frame 0
 seeds the map (the JAX package's features at their ray-cast 3D points) and
@@ -24,6 +24,7 @@ from tinyslam_tpu_torch.geometry import pnp as tpnp, se3 as tse3
 from tinyslam_tpu_torch.models.vo_device import (
     SUMMARY_FIELDS, DeviceVO, VOState, track_chunk, track_step,
 )
+from tinyslam_tpu_torch.utils.draws import Sampler
 
 N_TRACKED = 6
 _FRAMES, _POSES, _ROOM = P.orbit(N_TRACKED + 1)
@@ -107,7 +108,7 @@ def slice_run():
     _, jys = jtrack_chunk(jcam, jcfg, P.jax_state(seed), jnp.asarray(images),
                           jnp.ones(N_TRACKED, bool))
     tstate, tys = track_chunk(tcam, tcfg, VOState.from_numpy(seed),
-                              torch.from_numpy(images), [True] * N_TRACKED)
+                              torch.from_numpy(images), [True] * N_TRACKED, Sampler(0))
     return {"seed": seed, "cfg": tcfg, "cam": tcam, "state": tstate,
             "jax": {k: np.asarray(v) for k, v in jys.items()},
             "torch": {k: v.numpy() for k, v in tys.items()}}
@@ -142,7 +143,7 @@ def test_slice_close_to_ground_truth(slice_run):
 
 
 def test_device_vo_partial_chunk_same_trajectory(slice_run):
-    vo = DeviceVO(slice_run["cfg"], slice_run["cam"], chunk=4)
+    vo = DeviceVO(slice_run["cfg"], slice_run["cam"], chunk=4, device="cpu")
     vo.state = VOState.from_numpy(slice_run["seed"])
     stats = vo.run(_FRAMES[1:])                  # 4 + a partial chunk of 2
     assert len(stats) == N_TRACKED and all(s.tracking for s in stats)
@@ -155,7 +156,8 @@ def test_device_vo_partial_chunk_same_trajectory(slice_run):
 def test_inactive_frames_leave_the_state(slice_run):
     state = VOState.from_numpy(slice_run["seed"])
     images = torch.from_numpy(np.stack(_FRAMES[1:3]))
-    out, ys = track_chunk(slice_run["cam"], slice_run["cfg"], state, images, [False, False])
+    out, ys = track_chunk(slice_run["cam"], slice_run["cfg"], state, images, [False, False],
+                          Sampler(0))
     assert out is state
     np.testing.assert_array_equal(ys["summary"].numpy(), 0)
     assert ys["R"].shape == (2, 3, 3) and ys["t"].shape == (2, 3)
@@ -172,11 +174,31 @@ def test_state_numpy_round_trip(slice_run):
 
 
 def test_lost_frame_raises_relocalization(slice_run):
-    state = VOState.from_numpy(slice_run["seed"]).replace(
-        last_tracking=torch.tensor(False))
-    with pytest.raises(NotImplementedError, match="relocalization"):
-        track_step(slice_run["cam"], slice_run["cfg"], state,
-                   torch.from_numpy(_FRAMES[1]))
+    """A frame after a lost one relocalizes (staged PnP-RANSAC) as the JAX
+    ``track_step`` does with ``last_tracking=False``, the JAX draws
+    injected: the same tracking flag, matches and inliers within 2%, the
+    pose within 2 mm and 1e-3 rad, and the velocity model reset."""
+    jcfg, tcfg = P.configs()
+    jcam, tcam = P.cameras()
+    seed = dict(slice_run["seed"], last_tracking=np.asarray(False))
+    image = np.stack(_FRAMES[1:2])
+    _, jys = jtrack_chunk(jcam, jcfg, P.jax_state(seed), jnp.asarray(image),
+                          jnp.ones(1, bool))
+    sampler = P.JaxSampler()
+    new, ys = track_chunk(tcam, tcfg, VOState.from_numpy(seed), torch.from_numpy(image),
+                          [True], sampler)
+    assert sampler.calls[0] == ("reloc", 0)
+    sj, st = np.asarray(jys["summary"])[0], ys["summary"].numpy()[0]
+    col = {name: i for i, name in enumerate(SUMMARY_FIELDS)}
+    assert st[col["tracking"]] == sj[col["tracking"]] == 1
+    for name in ("num_matches", "num_inliers"):
+        np.testing.assert_allclose(st[col[name]], sj[col[name]], rtol=0.02, err_msg=name)
+    dc = _centres(ys["R"].numpy(), ys["t"].numpy()) - _centres(np.asarray(jys["R"]),
+                                                             np.asarray(jys["t"]))
+    assert np.abs(dc).max() < 2e-3
+    np.testing.assert_allclose(ys["R"].numpy(), np.asarray(jys["R"]), rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(new.vel_R.numpy(), np.eye(3, dtype=np.float32))
+    assert bool(new.last_tracking)
 
 
 def test_keyframe_needed_inserts_keyframe_0_under_default_vo_config(slice_run):
@@ -184,7 +206,8 @@ def test_keyframe_needed_inserts_keyframe_0_under_default_vo_config(slice_run):
     # 138 inliers < keyframe_min_inliers, past keyframe_min_interval.
     state = VOState.from_numpy(slice_run["seed"]).replace(
         frames_since_kf=torch.tensor(3, dtype=torch.int32))
-    new, ys = track_step(slice_run["cam"], kcfg, state, torch.from_numpy(_FRAMES[1]))
+    new, ys = track_step(slice_run["cam"], kcfg, state, torch.from_numpy(_FRAMES[1]),
+                         Sampler(0))
     s = dict(zip(SUMMARY_FIELDS, ys["summary"].tolist()))
     assert s["tracking"] == 1 and s["is_keyframe"] == 1
     assert int(new.num_keyframes) == 1 and int(new.frames_since_kf) == 0
@@ -200,8 +223,30 @@ def test_keyframe_needed_inserts_keyframe_0_under_default_vo_config(slice_run):
 
 
 def test_device_vo_needs_a_state(slice_run):
-    vo = DeviceVO(slice_run["cfg"], slice_run["cam"], chunk=4)
-    with pytest.raises(NotImplementedError, match="bootstrap"):
-        vo.process(_FRAMES[1])
+    """DeviceVO needs no state handed over: it bootstraps one from frame 0
+    (the reference, with its draws, succeeds at frame 6 of the orbit)."""
+    vo = DeviceVO(slice_run["cfg"], slice_run["cam"], chunk=4, device="cpu",
+                  sampler=P.JaxSampler())
+    for i, frame in enumerate(_FRAMES):
+        assert vo.initialized == (i > 6)
+        vo.process(frame)
+    assert vo.initialized and vo.host_frames == 7 and vo.num_keyframes == 2
+    assert [s.tracking for s in vo.stats] == [False] * 6 + [True]
+    assert int(vo.state.frame_idx) == 7 and bool(vo.state.last_tracking)
+    assert int(vo.map.valid.sum()) == vo.stats[-1].num_landmarks >= 50
     with pytest.raises(ValueError):
-        DeviceVO(slice_run["cfg"], slice_run["cam"], chunk=64)
+        DeviceVO(slice_run["cfg"], slice_run["cam"], chunk=64, device="cpu")
+
+
+def test_device_vo_keeps_one_device(slice_run):
+    """The device is a required argument, and a state assigned from
+    another device is refused (a reboot would otherwise bootstrap, and
+    then track, on the DeviceVO's device instead of the state's)."""
+    with pytest.raises(TypeError):
+        DeviceVO(slice_run["cfg"], slice_run["cam"], chunk=4)
+    vo = DeviceVO(slice_run["cfg"], slice_run["cam"], chunk=4, device="cpu")
+    with pytest.raises(ValueError, match="meta"):
+        vo.state = VOState.from_numpy(slice_run["seed"], "meta")
+    assert vo.state is None
+    vo.state = VOState.from_numpy(slice_run["seed"], "cpu")
+    assert vo.initialized and vo.state.device == vo.device

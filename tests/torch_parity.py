@@ -114,6 +114,48 @@ def jax_state(d: dict):
     return VOState(**nested, **rest)
 
 
+class JaxSampler:
+    """The port's ``Sampler`` interface, replaying the JAX package's
+    ``jax.random`` streams, so that a parity test gives both packages the
+    same RANSAC samples.  ``key`` names the stream as the port's callers
+    do: ``("two_view", seed, "E" or "H")`` is ``split(PRNGKey(seed))``'s
+    first or second key (``TwoViewEstimator.estimate``), ``("reloc",
+    frame_idx)`` is ``fold_in(PRNGKey(17), frame_idx)`` (the device
+    tracker's relocalization).  ``calls`` lists the keys drawn, in order."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def _key(self, key):
+        import jax
+
+        self.calls.append(tuple(int(k) if isinstance(k, torch.Tensor) else k
+                                for k in key))
+        kind, n = key[0], int(key[1])
+        if kind == "two_view":
+            return jax.random.split(jax.random.PRNGKey(n))[0 if key[2] == "E" else 1]
+        if kind == "reloc":
+            return jax.random.fold_in(jax.random.PRNGKey(17), n)
+        raise KeyError(key)
+
+    def uniform(self, shape, device, key=None) -> torch.Tensor:
+        import jax
+
+        u = np.array(jax.random.uniform(self._key(key), tuple(shape)))
+        return torch.from_numpy(u).to(device)
+
+    def choice(self, valid: torch.Tensor, shape, key=None) -> torch.Tensor:
+        """``jax.random.categorical`` over the true entries of ``valid``,
+        as ``pnp_ransac`` draws its samples."""
+        import jax
+        import jax.numpy as jnp
+
+        logits = jnp.where(jnp.asarray(valid.cpu().numpy()), 0.0, -1e9)
+        idx = jax.random.categorical(self._key(key), logits[None, :], axis=-1,
+                                     shape=tuple(shape))
+        return torch.from_numpy(np.array(idx)).long().to(valid.device)
+
+
 def rand_desc(rng, n, dup_frac=0.2):
     """Random packed descriptors with deliberate duplicates (tie-breaks)."""
     d = rng.integers(0, 2**32 - 1, (n, 8), np.uint32)

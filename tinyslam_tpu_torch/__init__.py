@@ -9,10 +9,15 @@ images, (N, 2) xy, (N, 8) packed descriptors).  This package imports
 - ``ops``       image ops, FAST (plain + ``fast_cuda`` kernel), top-k,
                 binned BRIEF, Hamming matching (plain + ``match_cuda``).
 - ``frontend``  ``extract_features``, ``adapt_threshold``, ``OrbFrontend``.
-- ``geometry``  pinhole camera, SE(3), Gauss-Newton PnP, triangulation.
+- ``geometry``  pinhole camera, SE(3), Gauss-Newton PnP and PnP-RANSAC,
+                triangulation, the essential matrix (eight- and five-point),
+                the homography, their LO-RANSAC and decompositions.
 - ``backend``   BA residuals and the Schur-complement LM bundle adjustment.
-- ``models``    ``MapState``, ``VOState``, ``track_step`` (keyframes and
-                windowed BA included), ``track_chunk``, ``DeviceVO``.
+- ``models``    ``MapState``, ``VOState``, ``track_step`` (relocalization,
+                keyframes and windowed BA included), ``track_chunk``,
+                ``DeviceVO`` (bootstrap and submap reboots),
+                ``TwoViewEstimator``, ``VisualOdometry`` up to its bootstrap.
+- ``utils``     the RANSAC ``Sampler``, Umeyama alignment and ATE.
 - ``data``      the numpy room renderer and orbit trajectories.
 """
 

@@ -1,1 +1,1 @@
-"""Pinhole camera, SE(3), PnP and two-view triangulation."""
+"""Pinhole camera, SE(3), PnP and PnP-RANSAC, two-view geometry."""

@@ -1,1 +1,1 @@
-"""Map state and the device-resident tracker."""
+"""Map state, the bootstrap, and the device-resident tracker."""

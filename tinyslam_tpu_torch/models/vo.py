@@ -1,8 +1,10 @@
-"""Landmark map, tracking helpers and map maintenance of the visual
-odometry (mirrors ``tinyslam_tpu/models/vo.py:MapState, _match_to_map,
-_track_pnp, _triangulate_and_insert, _record_obs, VOStats``).
+"""Landmark map, tracking helpers, map maintenance and the bootstrap
+phase of the visual odometry (mirrors ``tinyslam_tpu/models/vo.py:
+MapState, _match_to_map, _track_pnp, _triangulate_and_insert, _record_obs,
+VOStats`` and ``VisualOdometry`` up to its initialization).
 
 World frame = camera frame of the first keyframe; poses are world->camera.
+Monocular scale is fixed at bootstrap by normalizing the median depth.
 
 Two reference behaviours of the JAX CPU path are kept on purpose, for
 parity: a scatter with repeated indices keeps the LAST row's write
@@ -16,13 +18,24 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from tinyslam_tpu_torch.backend.ba import bundle_adjust
+from tinyslam_tpu_torch.config import SlamConfig
+from tinyslam_tpu_torch.frontend.orb import OrbFrontend
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
 from tinyslam_tpu_torch.geometry.epipolar import depths, triangulate
 from tinyslam_tpu_torch.geometry.pnp import pnp_refine
+from tinyslam_tpu_torch.geometry.se3 import se3_identity
+from tinyslam_tpu_torch.models.two_view import TwoViewEstimator
 from tinyslam_tpu_torch.ops.hamming import hamming_distance_matrix, match_descriptors
-from tinyslam_tpu_torch.types import Features, from_numpy, to_numpy
+from tinyslam_tpu_torch.types import Features, from_numpy, row, set_row, to_numpy
+from tinyslam_tpu_torch.utils.draws import Sampler
+
+_TRACKING_TODO = ("VisualOdometry's own tracking after the bootstrap is not "
+                  "ported yet (ROADMAP.md queue 1, item 13); DeviceVO tracks "
+                  "on the device from there")
 
 
 @dataclass
@@ -137,18 +150,6 @@ def _scatter_set(dst: torch.Tensor, writer: torch.Tensor,
     """``dst.at[idx].set(src)`` given ``writer = _last_writer(idx, len(dst))``."""
     took = (writer >= 0).view(-1, *([1] * (dst.dim() - 1)))
     return torch.where(took, src[writer.clamp_min(0)], dst)
-
-
-def row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """``x[i]`` for a 0-d index tensor, without reading it back to the host
-    (indexing with a 0-d tensor calls ``.item()``)."""
-    return x[i.reshape(1)][0]
-
-
-def set_row(x: torch.Tensor, i: torch.Tensor, v) -> torch.Tensor:
-    """``x`` with row ``i`` (0-d index tensor) replaced by ``v``."""
-    hit = torch.arange(x.shape[0], device=x.device) == i
-    return torch.where(hit.view(-1, *([1] * (x.dim() - 1))), v, x)
 
 
 def _triangulate_and_insert(
@@ -275,3 +276,241 @@ def _record_obs(win_obs: torch.Tensor, win_mask: torch.Tensor, slot: torch.Tenso
     obs_k = _scatter_set(obs_k, writer, torch.where(valid[:, None], uv, obs_k[idx]))
     mask_k = _scatter_set(mask_k, writer, valid | mask_k[idx])
     return set_row(win_obs, slot, obs_k), set_row(win_mask, slot, mask_k), valid
+
+
+def _observe_keyframe(cam: PinholeCamera, cfg: SlamConfig, map_state: MapState,
+                      win_obs: torch.Tensor, win_mask: torch.Tensor,
+                      slot: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+                      kf_id: torch.Tensor, feats: Features):
+    """Match a window keyframe's features to the map, guided by its pose
+    (R, t) at a wider radius than tracking (re-observing old landmarks
+    re-anchors them in the BA window), gate by reprojection, store the
+    observations at window slot ``slot`` (0-d tensor), and refresh the
+    gated landmarks' descriptors, obs_count and last_seen (``kf_id``).
+    Returns (win_obs, win_mask, map)."""
+    idx, mvalid = _match_to_map(feats, map_state, cfg.matcher.max_distance,
+                                cfg.matcher.ratio, cam=cam, R=R, t=t, radius_px=32.0)
+    win_obs, win_mask, gated = _record_obs(win_obs, win_mask, slot, idx, feats.xy,
+                                           mvalid, cam=cam, map_X=map_state.X, R=R, t=t)
+    ix = idx.long()
+    writer = _last_writer(ix, map_state.desc.shape[0])
+    return win_obs, win_mask, map_state.replace(
+        desc=_scatter_set(map_state.desc, writer,
+                          torch.where(gated[:, None], feats.desc, map_state.desc[ix])),
+        obs_count=map_state.obs_count.index_add(0, ix, gated.to(torch.int32)),
+        last_seen=_scatter_set(map_state.last_seen, writer,
+                               torch.where(gated, kf_id, map_state.last_seen[ix])))
+
+
+class VisualOdometry:
+    """The host-stepped monocular tracker, as far as its bootstrap: the
+    first frame becomes the reference keyframe, and from its fourth frame on
+    each frame tries a two-view initialization against it (E and H
+    LO-RANSAC, model selection, the parallax gate, scale by the median
+    depth).  Success seeds the map and a two-keyframe window.  Tracking
+    after that is ``DeviceVO``'s, which takes this state over; ``process``
+    on an initialized tracker raises ``NotImplementedError``.
+
+    Arrays live on ``device`` as tensors; the window's occupancy and
+    keyframe ids are host numpy, as in the reference.  RANSAC samples come
+    from ``sampler`` under the key ``("two_view", frame_idx, ...)``.  An
+    attempt reads the device back once, after its model choice.
+    """
+
+    def __init__(self, cfg: SlamConfig, camera: PinholeCamera,
+                 bootstrap_depth: float = 2.0, *, device, sampler: Sampler):
+        self.cfg = cfg
+        self.camera = camera
+        self.device = torch.device(device)
+        self.frontend = OrbFrontend(cfg.frontend, self.device)
+        self.two_view = TwoViewEstimator(camera, cfg.matcher, cfg.ransac)
+        self.sampler = sampler
+        self.bootstrap_depth = bootstrap_depth
+        self.reset()
+
+    # ---------------- state ----------------
+    def reset(self):
+        """Forget the map, window and trajectory (the adaptive FAST
+        threshold stays, as the reference's front-end keeps it)."""
+        cfg, dev = self.cfg, self.device
+        M = cfg.vo.max_map_points
+        K = cfg.ba.max_keyframes
+        self.map = MapState.empty(M, dev)
+        self.win_R, self.win_t = se3_identity((K,), device=dev)
+        self.win_obs = torch.zeros((K, M, 2), dtype=torch.float32, device=dev)
+        self.win_mask = torch.zeros((K, M), dtype=torch.bool, device=dev)
+        self.win_valid = np.zeros(K, bool)
+        self.win_kf_id = np.full(K, -1, np.int64)
+        self.win_feats: list[Features | None] = [None] * K
+        self.kf_feats: Features | None = None
+        self.kf_pose = se3_identity(device=dev)
+        self.kf0_feats: Features | None = None      # bootstrap reference
+        self._kf0_frame = 0
+        self.num_keyframes = 0
+        self.frame_idx = -1
+        self.frames_since_kf = 0
+        self.initialized = False
+        self.R, self.t = se3_identity(device=dev)
+        self.vel = se3_identity(device=dev)
+        self.trajectory: list[tuple[np.ndarray, np.ndarray]] = []
+        self.stats: list[VOStats] = []
+        self.kf_poses_log: list[tuple[int, np.ndarray, np.ndarray]] = []
+        self.kf_frames_log: list[int] = []
+        self.force_reloc = False
+
+    # ---------------- keyframe window ----------------
+    def _push_keyframe(self, R, t, feats: Features, kf_id: int) -> int:
+        if self.win_valid.all():                     # roll: drop the oldest
+            roll = lambda x: torch.roll(x, -1, 0)   # noqa: E731
+            self.win_R, self.win_t = roll(self.win_R), roll(self.win_t)
+            self.win_obs, self.win_mask = roll(self.win_obs), roll(self.win_mask)
+            self.win_valid = np.roll(self.win_valid, -1)
+            self.win_kf_id = np.roll(self.win_kf_id, -1)
+            self.win_feats = self.win_feats[1:] + [None]
+            slot = len(self.win_valid) - 1
+        else:
+            slot = int(np.argmin(self.win_valid))   # first free slot
+        self.win_R = set_row(self.win_R, slot, R)
+        self.win_t = set_row(self.win_t, slot, t)
+        self.win_obs = set_row(self.win_obs, slot, 0.0)
+        self.win_mask = set_row(self.win_mask, slot, False)
+        self.win_valid[slot] = True
+        self.win_kf_id[slot] = kf_id
+        self.win_feats[slot] = feats
+        return slot
+
+    def _record_kf_observations(self, slot: int, feats: Features):
+        dev = self.device
+        self.win_obs, self.win_mask, self.map = _observe_keyframe(
+            self.camera, self.cfg, self.map, self.win_obs, self.win_mask,
+            torch.tensor(slot, device=dev), self.win_R[slot], self.win_t[slot],
+            torch.tensor(int(self.win_kf_id[slot]), dtype=torch.int32, device=dev), feats)
+
+    def _local_ba(self):
+        """Window BA over every map slot (not compacted, unlike the device
+        tracker's), points with >= 2 window observations free; skipped
+        below three keyframes, so the bootstrap's two run none."""
+        cfg = self.cfg.ba
+        K = cfg.max_keyframes
+        if int(self.win_valid.sum()) < 3:
+            return
+        dev = self.device
+        pose_free = torch.as_tensor(self.win_valid & (np.arange(K) >= 2), device=dev)
+        z = self.win_obs.transpose(0, 1)                     # (M, K, 2)
+        mask = self.win_mask.T & torch.as_tensor(self.win_valid, device=dev)[None, :]
+        multi_obs = mask.sum(1) >= 2
+        out = bundle_adjust(
+            self.camera, self.win_R, self.win_t, self.map.X, z, mask, pose_free,
+            point_valid=self.map.valid & multi_obs, max_iters=cfg.max_iters,
+            huber=cfg.huber_delta, lam0=cfg.damping_init, lam_up=cfg.damping_up,
+            lam_down=cfg.damping_down)
+        self.win_R, self.win_t = out["R"], out["t"]
+        self.map = self.map.replace(X=out["X"])
+        newest = int(np.nonzero(self.win_valid)[0].max())
+        self.R, self.t = self.win_R[newest], self.win_t[newest]
+        self.kf_pose = (self.R, self.t)
+
+    # ---------------- bootstrap ----------------
+    def _try_bootstrap(self, feats: Features) -> bool:
+        res = self.two_view.estimate(self.kf0_feats, feats, self.sampler,
+                                     seed=self.frame_idx)
+        # One packed readback for the whole attempt.
+        n = res["match_valid"].shape[0]
+        packed = torch.cat([
+            res["R"].reshape(-1), res["t"], res["points"].reshape(-1),
+            res["match_valid"].to(torch.float32), res["inliers"].to(torch.float32),
+            res["num_inliers"].to(torch.float32).reshape(1)]).cpu().numpy()
+        R_np, t_np = packed[:9].reshape(3, 3), packed[9:12]
+        X = packed[12:12 + 3 * n].reshape(n, 3)
+        match_valid = packed[12 + 3 * n:12 + 4 * n] > 0.5
+        inliers = packed[12 + 4 * n:12 + 5 * n] > 0.5
+        if int(match_valid.sum()) < 50:
+            # Scene overlap with the reference keyframe is gone: re-seed.
+            self.kf0_feats = feats
+            self._kf0_frame = self.frame_idx
+            return False
+        if int(packed[-1]) < 60:
+            return False
+        good = inliers & match_valid & np.isfinite(X).all(axis=-1) \
+            & (X[:, 2] > 0.1) & (X[:, 2] < 1e4)
+        if good.sum() < 50:
+            return False
+        med_depth = float(np.median(X[good][:, 2]))
+        # Parallax gate: a near-zero baseline triangulates garbage depths.
+        C1 = -R_np.T @ t_np                          # second camera centre
+        Xg = X[good]
+        r1 = Xg - C1
+        cosp = np.sum(Xg * r1, -1) / np.maximum(
+            np.linalg.norm(Xg, axis=-1) * np.linalg.norm(r1, axis=-1), 1e-12)
+        med_par = np.degrees(np.arccos(np.clip(np.median(cosp), -1, 1)))
+        if not (med_par >= self.cfg.vo.min_parallax_deg):   # NaN-safe reject
+            return False
+        scale = self.bootstrap_depth / med_depth
+        dev = self.device
+        R_rel = torch.from_numpy(R_np.copy()).to(dev)
+        t_rel = torch.from_numpy(t_np * scale).to(dev)
+        Xs = X * scale
+
+        # World frame := KF0 camera frame.  Insert the map points.
+        n_new = min(int(good.sum()), self.cfg.vo.max_map_points)
+        sel = torch.from_numpy(np.nonzero(good)[0][:n_new]).to(dev)
+
+        def put(field, new):
+            out = field.clone()
+            out[:n_new] = new
+            return out
+
+        self.map = MapState(
+            X=put(self.map.X, torch.from_numpy(Xs).to(dev)[sel]),
+            desc=put(self.map.desc, self.kf0_feats.desc[sel]),
+            valid=put(self.map.valid, True),
+            anchor_kf=put(self.map.anchor_kf, 0),
+            obs_count=put(self.map.obs_count, 1),
+            last_seen=put(self.map.last_seen, 0))
+        # Keyframes: KF0 at identity, the current frame at (R_rel, t_rel).
+        R0, t0 = se3_identity(device=dev)
+        s0 = self._push_keyframe(R0, t0, self.kf0_feats, kf_id=0)
+        self._record_kf_observations(s0, self.kf0_feats)
+        s1 = self._push_keyframe(R_rel, t_rel, feats, kf_id=1)
+        self._record_kf_observations(s1, feats)
+        self.kf_poses_log.append((0, np.eye(3, dtype=np.float32), np.zeros(3, np.float32)))
+        self.kf_poses_log.append((1, R_np, t_np * scale))
+        self.kf_frames_log.append(self._kf0_frame)
+        self.kf_frames_log.append(self.frame_idx)
+        self.num_keyframes = 2
+        self.R, self.t = R_rel, t_rel
+        self.kf_feats = feats
+        self.kf_pose = (R_rel, t_rel)
+        self.vel = se3_identity(device=dev)
+        self._local_ba()
+        self.initialized = True
+        self.frames_since_kf = 0
+        return True
+
+    # ---------------- per-frame ----------------
+    def process(self, image) -> VOStats:
+        """One frame of the bootstrap phase ((H, W) numpy array or tensor,
+        uint8 or float in [0, 1])."""
+        if self.initialized:
+            raise NotImplementedError(_TRACKING_TODO)
+        self.frame_idx += 1
+        image = torch.as_tensor(image).to(self.device)
+        feats = self.frontend.extract(image)
+        n_feat, n_lm = torch.stack([feats.count.to(torch.int64),
+                                    self.map.valid.sum()]).tolist()
+        st = VOStats(frame=self.frame_idx, num_features=n_feat, num_landmarks=n_lm)
+        if self.kf0_feats is None:
+            self.kf0_feats = feats
+            self._kf0_frame = self.frame_idx
+            st.is_keyframe = True
+        else:
+            # The first two frames after the seed have near-zero baseline
+            # and always fail the parallax gate: skip only those.
+            age = self.frame_idx - self._kf0_frame
+            if age >= 3 and self._try_bootstrap(feats):
+                st.tracking = True
+                st.is_keyframe = True
+                st.num_landmarks = int(self.map.valid.sum())
+        self.trajectory.append((self.R.cpu().numpy(), self.t.cpu().numpy()))
+        self.stats.append(st)
+        return st

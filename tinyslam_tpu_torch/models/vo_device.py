@@ -1,20 +1,24 @@
-"""Device-resident visual odometry: tracking, keyframe insertion and
-windowed bundle adjustment (mirrors ``tinyslam_tpu/models/vo_device.py:
-VOState, track_step, track_chunk, DeviceVO`` and its keyframe helpers).
+"""Device-resident visual odometry: tracking, relocalization, keyframe
+insertion and windowed bundle adjustment, and the host shell that
+bootstraps it (mirrors ``tinyslam_tpu/models/vo_device.py: VOState,
+track_step, track_chunk, DeviceVO`` and its keyframe helpers).
 
 The JAX package compiles all per-frame control flow into ``lax.cond`` and
 runs a chunk of frames as one ``lax.scan``.  Here the data-dependent
 decisions are Python ``if`` statements on device scalars: whether the last
-frame tracked, whether the second PnP pass runs, whether the frame becomes
-a keyframe, and on a keyframe whether the window holds the three keyframes
-BA needs.  So a frame synchronizes with the device three times, a keyframe
-four; everything else (pose update, velocity model, adaptive threshold,
-window roll, slot choice, BA accepts, the summary row) is ``torch.where``
-on the device, and no 0-d index tensor is read back (``row``/``set_row``).
+frame tracked, on a relocalization frame whether the guided attempt
+seated 20 inliers, whether the second PnP pass runs, whether the frame
+becomes a keyframe, and on a keyframe whether the window holds the three
+keyframes BA needs.  So a frame synchronizes with the device three times,
+a keyframe four, a relocalization frame one more; everything else (pose
+update, velocity model, adaptive threshold, window roll, slot choice,
+RANSAC draws and votes, BA accepts, the summary row) stays on the device,
+and no 0-d index tensor is read back (``row``/``set_row``).
 
-Not ported yet, and raising ``NotImplementedError`` where the JAX package
-would run them: relocalization (``last_tracking`` false) and the two-view
-bootstrap that creates the first state.
+Before the first state exists, ``DeviceVO`` runs the host-stepped
+bootstrap of ``models/vo.py:VisualOdometry`` frame by frame and lifts its
+result into a ``VOState``; after ``reloc_max_frames`` lost frames it drops
+the state and bootstraps a fresh submap anchored at the last pose.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from tinyslam_tpu_torch.backend.ba import bundle_adjust
 from tinyslam_tpu_torch.config import SlamConfig
 from tinyslam_tpu_torch.frontend.orb import adapt_threshold, extract_features
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
+from tinyslam_tpu_torch.geometry.pnp import pnp_ransac
 from tinyslam_tpu_torch.geometry.se3 import (
     se3_compose,
     se3_exp,
@@ -38,28 +43,20 @@ from tinyslam_tpu_torch.geometry.se3 import (
 )
 from tinyslam_tpu_torch.models.vo import (
     MapState,
+    VisualOdometry,
     VOStats,
-    _last_writer,
     _match_to_map,
-    _record_obs,
-    _scatter_set,
+    _observe_keyframe,
     _track_pnp,
     _triangulate_and_insert,
-    row,
-    set_row,
 )
 from tinyslam_tpu_torch.ops.hamming import match_descriptors
-from tinyslam_tpu_torch.types import Features, from_numpy, to_numpy
+from tinyslam_tpu_torch.types import Features, from_numpy, row, set_row, to_numpy
+from tinyslam_tpu_torch.utils.draws import Sampler
 
 # Ring of per-keyframe features, slot kf_id % KF_RING; it must cover the
 # keyframes of one chunk (at most one a frame), so chunk <= KF_RING.
 KF_RING = 32
-
-_RELOC_TODO = ("relocalization (PnP-RANSAC after a lost frame) is not ported "
-               "yet; see ROADMAP.md queue 1, relocalization")
-_BOOTSTRAP_TODO = ("the two-view bootstrap is not ported yet (ROADMAP.md "
-                   "queue 1, bootstrap): assign DeviceVO.state a VOState "
-                   "built from a seeded map first")
 
 _FEATURE_FIELDS = tuple(f.name for f in dataclasses.fields(Features))
 _TENSOR_FIELDS = ("win_R", "win_t", "win_obs", "win_mask", "win_valid",
@@ -131,9 +128,8 @@ class VOState:
                R: torch.Tensor, t: torch.Tensor) -> "VOState":
         """A tracking state at pose (R, t) whose map holds the valid
         features of one frame at the world points X (one row per valid
-        feature, in slot order).  It stands in for the two-view bootstrap,
-        which is not ported yet, as the JAX package's ``entry()`` seeds
-        its map directly."""
+        feature, in slot order), as the JAX package's ``entry()`` seeds its
+        map directly: a tracking state without the two-view bootstrap."""
         dev = feats.xy.device
         state = VOState.empty(cfg, dev)
         valid = feats.valid
@@ -192,29 +188,11 @@ def _newest_slot(win_kf_id: torch.Tensor) -> torch.Tensor:
 
 def _record_kf_obs(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
                    slot: torch.Tensor, feats: Features) -> VOState:
-    """Match a window keyframe's features to the map, guided by its pose at
-    a wider radius than tracking (re-observing old landmarks re-anchors
-    them in the BA window), gate by reprojection, store the window
-    observations and refresh descriptors, obs_count and last_seen."""
-    R, t = row(state.win_R, slot), row(state.win_t, slot)
-    idx, mvalid = _match_to_map(
-        feats, state.map, cfg.matcher.max_distance, cfg.matcher.ratio,
-        cam=cam, R=R, t=t, radius_px=32.0)
-    win_obs, win_mask, gated = _record_obs(
-        state.win_obs, state.win_mask, slot, idx, feats.xy, mvalid,
-        cam=cam, map_X=state.map.X, R=R, t=t)
-    m = state.map
-    ix = idx.long()
-    writer = _last_writer(ix, m.desc.shape[0])
-    kf_id = row(state.win_kf_id, slot)
-    return state.replace(
-        win_obs=win_obs, win_mask=win_mask,
-        map=m.replace(
-            desc=_scatter_set(m.desc, writer,
-                              torch.where(gated[:, None], feats.desc, m.desc[ix])),
-            obs_count=m.obs_count.index_add(0, ix, gated.to(torch.int32)),
-            last_seen=_scatter_set(m.last_seen, writer,
-                                   torch.where(gated, kf_id, m.last_seen[ix]))))
+    """``_observe_keyframe`` for window slot ``slot`` at its pose."""
+    win_obs, win_mask, m = _observe_keyframe(
+        cam, cfg, state.map, state.win_obs, state.win_mask, slot,
+        row(state.win_R, slot), row(state.win_t, slot), row(state.win_kf_id, slot), feats)
+    return state.replace(win_obs=win_obs, win_mask=win_mask, map=m)
 
 
 def _push_keyframe(state: VOState, R, t, feats: Features,
@@ -330,21 +308,55 @@ def _insert_keyframe(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
     return state
 
 
+def _reloc_attempt(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
+                   feats: Features, R_pred, t_pred, sampler: Sampler, guided: bool):
+    """One relocalization attempt: match to the map (guided at 64 px around
+    the stale pose, or globally), then absolute-pose LO-RANSAC with the
+    stale pose as one more hypothesis.  The samples are drawn under the
+    key ``("reloc", frame_idx)``.  Returns (idx, match_valid, out)."""
+    vo = cfg.vo
+    if guided:
+        idx, mvalid = _match_to_map(feats, state.map, cfg.matcher.max_distance,
+                                    cfg.matcher.ratio, cam=cam, R=R_pred, t=t_pred,
+                                    radius_px=64.0)
+    else:
+        idx, mvalid = _match_to_map(feats, state.map, cfg.matcher.max_distance,
+                                    cfg.matcher.ratio)
+    sample = sampler.choice(mvalid, (vo.reloc_hypotheses, 6), key=("reloc", state.frame_idx))
+    out = pnp_ransac(cam, state.map.X[idx.long()], feats.xy, mvalid, sample,
+                     inlier_px=vo.pnp_inlier_px, refine_iters=vo.pnp_iters,
+                     R_prior=R_pred, t_prior=t_pred)
+    return idx, mvalid, {k: out[k] for k in ("R", "t", "inliers", "num_inliers", "rmse")}
+
+
+def _relocalize(cam: PinholeCamera, cfg: SlamConfig, state: VOState, feats: Features,
+                R_pred, t_pred, sampler: Sampler):
+    """The staged relocalization of a frame after a lost one: the guided
+    attempt first (under self-similar texture a global match is mostly
+    aliases), the global one only if that seats fewer than 20 inliers,
+    and the attempt with more inliers wins.  One sync (the staging)."""
+    if not cfg.vo.staged_reloc:
+        return _reloc_attempt(cam, cfg, state, feats, R_pred, t_pred, sampler, False)
+    res_w = _reloc_attempt(cam, cfg, state, feats, R_pred, t_pred, sampler, True)
+    if not bool(res_w[2]["num_inliers"] < 20):                  # sync
+        return res_w
+    res_g = _reloc_attempt(cam, cfg, state, feats, R_pred, t_pred, sampler, False)
+    return _select(res_g[2]["num_inliers"] > res_w[2]["num_inliers"], res_g, res_w)
+
+
 def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
-               image: torch.Tensor) -> tuple[VOState, dict]:
-    """One tracked frame, a keyframe where the policy asks for one.
-    Mirrors the JAX ``track_step`` decision for decision.
+               image: torch.Tensor, sampler: Sampler) -> tuple[VOState, dict]:
+    """One tracked frame: relocalization where the last frame was lost, a
+    keyframe where the policy asks for one.  Mirrors the JAX
+    ``track_step`` decision for decision.
 
     ``image`` (H, W) is float in [0, 1] or uint8, on the state's device.
-    Returns the new state and {"R", "t", "summary"} (summary as in
-    ``SUMMARY_FIELDS``; ``num_landmarks`` counts after insertion and
-    culling).  Raises ``NotImplementedError`` where the JAX package would
-    relocalize; ``state`` is then left as it was.
+    ``sampler`` draws the relocalization's RANSAC samples.  Returns the new state and {"R", "t",
+    "summary"} (summary as in ``SUMMARY_FIELDS``; ``num_landmarks`` counts
+    after insertion and culling).
     """
     if image.dtype == torch.uint8:
         image = image.to(torch.float32) * (1.0 / 255.0)
-    if not bool(state.last_tracking):                       # sync 1
-        raise NotImplementedError(_RELOC_TODO)
     vo = cfg.vo
     feats = extract_features(image, state.threshold, cfg.frontend)
     threshold = state.threshold
@@ -353,11 +365,16 @@ def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
                                     cfg.frontend.target_fill)
 
     R_pred, t_pred = se3_compose(state.vel_R, state.vel_t, state.R, state.t)
-    idx, mvalid = _match_to_map(
-        feats, state.map, cfg.matcher.max_distance, cfg.matcher.ratio,
-        cam=cam, R=R_pred, t=t_pred, radius_px=vo.track_radius_px)
-    out = _track_pnp(cam, feats, state.map, idx, mvalid, R_pred, t_pred,
-                     iters=vo.pnp_iters, inlier_px=vo.pnp_inlier_px)
+    if bool(state.last_tracking):                            # sync 1
+        idx, mvalid = _match_to_map(
+            feats, state.map, cfg.matcher.max_distance, cfg.matcher.ratio,
+            cam=cam, R=R_pred, t=t_pred, radius_px=vo.track_radius_px)
+        out = _track_pnp(cam, feats, state.map, idx, mvalid, R_pred, t_pred,
+                         iters=vo.pnp_iters, inlier_px=vo.pnp_inlier_px)
+    else:
+        # Lost last frame: a local Gauss-Newton from a stale pose cannot
+        # recover, so absolute-pose RANSAC.
+        idx, mvalid, out = _relocalize(cam, cfg, state, feats, R_pred, t_pred, sampler)
 
     if vo.track_two_pass:
         n1 = out["num_inliers"]
@@ -378,6 +395,8 @@ def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
     tracking = (n_in >= 20) & pose_finite & (out["rmse"] < 3.0 * vo.pnp_inlier_px)
 
     # Accept: update the pose and the low-passed constant-velocity model.
+    # After a relocalization the previous pose was stale, so the velocity
+    # resets instead.
     Ri, ti = se3_inverse(state.R, state.t)
     Rv_new, tv_new = se3_compose(out["R"], out["t"], Ri, ti)
     xi = 0.6 * se3_log(Rv_new, tv_new) + 0.4 * se3_log(state.vel_R, state.vel_t)
@@ -419,19 +438,20 @@ def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
 
 
 def track_chunk(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
-                images: torch.Tensor, active) -> tuple[VOState, dict]:
+                images: torch.Tensor, active, sampler: Sampler) -> tuple[VOState, dict]:
     """Track a (B, H, W) chunk of frames.
 
     ``active`` (B,) bool (host list or tensor) masks padding frames at the
     tail of a sequence: an inactive step leaves the state as it is and
-    records a zero summary.  Returns the final state and {"R" (B, 3, 3),
-    "t" (B, 3), "summary" (B, len(SUMMARY_FIELDS))}.
+    records a zero summary.  ``sampler`` as in ``track_step``.  Returns the
+    final state and {"R" (B, 3, 3), "t" (B, 3), "summary" (B,
+    len(SUMMARY_FIELDS))}.
     """
     active = torch.as_tensor(active).tolist()
     Rs, ts, summaries = [], [], []
     for image, act in zip(images, active):
         if act:
-            state, ys = track_step(cam, cfg, state, image)
+            state, ys = track_step(cam, cfg, state, image, sampler)
         else:
             ys = {"R": state.R, "t": state.t,
                   "summary": torch.zeros(len(SUMMARY_FIELDS), dtype=torch.float32,
@@ -445,42 +465,160 @@ def track_chunk(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
 
 @dataclass
 class DeviceVO:
-    """Host shell around the tracker: frames are buffered and tracked a
-    chunk at a time; per-frame poses and summaries reach the host only in
-    ``flush``.
+    """Host shell around the tracker.  Until the bootstrap succeeds each
+    frame runs the host-stepped ``VisualOdometry`` on ``device`` (K1 and K2
+    launch there too); after that frames are buffered and tracked a chunk
+    at a time, and per-frame poses and summaries reach the host in
+    ``flush``, apart from one readback of a chunk's tracking flags that
+    counts lost frames::
 
-    The two-view bootstrap is not ported yet, so the first state is handed
-    over by assigning ``vo.state`` (as ``utils/checkpoint.py`` restores a
-    JAX ``DeviceVO``)::
-
-        vo = DeviceVO(cfg, camera, chunk=8)
-        vo.state = VOState.from_numpy(seed, device="cuda")
+        vo = DeviceVO(cfg, camera, chunk=8, device="cuda")
         for frame in frames:
             vo.process(frame)
         vo.flush()
         traj = vo.positions        # (T, 3) camera centres
+
+    After ``cfg.vo.reloc_max_frames`` lost frames in a row the tracker
+    drops its state and bootstraps a fresh submap, whose world frame is
+    anchored at the last known pose (``_base``), so poses and points stay
+    in the first submap's frame (``submap_events``, ``num_reboots``).
+    ``sampler`` supplies every RANSAC draw (a ``Sampler(0)`` if None).
+    ``device`` is required: the host phase, the handed-over state and every
+    tracked chunk live there.  A ``VOState`` assigned to ``state`` skips the
+    bootstrap; it must lie on ``device``.
     """
 
     cfg: SlamConfig
     camera: PinholeCamera
     chunk: int = 16
+    sampler: Sampler | None = None
+    device: str | torch.device = dataclasses.field(kw_only=True)
 
     def __post_init__(self):
         if not isinstance(self.cfg, SlamConfig):
             raise TypeError("cfg must be a SlamConfig")
         if not 1 <= self.chunk <= KF_RING:
             raise ValueError(f"chunk={self.chunk} outside 1..KF_RING={KF_RING}")
-        self.state: VOState | None = None
+        self.device = torch.device(self.device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # Tensors report their index: compare states against cuda:N.
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if self.sampler is None:
+            self.sampler = Sampler()
+        self._host = VisualOdometry(self.cfg, self.camera, device=self.device,
+                                    sampler=self.sampler)
+        self.state = None
         self._buf: list = []
         self._pending: list[tuple[int, dict]] = []
         self.trajectory: list[tuple[np.ndarray, np.ndarray]] = []
         self.stats: list[VOStats] = []
+        self._frame_idx = -1
+        # Global world -> current submap's world; the device state is kept
+        # global (the base is folded in when the host phase hands over).
+        self._base = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        self._host_frame0 = 0       # global frame of the host's frame 0
+        self.host_frames = 0        # frames processed on the host path
+        self._lost_streak = 0
+        self.num_reboots = 0
+        self.submap_events: list[dict] = []
+        # Called just before a reboot discards the device state.
+        self.pre_reboot_hook = None
 
+    @property
+    def state(self) -> VOState | None:
+        """The device tracker's state; None until the bootstrap hands over."""
+        return self._state
+
+    @state.setter
+    def state(self, value: VOState | None) -> None:
+        if value is not None and value.device != self.device:
+            raise ValueError(f"a VOState on {value.device} assigned to a DeviceVO "
+                             f"on {self.device}")
+        self._state = value
+
+    # -------- submap chaining --------
+    def _apply_base_to_host(self) -> None:
+        """Fold the submap base into the freshly bootstrapped host tracker
+        so that every pose and point it hands over is global: a submap pose
+        T_l becomes T_l o T_base, a point X_l becomes R_b^T (X_l - t_b)."""
+        R_b, t_b = self._base
+        if np.allclose(R_b, np.eye(3)) and np.allclose(t_b, 0.0):
+            return
+        h = self._host
+        Rb = torch.from_numpy(R_b).to(self.device)
+        tb = torch.from_numpy(t_b).to(self.device)
+        h.win_R, h.win_t = (torch.einsum("kij,jl->kil", h.win_R, Rb),
+                            torch.einsum("kij,j->ki", h.win_R, tb) + h.win_t)
+        h.R, h.t = se3_compose(h.R, h.t, Rb, tb)
+        h.kf_pose = se3_compose(*h.kf_pose, Rb, tb)
+        h.kf_poses_log = [(k, R @ R_b, R @ t_b + t) for k, R, t in h.kf_poses_log]
+        h.map = h.map.replace(
+            X=torch.where(h.map.valid[:, None], (h.map.X - tb) @ Rb, h.map.X))
+        self._base = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+
+    def _reboot(self) -> None:
+        """Relocalization failed for ``reloc_max_frames`` frames: drop the
+        state and bootstrap a fresh submap anchored at the last pose."""
+        self._drain()
+        if self.pre_reboot_hook is not None:
+            self.pre_reboot_hook()
+        if self.trajectory:
+            R_last, t_last = self.trajectory[-1]
+            self._base = (np.asarray(R_last, np.float32).copy(),
+                          np.asarray(t_last, np.float32).copy())
+        self.state = None
+        self._host.reset()
+        self._host_frame0 = self._frame_idx + 1
+        self._lost_streak = 0
+        self.num_reboots += 1
+        self.submap_events.append({"frame": self._frame_idx, "base": self._base})
+
+    # -------- bootstrap state handoff --------
+    def _lift_state(self) -> VOState:
+        h = self._host
+        dev = self.device
+        empty = Features.empty(self.cfg.frontend.max_features, dev)
+        slots = [f if f is not None else empty for f in h.win_feats]
+        ring = {0: h.kf0_feats} if h.kf0_feats is not None else {}
+        for slot in range(len(h.win_valid)):
+            if h.win_valid[slot] and h.win_feats[slot] is not None:
+                ring[int(h.win_kf_id[slot])] = h.win_feats[slot]
+        kf_ring = empty.map(lambda x: x.expand(KF_RING, *x.shape).clone())
+        for kf_id, f in ring.items():
+            kf_ring = Features(**{n: set_row(getattr(kf_ring, n), kf_id % KF_RING,
+                                             getattr(f, n)) for n in _FEATURE_FIELDS})
+        i32 = dict(dtype=torch.int32, device=dev)
+        return VOState(
+            map=h.map, win_R=h.win_R, win_t=h.win_t, win_obs=h.win_obs,
+            win_mask=h.win_mask, win_valid=torch.as_tensor(h.win_valid, device=dev),
+            win_kf_id=torch.as_tensor(h.win_kf_id, **i32),
+            win_feats=Features(**{n: torch.stack([getattr(f, n) for f in slots])
+                                  for n in _FEATURE_FIELDS}),
+            kf_ring=kf_ring, R=h.R, t=h.t, vel_R=h.vel[0], vel_t=h.vel[1],
+            num_keyframes=torch.tensor(h.num_keyframes, **i32),
+            frames_since_kf=torch.tensor(h.frames_since_kf, **i32),
+            frame_idx=torch.tensor(h.frame_idx + 1, **i32),
+            last_tracking=torch.tensor(bool(h.stats[-1].tracking) if h.stats else True,
+                                       device=dev),
+            threshold=h.frontend._threshold.to(dev).clone())
+
+    # -------- frame ingestion --------
     def process(self, image) -> None:
-        """Queue one (H, W) frame (numpy array or tensor); a full chunk is
-        tracked at once."""
+        """Queue one (H, W) frame (numpy array or tensor).  Until the
+        bootstrap succeeds it runs the host phase at once; after that a
+        full chunk is tracked at once."""
+        self._frame_idx += 1
         if self.state is None:
-            raise NotImplementedError(_BOOTSTRAP_TODO)
+            self.host_frames += 1
+            st = self._host.process(image)
+            R_l, t_l = self._host.trajectory[-1]
+            R_b, t_b = self._base
+            self.trajectory.append((R_l @ R_b, R_l @ t_b + t_l))
+            self.stats.append(st)
+            if self._host.initialized:
+                self._apply_base_to_host()
+                self.state = self._lift_state()
+            return
         self._buf.append(image)
         if len(self._buf) >= self.chunk:
             self._dispatch()
@@ -489,7 +627,7 @@ class DeviceVO:
         n = len(self._buf)
         if n == 0:
             return
-        dev = self.state.device
+        dev = self.device
         buf = self._buf + [self._buf[-1]] * (self.chunk - n)
         if all(isinstance(im, np.ndarray) for im in buf):
             images = torch.from_numpy(np.stack(buf)).to(dev)   # one upload
@@ -498,13 +636,22 @@ class DeviceVO:
         active = [True] * n + [False] * (self.chunk - n)
         self._buf = []
         self.state, ys = track_chunk(self.camera, self.cfg, self.state,
-                                     images, active)
+                                     images, active, self.sampler)
         self._pending.append((n, ys))
+        if self.cfg.vo.reloc_max_frames > 0:
+            # One readback a chunk: its tracking flags, to count lost frames.
+            for tracked in (ys["summary"][:n, 3] > 0.5).tolist():
+                self._lost_streak = 0 if tracked else self._lost_streak + 1
+            if self._lost_streak >= self.cfg.vo.reloc_max_frames:
+                self._reboot()
 
     def flush(self) -> None:
         """Track any partial chunk and bring all pending poses and summaries
         to the host."""
         self._dispatch()
+        self._drain()
+
+    def _drain(self) -> None:
         for n, ys in self._pending:
             R = ys["R"][:n].cpu().numpy()
             t = ys["t"][:n].cpu().numpy()
@@ -528,15 +675,35 @@ class DeviceVO:
         return self.stats
 
     @property
+    def initialized(self) -> bool:
+        return self.state is not None
+
+    @property
     def num_keyframes(self) -> int:
-        return 0 if self.state is None else int(self.state.num_keyframes)
+        if self.state is None:
+            return self._host.num_keyframes
+        return int(self.state.num_keyframes)
 
     @property
     def map(self) -> MapState:
-        """Landmark slotmap (on the state's device); empty before a state."""
+        """Landmark slotmap (the host phase's before the handover)."""
+        return self._host.map if self.state is None else self.state.map
+
+    @property
+    def force_reloc(self) -> bool:
+        """Setting True forces relocalization on the next tracked frame (on
+        the device the trigger is ``last_tracking``)."""
         if self.state is None:
-            return MapState.empty(self.cfg.vo.max_map_points)
-        return self.state.map
+            return self._host.force_reloc
+        return not bool(self.state.last_tracking)
+
+    @force_reloc.setter
+    def force_reloc(self, value: bool) -> None:
+        if self.state is None:
+            self._host.force_reloc = bool(value)
+        elif value:
+            self.state = self.state.replace(last_tracking=torch.zeros(
+                (), dtype=torch.bool, device=self.device))
 
     @property
     def positions(self) -> np.ndarray:

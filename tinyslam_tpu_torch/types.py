@@ -111,3 +111,15 @@ def pack_descriptor_bits(bits: torch.Tensor) -> torch.Tensor:
 def descriptor_signs(desc: torch.Tensor) -> torch.Tensor:
     """(..., 8) packed -> (..., 256) int8 in {-1, +1}."""
     return unpack_descriptor_bits(desc) * 2 - 1
+
+
+def row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor, without reading it back to the host
+    (indexing with a 0-d tensor calls ``.item()``)."""
+    return x[i.reshape(1)][0]
+
+
+def set_row(x: torch.Tensor, i: torch.Tensor, v) -> torch.Tensor:
+    """``x`` with row ``i`` (0-d index tensor) replaced by ``v``."""
+    hit = torch.arange(x.shape[0], device=x.device) == i
+    return torch.where(hit.view(-1, *([1] * (x.dim() - 1))), v, x)

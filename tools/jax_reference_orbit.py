@@ -1,13 +1,21 @@
-"""The JAX reference on chip_smoke.py's keyframe sequence.
+"""The JAX reference on chip_smoke.py's sequences.
 
-Runs ``tinyslam_tpu``'s ``track_chunk`` (default ``SlamConfig()``, 640x480)
-on the CPU over the seeded bench orbit that ``chip_smoke.py`` phase 6
-tracks with the PyTorch port: frame 0's features at their ray-cast 3D
-points seed the map, frames 1..N-1 are tracked.  Prints one line per frame
-(summary row and camera-centre error against ground truth) and the max
-error, which ``chip_smoke.REF_MAX_ERR`` holds.
+Default mode: runs ``tinyslam_tpu``'s ``track_chunk`` (default
+``SlamConfig()``, 640x480) on the CPU over the seeded bench orbit that
+``chip_smoke.py`` phase 6 tracks with the PyTorch port: frame 0's features
+at their ray-cast 3D points seed the map, frames 1..N-1 are tracked.
+Prints one line per frame (summary row and camera-centre error against
+ground truth) and the max error, which ``chip_smoke.REF_MAX_ERR`` holds.
+
+``--bootstrap``: runs the JAX ``DeviceVO`` from frame 0 of the same orbit,
+as phase 8 runs the port's: the host-phase two-view bootstrap, then
+chunked tracking to frame N-1.  Prints the bootstrap frame and model, the
+tracking flags, and the Sim(3)-aligned ATE over frames 14..N-1 (both
+trackers must have bootstrapped by frame 14), which
+``chip_smoke.REF_BOOT_ATE`` holds.
 
     python tools/jax_reference_orbit.py --frames 189 [--out ref.json]
+    python tools/jax_reference_orbit.py --bootstrap --frames 101
 
 Full width takes about 3 minutes and a few GB on an 8-core CPU.  Where
 ``flax`` is not installed, a minimal stand-in for ``flax.struct`` (a frozen
@@ -53,6 +61,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=189)
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--bootstrap", action="store_true",
+                    help="run DeviceVO from frame 0 instead of a seeded map")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
@@ -91,6 +101,11 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     jcfg = JaxSlamConfig()
+    if args.bootstrap:
+        result = _bootstrap(jcfg, jcam, frames, poses)
+        if args.out is not None:
+            args.out.write_text(json.dumps(result))
+        return
     f0 = extract_features(jnp.asarray(frames[0]), jnp.float32(jcfg.frontend.threshold),
                           jcfg.frontend)
     feats = Features.from_numpy(P.features_numpy(f0))
@@ -118,6 +133,46 @@ def main() -> None:
           f"first lost frame {result['first_lost']}")
     if args.out is not None:
         args.out.write_text(json.dumps(result))
+
+
+def _bootstrap(jcfg, jcam, frames, poses) -> dict:
+    """The JAX DeviceVO from frame 0; the result phase 8 is held to."""
+    import chip_smoke
+    from tinyslam_tpu.models.two_view import TwoViewEstimator
+    from tinyslam_tpu.models.vo_device import DeviceVO
+    from tinyslam_tpu.utils.evaluation import ate_rmse
+
+    models = []
+    estimate = TwoViewEstimator.estimate
+
+    def logged(self, fa, fb, key=None):
+        res = estimate(self, fa, fb, key=key)
+        models.append((res["model"], int(res["num_inliers"])))
+        return res
+
+    TwoViewEstimator.estimate = logged
+    vo = DeviceVO(jcfg, jcam, chunk=chip_smoke.CHUNK)
+    t0 = time.perf_counter()
+    for f in frames:
+        vo.process(f)
+    vo.flush()
+    n = len(frames)
+    boot = vo.host_frames - 1
+    print(f"DeviceVO from frame 0: {n} frames in {time.perf_counter() - t0:.1f} s "
+          f"(compile included); bootstrap at frame {boot}, model {models[-1][0]}, "
+          f"{models[-1][1]} inliers, {vo.stats[boot].num_landmarks} landmarks; "
+          f"attempts {models}")
+    for s in vo.stats:
+        print(s.frame, s.tracking, s.is_keyframe, s.num_inliers, s.num_landmarks)
+    gt = np.stack([-R.T @ t for R, t in poses])
+    first = chip_smoke.BOOT_BUDGET
+    ate = ate_rmse(vo.positions[first:], gt[first:])
+    lost = [i for i in range(boot, n) if not vo.stats[i].tracking]
+    print(f"Sim(3)-aligned ATE over frames {first}-{n - 1}: {ate}; from the "
+          f"bootstrap frame: {ate_rmse(vo.positions[boot:], gt[boot:])}; lost after "
+          f"the bootstrap: {lost}; keyframes {vo.num_keyframes}")
+    return {"frames": n, "bootstrap_frame": boot, "model": models[-1][0],
+            "ate": ate, "lost": lost, "num_keyframes": vo.num_keyframes}
 
 
 if __name__ == "__main__":
