@@ -6,9 +6,11 @@
 Phases, in order; any failure raises and the script exits nonzero:
   1. the card: name and power limit (nvidia-smi), torch, CUDA and nvcc;
   2. build the CUDA kernels from tinyslam_tpu_torch/csrc at first use;
-  3. K1, the fused FAST kernel, against its plain PyTorch version on the
-     four pyramid levels of a rendered 640x480 frame;
-  4. K2, the streaming Hamming matcher, against its plain version at
+  3. K1, the fused FAST kernel, one launch over the four pyramid levels of
+     a rendered 640x480 frame, bit-equal to its plain PyTorch version on
+     every level, all five maps;
+  4. K2, the streaming Hamming matcher on the int8 tensor cores, equal to
+     its plain version at
      N=2048 features x M=8192 map points, guided (r=20, 8, the keyframes'
      32 and the relocalization's 64) and unguided (the global
      relocalization), and at the keyframes' and the two-view bootstrap's
@@ -19,7 +21,7 @@ Phases, in order; any failure raises and the script exits nonzero:
      frame must track, camera centres must stay within 5 cm of ground
      truth, the first 8 frames must agree with the same slice run on the
      CPU with the plain versions, and both kernels' launch counters must
-     show the main path went through them;
+     show the main path went through them (K1 once a frame);
   6. the default ``SlamConfig()`` at full width, keyframes and windowed BA
      on: the same seed, DeviceVO tracks frames 1-188 of the orbit (the
      longest prefix the JAX reference tracks wholly: a keyframe comes about
@@ -32,8 +34,12 @@ Phases, in order; any failure raises and the script exits nonzero:
      on the path, and a frame may synchronize with the host at most 3 times
      (4 on a keyframe);
   7. the kernels and their plain versions timed at the shapes of phases
-     3 and 4 (device time from the profiler, wall time per call), and the
-     device time of one keyframe insertion and of one relocalization frame;
+     3 and 4 (device time from the profiler, wall time per call), K1 also
+     one level a launch for the per-level split, K2's library yardstick
+     (torch._int_mm of the +-1 int8 unpacking, or a bf16 matmul, whichever
+     is faster: the distance matrix alone, never called by the port), each
+     kernel's bound from this run's shapes, and the device time of one
+     keyframe insertion and of one relocalization frame;
   8. DeviceVO from frame 0 under the default ``SlamConfig()``, no state
      handed over: (a) the host-phase two-view bootstrap must succeed within
      14 frames; (b) every later frame to 100 must track, the Sim(3)-aligned
@@ -45,8 +51,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      kidnap (relocalization forced, then a frame 10 orbit steps ahead,
      beyond the guided radius) is re-acquired by the global fallback; (f)
      8 blank frames reboot the tracker, and the host phase bootstraps a
-     second submap anchored at the last tracked pose; (g) K1 launches 4
-     times a frame, host-phase frames included, and K2 at least once per
+     second submap anchored at the last tracked pose; (g) K1 launches once
+     a frame, host-phase frames included, and K2 at least once per
      bootstrap attempt and per relocalization attempt.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -80,8 +86,16 @@ N_CPU_BOOT = 16        # phase 8c: frames after the bootstrap held against the C
 # frames 14-100 of the orbit: python tools/jax_reference_orbit.py
 # --bootstrap --frames 101 (see PERF.md).
 REF_BOOT_ATE = 0.28026400986635236
-K1_EXACT = ("score_raw", "score_nms")
-K1_TOL = {"m10": 1e-4, "m01": 1e-4, "blurred": 1e-6}   # absolute
+# Published H100 SXM peaks (NVIDIA's data sheet, dense rates at 700 W): the
+# bounds of phase 7.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+FP32_FLOPS_PER_S = 67e12
+# Float operations a pixel of K1 (csrc/fast.cu, as fast_maps counts them):
+# the ring 16 x (1 sub, 2 compares, 2 subs, 2 max, 2 adds) + 1 max, box
+# sums 2 x 14 adds, ramps 2 x (14 mul + 13 add), blur 2 x (7 mul + 6 add),
+# NMS 8 compares.
+K1_FLOPS_PER_PIXEL = 16 * 9 + 1 + 28 + 54 + 26 + 8
 
 
 def _smi() -> str:
@@ -126,6 +140,39 @@ def _device_ms(fn, reps: int = 20) -> float:
         if us > 0:
             return us / reps / 1e3
     raise RuntimeError("the profiler recorded no device time in three traces")
+
+
+def _bound_ms(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _library_ms(desc_a, desc_b, smi) -> float | None:
+    """K2's yardstick: device time of one library product giving the
+    (N, M) +-1 dot (hence the distances) of two descriptor sets,
+    torch._int_mm on int8 or a bf16 matmul, whichever is faster; None if
+    neither runs.  The unpacking is not timed; the port never calls these."""
+    import torch
+
+    from tinyslam_tpu_torch.types import descriptor_signs
+
+    sa, sb = descriptor_signs(desc_a).to(torch.int8), descriptor_signs(desc_b).to(torch.int8)
+    want = (sa.float() @ sb.float().T).to(torch.int32)
+    a16, b16 = sa.to(torch.bfloat16), sb.to(torch.bfloat16)
+    calls = {"int_mm": lambda: torch._int_mm(sa, sb.T), "bf16 matmul": lambda: a16 @ b16.T}
+    out = {}
+    for name, fn in calls.items():
+        try:
+            if not torch.equal(fn().to(torch.int32), want):
+                raise AssertionError("not the exact product")
+            out[name] = _device_ms(fn)
+        except (RuntimeError, AssertionError) as exc:
+            print(f"library yardstick {name}: not timed ({str(exc).splitlines()[0]})")
+    print(f"library yardstick ({sa.shape[0]}, 256) @ (256, {sb.shape[0]}), device ms: "
+          f"{ {k: round(v, 5) for k, v in out.items()} }  [{smi}]")
+    return min(out.values()) if out else None
 
 
 def _centres(R, t) -> np.ndarray:
@@ -305,9 +352,9 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
                         f"{REF_MAX_ERR} m + 0.02 m")
     if not (kf_same and dc < 2e-3 and dlm <= 0.02):
         failures.append("card and CPU plain path disagree")
-    if launches["fast_score_map_fused"] != 4 * N_KF_FRAMES:
+    if launches["fast_score_map_fused"] != N_KF_FRAMES:
         failures.append(f"K1 launched {launches['fast_score_map_fused']} times, "
-                        f"expected {4 * N_KF_FRAMES}")
+                        f"expected {N_KF_FRAMES} (one a frame)")
     if launches["match_reduce_streaming"] < n + 5 * n_kf:
         failures.append(f"K2 launched {launches['match_reduce_streaming']} times, "
                         f"expected >= {n + 5 * n_kf}")
@@ -533,9 +580,9 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
           f"({vo.host_frames} on the host path); K2 per bootstrap attempt "
           f"{[n for _, _, n in attempts]}, per relocalization attempt "
           f"{[n for _, _, n in reloc_attempts]} (the forced ones {forced})")
-    if launches["fast_score_map_fused"] != cfg.frontend.num_levels * len(fed):
+    if launches["fast_score_map_fused"] != len(fed):
         failures.append(f"K1 launched {launches['fast_score_map_fused']} times, expected "
-                        f"{cfg.frontend.num_levels * len(fed)}")
+                        f"{len(fed)} (one a frame)")
     if (not attempts or min(n for _, _, n in attempts) < 1 or not reloc_attempts
             or min(n for _, _, n in reloc_attempts) < 1 or len(forced) < 2
             or min(forced) < 1):
@@ -661,28 +708,29 @@ def main() -> None:
     # ---- 3. K1 against plain ---------------------------------------------
     thr = torch.tensor(fe.threshold, dtype=torch.float32, device=dev)
     levels = build_pyramid(torch.from_numpy(frames[0]).to(dev), fe.num_levels)
+    args = (thr, fe.border, fe.streak_length, fe.blur_sigma)
     timed = []      # (label, kernel call, plain call), timed in phase 7
-    k1_err = 0.0
     names = ("score_raw", "score_nms", "m10", "m01", "blurred")
-    for lvl in levels:
-        run_k = lambda lvl=lvl: fast_cuda.fast_score_map_fused(
-            lvl, thr, fe.border, fe.streak_length, fe.blur_sigma)
-        run_p = lambda lvl=lvl: fast_maps(lvl, thr, fe.border, fe.streak_length,
-                                          fe.blur_sigma)
-        got, want = run_k(), run_p()
-        torch.cuda.synchronize()
-        for name, g, w in zip(names, got, want):
+    run_k = lambda: fast_cuda.fast_pyramid_maps(levels, *args)  # noqa: E731
+    run_p = lambda: [fast_maps(lvl, *args) for lvl in levels]  # noqa: E731
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    k1_err = 0.0
+    for lvl, g_maps, w_maps in zip(levels, got, want):
+        for name, g, w in zip(names, g_maps, w_maps):
             err = float((g - w).abs().max())
-            if name in K1_EXACT and not torch.equal(g, w):
+            if not torch.equal(g, w):
                 raise AssertionError(f"K1 {name} at {tuple(lvl.shape)}: not "
                                      f"bit-equal (max |diff| {err})")
-            if name in K1_TOL and not err <= K1_TOL[name]:
-                raise AssertionError(f"K1 {name} at {tuple(lvl.shape)}: "
-                                     f"max |diff| {err} > {K1_TOL[name]}")
             k1_err = max(k1_err, err)
-        print(f"K1 {tuple(lvl.shape)}: corners {int((got[1] > 0).sum())}, "
-              f"max |diff| {k1_err}")
-        timed.append((f"K1 {tuple(lvl.shape)}", run_k, run_p))
+        print(f"K1 {tuple(lvl.shape)}: corners {int((g_maps[1] > 0).sum())}, "
+              f"bit-equal, max |diff| {k1_err}")
+    timed.append(("K1 pyramid", run_k, run_p))
+    for lvl in levels:      # one level a launch: the per-level split
+        timed.append((f"K1 level {tuple(lvl.shape)}",
+                      lambda lvl=lvl: fast_cuda.fast_score_map_fused(lvl, *args),
+                      lambda lvl=lvl: fast_maps(lvl, *args)))
+    k1_pixels = sum(lvl.numel() for lvl in levels)
 
     # ---- 4. K2 against plain ---------------------------------------------
     seed_feats = extract_features(torch.from_numpy(frames[0]).to(dev), thr, fe)
@@ -732,15 +780,13 @@ def main() -> None:
                        & (got[0].float() <= cfg.matcher.ratio * got[1].float())).sum())
         print(f"K2 {name}: N={case['desc_a'].shape[0]} M={case['desc_b'].shape[0]} "
               f"exact; rows passing distance+ratio {n_match}")
-    timed.append(("K2 real guided r=20",
-                  lambda: match_cuda.match_reduce(**real, radius_px=20.0),
-                  lambda: match_reduce_plain(**real, radius_px=20.0)))
-    timed.append(("K2 keyframe unguided 2048x2048",
-                  lambda: match_cuda.match_reduce(**kf_pair),
-                  lambda: match_reduce_plain(**kf_pair)))
-    timed.append(("K2 keyframe guided r=32",
-                  lambda: match_cuda.match_reduce(**real, radius_px=32.0),
-                  lambda: match_reduce_plain(**real, radius_px=32.0)))
+    k2_shapes = {}          # the main path's shapes, timed in phase 7
+    for name, case, r in cases:
+        if not name.startswith("random"):
+            k2_shapes[f"K2 {name}"] = (case, r)
+            timed.append((f"K2 {name}",
+                          lambda case=case, r=r: match_cuda.match_reduce(**case, radius_px=r),
+                          lambda case=case, r=r: match_reduce_plain(**case, radius_px=r)))
 
     # ---- 5. the slice on the card ----------------------------------------
     torch.cuda.synchronize()
@@ -783,9 +829,9 @@ def main() -> None:
     if not err.max() < 0.05:
         raise AssertionError(f"camera-centre error {err.max():.4f} m >= 0.05 m")
     print("launches during the slice:", launches)
-    if launches["fast_score_map_fused"] != 4 * N_FRAMES:
+    if launches["fast_score_map_fused"] != N_FRAMES:
         raise AssertionError(f"K1 launched {launches['fast_score_map_fused']} "
-                             f"times, expected {4 * N_FRAMES}")
+                             f"times, expected {N_FRAMES} (one a frame)")
     if launches["match_reduce_streaming"] < N_FRAMES - 1:
         raise AssertionError(f"K2 launched {launches['match_reduce_streaming']} "
                              f"times, expected >= {N_FRAMES - 1}")
@@ -825,11 +871,27 @@ def main() -> None:
         print(f"{label}: device kernel {ms[label][0]:.4f} ms, plain "
               f"{ms[label][1]:.4f} ms; wall per call kernel {_time_ms(run_k):.4f} "
               f"ms, plain {_time_ms(run_p, reps=20):.4f} ms  [{smi}]")
-    k1 = [v for k, v in ms.items() if k.startswith("K1")]
-    k1_ms, k1_plain_ms = sum(v[0] for v in k1), sum(v[1] for v in k1)
+    k1_ms, k1_plain_ms = ms["K1 pyramid"]
+    # K1 bound: each level read once and five maps written, or its flops.
+    k1_bytes = 4 * k1_pixels * 6 + 4
+    k1_bound = _bound_ms(k1_bytes, K1_FLOPS_PER_PIXEL * k1_pixels, FP32_FLOPS_PER_S)
+    print(f"K1 one frame ({len(levels)} levels, 1 launch), device: kernel {k1_ms:.4f} ms, "
+          f"plain {k1_plain_ms:.4f} ms, one launch a level "
+          f"{sum(v[0] for k, v in ms.items() if k.startswith('K1 level')):.4f} ms; bound "
+          f"{k1_bound[0]:.5f} ms ({k1_bound[1]}, {k1_bytes} B), kernel at "
+          f"{100 * k1_bound[0] / k1_ms:.1f}% of it  [{smi}]")
+    k2_bound = {}
+    for label, (case, r) in k2_shapes.items():
+        n_, m_ = case["desc_a"].shape[0], case["desc_b"].shape[0]
+        used = case if r > 0 else {k: v for k, v in case.items() if k not in ("xy_a", "proj_b")}
+        io = sum(v.numel() * v.element_size() for v in used.values()) + 4 * (3 * n_ + m_)
+        k2_bound[label] = _bound_ms(io, 2 * n_ * m_ * 256, INT8_OPS_PER_S)
+        print(f"{label}: bound {k2_bound[label][0]:.5f} ms ({k2_bound[label][1]}), kernel "
+              f"{ms[label][0]:.4f} ms at {100 * k2_bound[label][0] / ms[label][0]:.1f}% "
+              f"of it  [{smi}]")
+    lib_ms = {name: _library_ms(case["desc_a"], case["desc_b"], smi)
+              for name, case in (("2048x8192", real), ("2048x2048", kf_pair))}
     k2_ms, k2_plain_ms = ms["K2 real guided r=20"]
-    print(f"K1 one frame (4 levels), device: kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.4f} ms  [{smi}]")
     # A relocalization frame's trace is the largest; it goes last.
     rel_wall = _time_ms(reloc_frame, reps=5, warmup=1)
     rel_dev = _device_ms(reloc_frame, reps=5)
@@ -842,13 +904,16 @@ def main() -> None:
          "replaces": "tinyslam_tpu/ops/fast_pallas.py:258",
          "launches": sum(x["fast_score_map_fused"]
                          for x in (launches, kf_launches, boot_launches)),
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "match_reduce_streaming", "route": "cuda",
          "source": "tinyslam_tpu_torch/csrc/match.cu",
          "replaces": "tinyslam_tpu/ops/match_pallas.py:140",
          "launches": sum(x["match_reduce_streaming"]
                          for x in (launches, kf_launches, boot_launches)),
-         "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound["K2 real guided r=20"][0],
+         "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,27 @@ def test_fast_kernel_bit_equal(dev, shape, border, streak, threshold):
     assert (int((got[1] > 0).sum()) > 0) == interior
 
 
+@pytest.mark.parametrize("shape,levels", [((480, 640), 4), ((97, 131), 3)])
+def test_fast_pyramid_kernel_bit_equal(dev, shape, levels):
+    """One launch over every level; rows of 131 are not 16-byte aligned and
+    take the kernel's clamped scalar path."""
+    from tinyslam_tpu_torch.ops.image import build_pyramid
+
+    rng = np.random.default_rng(sum(shape))
+    img = rng.random(shape).astype(np.float32)
+    img[: shape[0] // 3] = np.round(img[: shape[0] // 3] * 4) / 4     # flat areas, ties
+    pyr = build_pyramid(torch.from_numpy(img).to(dev), levels)
+    t = torch.tensor(0.06, dtype=torch.float32, device=dev)
+    before = fast_cuda.LAUNCHES
+    got = fast_cuda.fast_pyramid_maps(pyr, t, 20, 9, 2.0)
+    assert fast_cuda.LAUNCHES == before + 1
+    for level, maps in zip(pyr, got):
+        want = fast.fast_maps(level, t, 20, 9, 2.0)
+        for name, g, w in zip(("score_raw", "score_nms", "m10", "m01", "blurred"), maps, want):
+            assert torch.equal(g, w), (tuple(level.shape), name,
+                                       float((g - w).abs().max()))
+
+
 def _match_case(seed, n, m, guided, dev):
     rng = np.random.default_rng(seed)
     da, db = P.rand_desc(rng, n), P.rand_desc(rng, m)
@@ -71,7 +92,8 @@ def _match_case(seed, n, m, guided, dev):
     return case
 
 
-@pytest.mark.parametrize("n,m", [(2048, 8192), (100, 333), (7, 1), (1, 50), (300, 5000)])
+@pytest.mark.parametrize("n,m", [(2048, 8192), (2048, 2048), (100, 333), (7, 1), (1, 50),
+                                 (300, 5000), (130, 70), (2047, 8191)])
 @pytest.mark.parametrize("guided", [False, True])
 def test_match_kernel_equal(dev, n, m, guided):
     case = _match_case(n + m, n, m, guided, dev)
@@ -84,11 +106,16 @@ def test_match_kernel_equal(dev, n, m, guided):
 
 
 @pytest.mark.parametrize("n,m,guided,radius", [(2048, 2048, False, 0.0),
-                                               (2048, 8192, True, 32.0)],
-                         ids=["keyframe unguided", "keyframe guided r=32"])
-def test_match_kernel_equal_at_keyframe_shapes(dev, n, m, guided, radius):
+                                               (2048, 8192, True, 8.0),
+                                               (2048, 8192, True, 32.0),
+                                               (2048, 8192, True, 64.0)],
+                         ids=["keyframe unguided", "second pass r=8", "keyframe guided r=32",
+                              "relocalization r=64"])
+def test_match_kernel_equal_at_main_path_shapes(dev, n, m, guided, radius):
     """Keyframe insertion matches 2048 features to a keyframe's 2048
-    without a gate, and re-observes the map guided at r=32."""
+    without a gate, and re-observes the map guided at r=32; the tracked
+    frame's second pass gates at r=8, a relocalization at r=64 (r=20 and
+    the unguided global match are cases of ``test_match_kernel_equal``)."""
     case = _match_case(n * 3 + m, n, m, guided, dev)
     got = match_cuda.match_reduce(**case, radius_px=radius)
     want = hamming.match_reduce_plain(**case, radius_px=radius)
@@ -152,7 +179,8 @@ def test_small_bootstrap_and_relocalization_card_matches_cpu(dev, seed):
     """DeviceVO from frame 0 on the card and on the CPU with the same
     draws: the bootstrap on the same frame, then a relocalization forced
     after a flush; the same tracking and keyframe flags, translations
-    within 1e-4, and K1 and K2 launched in the card's host phase.  Eight
+    within 1e-4, and K1 (once a frame) and K2 launched in the card's host
+    phase.  Eight
     sampler seeds, so that the agreement does not rest on one set of
     draws."""
     cfg, cam, frames, _, _ = _mid_setup(16)
@@ -169,7 +197,7 @@ def test_small_bootstrap_and_relocalization_card_matches_cpu(dev, seed):
 
     k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
     gpu = run(dev)
-    assert fast_cuda.LAUNCHES - k1 == cfg.frontend.num_levels * len(frames)
+    assert fast_cuda.LAUNCHES - k1 == len(frames)            # one launch a frame
     assert match_cuda.LAUNCHES - k2 >= len(frames) - gpu.host_frames + 1
     cpu = run("cpu")
     assert gpu.initialized and gpu.host_frames == cpu.host_frames <= 12
@@ -183,7 +211,7 @@ def test_small_bootstrap_and_relocalization_card_matches_cpu(dev, seed):
 def test_assigned_card_state_reboots_on_the_card(dev):
     """A state assigned by hand on the card, then blank frames until
     ``reloc_max_frames`` are lost: the reboot bootstraps the next submap
-    on the card (K1 on every host-phase frame, K2 in every attempt) and
+    on the card (K1 once on every host-phase frame, K2 in every attempt) and
     tracking goes on there."""
     base, cam, frames, poses, room = _mid_setup(16)
     cfg = dataclasses.replace(base, vo=dataclasses.replace(base.vo, reloc_max_frames=2))
@@ -203,7 +231,7 @@ def test_assigned_card_state_reboots_on_the_card(dev):
     vo.flush()
     n_host = vo.host_frames - host0
     assert vo.initialized and vo.state.device == vo.device and vo.device.type == "cuda"
-    assert fast_cuda.LAUNCHES - k1 == cfg.frontend.num_levels * len(frames)
+    assert fast_cuda.LAUNCHES - k1 == len(frames)            # one launch a frame
     # One unguided match per bootstrap attempt (from the fourth frame on),
     # at least one per tracked frame after it.
     assert match_cuda.LAUNCHES - k2 >= (n_host - 3) + (len(frames) - n_host)

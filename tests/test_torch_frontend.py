@@ -95,6 +95,28 @@ def test_fast_wrapper_on_cpu_is_the_plain_version():
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("kind,levels", [("frame", 2), ("noise", 3), ("odd", 3)])
+def test_fast_pyramid_wrapper_on_cpu_is_fast_maps_per_level(kind, levels):
+    """On CPU tensors the one-launch pyramid wrapper is ``fast_maps`` level
+    by level, bit for bit; ``odd`` is a 97x131 level (rows not 16-byte
+    aligned, a ragged last tile on the card)."""
+    if kind == "odd":
+        img = np.random.default_rng(3).random((97, 131)).astype(np.float32)
+    else:
+        img = _img(kind)
+    pyr = timage.build_pyramid(torch.from_numpy(img), levels)
+    t = torch.tensor(0.06)
+    before = fast_cuda.LAUNCHES
+    got = fast_cuda.fast_pyramid_maps(pyr, t, 3, 9, 2.0)
+    assert fast_cuda.LAUNCHES == before
+    assert len(got) == levels
+    for level, maps in zip(pyr, got):
+        want = tfast.fast_maps(level, t, 3, 9, 2.0)
+        assert len(maps) == 5
+        for g, w in zip(maps, want):
+            assert g.shape == level.shape and torch.equal(g, w)
+
+
 def test_select_topk_ties_lowest_index():
     rng = np.random.default_rng(5)
     h, w, k = 30, 40, 25
@@ -168,11 +190,19 @@ def test_adapt_threshold_matches_jax(count):
 
 
 def test_orb_frontend_adapts_on_device():
-    fe = torb.OrbFrontend(TFrontendConfig(**P.FRONTEND, target_fill=0.5))
+    fe = torb.OrbFrontend(TFrontendConfig(**P.FRONTEND, target_fill=0.5), device="cpu")
     feats = fe.extract(torch.from_numpy(_FRAMES[0]))
     assert isinstance(fe._threshold, torch.Tensor) and fe._threshold.dim() == 0
     assert int(feats.count) / 256 > 0.6          # above 1.2 x target: raise it
     assert fe.threshold == float(np.float32(0.06) * np.float32(1.1))
+
+
+def test_orb_frontend_requires_a_device():
+    """The threshold's device is named, never defaulted to the CPU."""
+    with pytest.raises(TypeError):
+        torb.OrbFrontend(TFrontendConfig(**P.FRONTEND))
+    with pytest.raises(TypeError):
+        torb.OrbFrontend(TFrontendConfig(**P.FRONTEND), "cpu")
 
 
 def test_continuous_brief_path_raises():

@@ -1,9 +1,10 @@
 """The ORB front-end: frame in, oriented-FAST + binned steered-BRIEF
 features out (mirrors ``tinyslam_tpu/frontend/orb.py``).
 
-Per level: the fused FAST kernel (``ops/fast_cuda.py``; its plain version
-on CPU tensors) gives the score maps, moments and the blurred level, then
-exact top-k compaction and binned BRIEF.  The adaptive threshold stays a
+One launch of the fused FAST kernel over the whole pyramid
+(``ops/fast_cuda.py:fast_pyramid_maps``; its plain version on CPU tensors)
+gives every level's score maps, moments and blurred level; then, per
+level, exact top-k compaction and binned BRIEF.  The adaptive threshold stays a
 0-d tensor on the image's device, so extraction reads nothing back.
 """
 
@@ -14,7 +15,7 @@ import torch
 from tinyslam_tpu_torch.config import FrontendConfig
 from tinyslam_tpu_torch.ops.brief import brief_descriptors_binned
 from tinyslam_tpu_torch.ops.compact import select_topk
-from tinyslam_tpu_torch.ops.fast_cuda import fast_score_map_fused
+from tinyslam_tpu_torch.ops.fast_cuda import fast_pyramid_maps
 from tinyslam_tpu_torch.ops.image import build_pyramid, rgb_to_gray
 from tinyslam_tpu_torch.types import Features
 
@@ -34,10 +35,10 @@ def extract_features(image: torch.Tensor, threshold, cfg: FrontendConfig) -> Fea
     gray = rgb_to_gray(image) if image.dim() == 3 else image.to(torch.float32)
     t = torch.as_tensor(threshold, dtype=torch.float32, device=gray.device).reshape(())
 
+    maps = fast_pyramid_maps(build_pyramid(gray, cfg.num_levels), t, cfg.border,
+                             cfg.streak_length, cfg.blur_sigma)
     parts: list[Features] = []
-    for lvl, level in enumerate(build_pyramid(gray, cfg.num_levels)):
-        score_raw, score_nms, m10, m01, blurred = fast_score_map_fused(
-            level, t, cfg.border, cfg.streak_length, cfg.blur_sigma)
+    for lvl, (score_raw, score_nms, m10, m01, blurred) in enumerate(maps):
         score = score_nms if cfg.nms else score_raw
         sel = select_topk(score, score_raw, m10, m01, cfg.features_per_level)
         desc = brief_descriptors_binned(blurred, sel["xy"], sel["angle"],
@@ -66,9 +67,10 @@ def adapt_threshold(threshold: torch.Tensor, count: torch.Tensor,
 
 class OrbFrontend:
     """Config-bound front-end holding the adaptive threshold as a device
-    scalar: ``fe.extract(frame)`` never reads anything back."""
+    scalar: ``fe.extract(frame)`` never reads anything back.  ``device`` is
+    required: the threshold lives there (``"cpu"`` for the plain path)."""
 
-    def __init__(self, cfg: FrontendConfig, device=None):
+    def __init__(self, cfg: FrontendConfig, *, device):
         self.cfg = cfg
         self._threshold = torch.tensor(cfg.threshold, dtype=torch.float32,
                                        device=device)

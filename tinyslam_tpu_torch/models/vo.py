@@ -322,7 +322,7 @@ class VisualOdometry:
         self.cfg = cfg
         self.camera = camera
         self.device = torch.device(device)
-        self.frontend = OrbFrontend(cfg.frontend, self.device)
+        self.frontend = OrbFrontend(cfg.frontend, device=self.device)
         self.two_view = TwoViewEstimator(camera, cfg.matcher, cfg.ransac)
         self.sampler = sampler
         self.bootstrap_depth = bootstrap_depth

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``tinyslam_tpu_torch/csrc/`` export plain C entry points;
-``nvcc`` compiles them for Hopper (``sm_90a``) into one shared library under
+``nvcc`` compiles them for Hopper (``sm_90a``), one process a source, all
+started together, and links them into one shared library under
 ``build/tinyslam_tpu_torch/`` at the repository root, keyed by a hash of the
 sources and flags, at first use.  The library is loaded with ``ctypes``:
 every pointer and the CUDA stream are passed as ``c_void_p``, and each
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tinyslam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,18 +34,19 @@ _F = ctypes.c_float
 
 # Argument types of every C entry point (see the headers of csrc/*.cu).
 _SIGNATURES = {
-    "tinyslam_fast_maps": [
-        _P, _P, _P, _P, _P, _P, _P,        # img, threshold, 5 outputs
-        _I, _I, _I, _I,                    # h, w, border, streak
-        _F, _F, _F, _F, _F, _F, _F,        # 7 blur taps
+    "tinyslam_fast_pyramid": [
+        _P, _P, _I,                        # level pointers, level dims, n_levels
+        _P, _I, _I, _P,                    # threshold, border, streak, blur taps
         _P,                                # stream
     ],
     "tinyslam_match_reduce": [
         _P, _P, _P, _P, _P, _P,            # desc_a, valid_a, xy_a, desc_b, valid_b, proj_b
-        _I, _I, _I, _F, _I,                # n, m, guided, r2, nshift
-        _P, _P, _P, _P,                    # best, second, idx, colcode
+        _I, _I, _I, _F, _I, _I, _I, _I,    # n, m, guided, r2, nshift, cbits, slices, tps
+        _P, _P, _P, _P,                    # best, second, idx, col_idx
+        _P, _P, _P,                        # row_part, colcode, counters
         _P,                                # stream
     ],
+    "tinyslam_match_ctas_per_sm": [_I],   # guided
     "tinyslam_cuda_error_string": [_I],
 }
 
@@ -81,14 +83,25 @@ def build() -> tuple[Path, str, float]:
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [(p, p.communicate()[0]) for p in procs]
+    failed = [log for p, log in logs if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(link.stdout + link.stderr)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr, seconds
+    return out, "".join(log for _, log in logs), seconds
 
 
 @functools.cache

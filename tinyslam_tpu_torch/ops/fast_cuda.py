@@ -1,21 +1,25 @@
 """Fused FAST stage on Hopper: the wrapper of ``csrc/fast.cu``.
 
 Replaces the TPU kernel ``tinyslam_tpu/ops/fast_pallas.py:
-fast_score_map_fused``.  One launch per pyramid level computes, per pixel,
-the FAST-16 ring bitmasks and the rotate-AND streak test, the margin score
-zeroed outside the border, 3x3 NMS, the 15x15 centroid moments and the
-7-tap Gaussian blur that BRIEF samples: five float32 maps from one read of
-the level.  It is memory-bound on the H100 (at 640x480 it reads one map and
-writes five, about 7.4 MB); each block stages its 32x32 tile plus an
-8-pixel halo in shared memory once and computes every stencil from there.
-Edges clamp, as in the plain version ``ops/fast.py:fast_maps``, and every
-sum runs in the plain version's order, so the maps agree bit for bit.
+fast_score_map_fused``.  ONE launch covers every level of a pyramid and
+computes, per pixel, the FAST-16 ring bitmasks and the rotate-AND streak
+test, the margin score zeroed outside the border, 3x3 NMS, the 15x15
+centroid moments and the 7-tap Gaussian blur that BRIEF samples: five
+float32 maps from one read of each level.  It is memory-bound on the H100
+(a 640x480 frame's four levels read 1.6 MB and write 8.2 MB); the grid is
+flat over the 32x32 tiles of all levels, each block stages its tile plus an
+8-pixel halo in shared memory once (16-byte ``cp.async`` for rows clear of
+the edges) and writes four pixels a thread as ``float4``.  Edges clamp, as
+in the plain version ``ops/fast.py:fast_maps``, and every sum runs in the
+plain version's order, so the maps agree bit for bit.
 
-CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise.  ``LAUNCHES`` counts kernel launches.
+CPU tensors take the plain version, level by level; CUDA tensors launch the
+kernel or raise.  ``LAUNCHES`` counts kernel launches: one a pyramid.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,40 +28,69 @@ from tinyslam_tpu_torch.ops.fast import fast_maps
 from tinyslam_tpu_torch.ops.image import gaussian_kernel
 
 LAUNCHES = 0
+MAX_LEVELS = 8          # csrc/fast.cu:MAX_LEVELS
+
+
+def fast_pyramid_maps(levels, threshold: torch.Tensor, border: int = 20,
+                      streak: int = 9, blur_sigma: float = 2.0):
+    """A list of (H_l, W_l) float32 levels + a 0-d float32 threshold on
+    their device -> one (score_raw, score_nms, m10, m01, blurred) 5-tuple of
+    (H_l, W_l) float32 maps a level, from one kernel launch.
+
+    On CUDA the threshold is read by the kernel through its device pointer,
+    so an adaptive threshold never has to visit the host.
+    """
+    levels = list(levels)
+    if not levels:
+        raise ValueError("fast_pyramid_maps: no levels")
+    dev = levels[0].device
+    if dev.type == "cpu":
+        return [fast_maps(lvl, threshold, border, streak, blur_sigma) for lvl in levels]
+    if dev.type != "cuda":
+        raise ValueError(f"fast_pyramid_maps: unsupported device {dev}")
+    global LAUNCHES
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"fast_pyramid_maps: {len(levels)} levels > {MAX_LEVELS}")
+    if any(lvl.device != dev or lvl.dim() != 2 or lvl.dtype != torch.float32
+           or lvl.numel() == 0 for lvl in levels):
+        raise ValueError("fast_pyramid_maps: expects non-empty (H, W) float32 "
+                         "levels on one device")
+    if not 1 <= streak <= 16:
+        raise ValueError(f"streak={streak} outside 1..16")
+    if (not torch.is_tensor(threshold) or threshold.device != dev
+            or threshold.dtype != torch.float32 or threshold.numel() != 1):
+        raise ValueError("fast_pyramid_maps: threshold must be a 1-element "
+                         "float32 tensor on the levels' device")
+    levels = [lvl.contiguous() for lvl in levels]
+    threshold = threshold.contiguous()
+    # All maps of all levels in one allocation, map-major: (5, sum H_l W_l).
+    sizes = [lvl.numel() for lvl in levels]
+    buf = torch.empty((5, sum(sizes)), dtype=torch.float32, device=dev)
+    out, ptrs, dims, off = [], [], [], 0
+    for lvl, size in zip(levels, sizes):
+        maps = tuple(buf[k, off:off + size].view(lvl.shape) for k in range(5))
+        out.append(maps)
+        ptrs += [lvl.data_ptr()] + [m.data_ptr() for m in maps]
+        dims += list(lvl.shape)
+        off += size
+    taps = [float(v) for v in gaussian_kernel(blur_sigma)]
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.tinyslam_fast_pyramid(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
+            len(levels), threshold.data_ptr(), border, streak,
+            (ctypes.c_float * len(taps))(*taps), torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "tinyslam_fast_pyramid")
+    LAUNCHES += 1
+    return out
 
 
 def fast_score_map_fused(img: torch.Tensor, threshold: torch.Tensor,
                          border: int = 20, streak: int = 9,
                          blur_sigma: float = 2.0):
     """(H, W) float32 level + 0-d float32 threshold on the same device ->
-    (score_raw, score_nms, m10, m01, blurred), five (H, W) float32 maps.
-
-    On CUDA the threshold is read by the kernel through its device pointer,
-    so an adaptive threshold never has to visit the host.
-    """
-    if img.device.type == "cpu":
-        return fast_maps(img, threshold, border, streak, blur_sigma)
-    if img.device.type != "cuda":
-        raise ValueError(f"fast_score_map_fused: unsupported device {img.device}")
-    global LAUNCHES
-    if img.dim() != 2 or img.dtype != torch.float32:
-        raise ValueError("fast_score_map_fused: expects an (H, W) float32 map")
-    if not 1 <= streak <= 16:
-        raise ValueError(f"streak={streak} outside 1..16")
-    if (not torch.is_tensor(threshold) or threshold.device != img.device
-            or threshold.dtype != torch.float32 or threshold.numel() != 1):
-        raise ValueError("fast_score_map_fused: threshold must be a 1-element "
-                         "float32 tensor on the image's device")
-    img = img.contiguous()
-    threshold = threshold.contiguous()
-    h, w = img.shape
-    outs = [torch.empty_like(img) for _ in range(5)]
-    taps = [float(v) for v in gaussian_kernel(blur_sigma)]
-    lib = cuda_build.load_library()
-    with torch.cuda.device(img.device):
-        err = lib.tinyslam_fast_maps(
-            img.data_ptr(), threshold.data_ptr(), *(o.data_ptr() for o in outs),
-            h, w, border, streak, *taps, torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, "tinyslam_fast_maps")
-    LAUNCHES += 1
-    return tuple(outs)
+    (score_raw, score_nms, m10, m01, blurred), five (H, W) float32 maps: the
+    pyramid kernel on a pyramid of one level."""
+    if img.dim() != 2:
+        raise ValueError("fast_score_map_fused: expects an (H, W) map")
+    return fast_pyramid_maps([img], threshold, border, streak, blur_sigma)[0]

@@ -1,23 +1,26 @@
-"""Streaming Hamming matcher on Hopper: the wrapper of ``csrc/match.cu``.
+"""Streaming Hamming matcher on Hopper's int8 tensor cores: the wrapper of
+``csrc/match.cu``.
 
 Replaces the TPU kernel ``tinyslam_tpu/ops/match_pallas.py:
 match_reduce_streaming``.  All-pairs Hamming distances between N features
 and M map points are reduced without ever storing the (N, M) matrix: per
 row the best distance, its argmin and the second best excluding exactly
 the argmin column; per column the argmin over rows, for the cross-check.
-Each distance is XOR + popcount over the 8 packed words; an invalid row or
-column, or a pair outside the guided gate ``|xy - proj|^2 < r^2``, is
-replaced by ``BIG`` = 2^14, which is the plain version's
-(``ops/hamming.py:match_reduce_plain``) semantics for every shape and every
-``MatcherConfig``, so the two agree exactly (integers).
+An invalid row or column, or a pair outside the guided gate
+``|xy - proj|^2 < r^2``, is replaced by ``BIG`` = 2^14, which is the plain
+version's (``ops/hamming.py:match_reduce_plain``) semantics for every shape
+and every ``MatcherConfig``, so the two agree exactly (integers).
 
-At N=2048 x M=8192 the kernel is bound by integer throughput (16.8 M pairs
-x 8 words of XOR/popcount), not by bytes (0.33 MB of descriptors).  A block
-keeps 16 rows in shared memory and streams every column through registers,
-each thread keeping per-row best/argmin/second in registers; the per-column
-argmin is reduced over the block's rows and merged across blocks with an
-atomicMin on ``dist << nshift | row``, which is deterministic because min
-does not depend on order.
+Each distance is (256 - sa.sb) / 2 over the +-1 unpacking of the
+descriptors, from ``wgmma`` int8 products (2 x 2048 x 8192 x 256 = 8.6 G
+operations at the tracked frame's shape, the bound); the epilogue keeps per
+row the two smallest codes ``dist << cbits | col`` and per column the
+smallest ``dist << nshift | row``, on the accumulator fragments (as 16-bit
+codes, two columns to a register, until they leave the CTA).  The grid
+splits rows into tiles of 128 and columns into slices; the last CTA of a
+row tile merges the per-slice partials from a scratch, and the last CTA of
+a slice reads its columns' codes (merged by ``atomicMin``) and resets them,
+so one launch does everything and nothing is filled beforehand.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise.  ``LAUNCHES`` counts kernel launches.
@@ -34,6 +37,10 @@ from tinyslam_tpu_torch.ops.hamming import (
 
 LAUNCHES = 0
 _INT32_MAX = 2**31 - 1
+ROW_TILE, COL_TILE = 128, 64       # csrc/match.cu: BM, BN
+MAX_TPS = 16                       # csrc/match.cu: MAX_TPS, column tiles a slice
+_SCRATCH: dict = {}                # per device: the kernel's counters and column codes
+_OCCUPANCY: dict = {}              # per (device, guided): SMs, CTAs resident an SM
 
 
 def _shift_for(n: int) -> int:
@@ -70,9 +77,14 @@ def match_reduce(desc_a, valid_a, desc_b, valid_b, xy_a=None, proj_b=None,
             "xy_a/proj_b/radius_px for guided matching")
     global LAUNCHES
     n, m = desc_a.shape[0], desc_b.shape[0]
-    nshift = _shift_for(n)
-    if not (1 <= n and 1 <= m and ((BIG << nshift) | (n - 1)) < _INT32_MAX):
-        raise ValueError(f"match_reduce: unsupported shape N={n}, M={m}")
+    row_tiles, col_tiles = -(-n // ROW_TILE), -(-m // COL_TILE)
+    # Codes are packed over the padded shape: the kernel's padded rows and
+    # columns get codes of their own (see csrc/match.cu).
+    nshift, cbits = _shift_for(row_tiles * ROW_TILE), _shift_for(col_tiles * COL_TILE)
+    if not (1 <= n and 1 <= m and ((BIG << nshift) | ((1 << nshift) - 1)) < _INT32_MAX
+            and ((BIG << cbits) | ((1 << cbits) - 1)) < _INT32_MAX):
+        raise ValueError(f"match_reduce: unsupported shape N={n}, M={m}: the packed "
+                         f"codes do not fit in int32")
     guided = xy_a is not None and proj_b is not None
     dev = desc_a.device
     tensors = [desc_a, valid_a, desc_b, valid_b] + ([xy_a, proj_b] if guided else [])
@@ -88,23 +100,67 @@ def match_reduce(desc_a, valid_a, desc_b, valid_b, xy_a=None, proj_b=None,
                    or xy_a.dtype != torch.float32 or proj_b.dtype != torch.float32):
         raise ValueError("match_reduce: xy_a/proj_b must be (N|M, 2) float32")
     desc_a, desc_b = _aligned(desc_a), _aligned(desc_b)
-    valid_a, valid_b = valid_a.contiguous(), valid_b.contiguous()
+    valid_a, valid_b = valid_a.contiguous(), _aligned(valid_b)
     if guided:
         xy_a, proj_b = _aligned(xy_a), _aligned(proj_b)
-    best = torch.empty(n, dtype=torch.int32, device=dev)
-    second = torch.empty(n, dtype=torch.int32, device=dev)
-    idx_b = torch.empty(n, dtype=torch.int32, device=dev)
-    colcode = torch.full((m,), _INT32_MAX, dtype=torch.int32, device=dev)
     lib = cuda_build.load_library()
+    slices, tps = grid_split(row_tiles, col_tiles, *_occupancy(lib, dev, guided))
+    out = torch.empty((4, n), dtype=torch.int32, device=dev)
+    col_idx = torch.empty(m, dtype=torch.int32, device=dev)
+    row_part = torch.empty((slices, n, 2), dtype=torch.int32, device=dev)
+    counters, colcode = _scratch(dev, row_tiles + slices, m)
     with torch.cuda.device(dev):
         err = lib.tinyslam_match_reduce(
             desc_a.data_ptr(), valid_a.data_ptr(),
             xy_a.data_ptr() if guided else None,
             desc_b.data_ptr(), valid_b.data_ptr(),
             proj_b.data_ptr() if guided else None,
-            n, m, int(guided), gate_radius2(radius_px), nshift,
-            best.data_ptr(), second.data_ptr(), idx_b.data_ptr(),
-            colcode.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            n, m, int(guided), gate_radius2(radius_px), nshift, cbits, slices, tps,
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), col_idx.data_ptr(),
+            row_part.data_ptr(), colcode.data_ptr(), counters.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "tinyslam_match_reduce")
     LAUNCHES += 1
-    return best, second, idx_b, colcode & ((1 << nshift) - 1)
+    return out[0], out[1], out[2], col_idx
+
+
+def grid_split(row_tiles: int, col_tiles: int, sms: int, per_sm: int) -> tuple[int, int]:
+    """(slices, tiles a slice) for the kernel's grid of row tiles x column
+    slices: the split whose busiest SM walks the fewest column tiles, with
+    every CTA resident at once where any split allows it; ties go to
+    shorter slices.  At 2048 x 8192 on 132 SMs holding 3 CTAs each that is
+    16 slices of 8 tiles (2 CTAs an SM), not 22 of 6 (3 on some SMs)."""
+    options = []
+    for tps in range(1, min(MAX_TPS, col_tiles) + 1):
+        slices = -(-col_tiles // tps)
+        per = -(-row_tiles * slices // sms)      # CTAs on the busiest SM
+        options.append((per > per_sm, per * tps, tps, slices))
+    _, _, tps, slices = min(options)
+    return slices, tps
+
+
+def _occupancy(lib, dev: torch.device, guided: bool) -> tuple[int, int]:
+    """(SMs, CTAs of the kernel resident on one SM at once)."""
+    key = (dev, guided)
+    if key not in _OCCUPANCY:
+        with torch.cuda.device(dev):
+            per_sm = lib.tinyslam_match_ctas_per_sm(int(guided))
+        if per_sm < 1:
+            raise RuntimeError("match_reduce: the kernel does not fit on an SM")
+        _OCCUPANCY[key] = torch.cuda.get_device_properties(dev).multi_processor_count, per_sm
+    return _OCCUPANCY[key]
+
+
+def _scratch(dev: torch.device, n_counters: int, m: int):
+    """The kernel's merge counters and per-column codes on ``dev``: set (0,
+    INT_MAX) once when allocated, and every launch returns the entries it
+    used to those values.  Launches on one device run in stream order (the
+    port issues K2 on the current stream only), so one pair of buffers
+    serves them all."""
+    counters, colcode = _SCRATCH.get(dev, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32, device=dev)
+    if colcode is None or colcode.numel() < m:
+        colcode = torch.full((max(m, 8192),), _INT32_MAX, dtype=torch.int32, device=dev)
+    _SCRATCH[dev] = counters, colcode
+    return counters, colcode
