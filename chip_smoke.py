@@ -53,7 +53,31 @@ Phases, in order; any failure raises and the script exits nonzero:
      8 blank frames reboot the tracker, and the host phase bootstraps a
      second submap anchored at the last tracked pose; (g) K1 launches once
      a frame, host-phase frames included, and K2 at least once per
-     bootstrap attempt and per relocalization attempt.
+     bootstrap attempt and per relocalization attempt;
+  9. Sim(3) loop closure, under the default ``SlamConfig()`` but for
+     ``pose_graph.loop_min_gap`` 6 (``slam_config()``), on the out-and-back
+     of the orbit (frames 0..100, then 99..0): (a) ``DeviceSlam`` from frame
+     0 bootstraps within 14 frames, accepts at least the JAX reference's
+     closures (``REF_SLAM_CLOSURES``), keeps its keyframe tables and edges
+     consistent, and its corrected trajectory's Sim(3)-aligned ATE from the
+     bootstrap frame stays within 2 cm of the reference's
+     (``REF_SLAM_ATE``); K1 launches once a frame, K2 once per keyframe
+     ingest and 1 + ``loop_candidates`` times per loop probe on top of the
+     tracking path, and a tracked frame synchronizes at most 3 times (4 on
+     a keyframe, one more after a lost frame); it prints the SLAM layer's
+     syncs per chunk, its timings per stage and its tracked fps against
+     ``DeviceVO`` on the same frames; (b) the first probe, the one that
+     accepted the first closure, and the first graph solve replayed on the
+     CPU plain path with the card's inputs and the same draws: the probe's
+     counts equal and, for the candidates at the inlier gate (at least
+     one), poses within 2e-3 and RMSE and both scale estimates within 2e-3
+     relative; (c) the
+     asynchronous back-end applies a closure, its watchdog restarts
+     nothing, its ATE stays within 2 cm of the reference's; (d) the host
+     ``Slam`` on frames 0-40 bootstraps on ``DeviceVO``'s frame and tracks
+     every later frame, K1 once a frame; (e) the command line (``python -m
+     tinyslam_tpu_torch.run --dataset synthetic --frames 60``) exits 0 on
+     the card.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -86,6 +110,19 @@ N_CPU_BOOT = 16        # phase 8c: frames after the bootstrap held against the C
 # frames 14-100 of the orbit: python tools/jax_reference_orbit.py
 # --bootstrap --frames 101 (see PERF.md).
 REF_BOOT_ATE = 0.28026400986635236
+N_SLAM = 101           # phase 9: orbit frames 0..100, then 99..0
+# Phase 9's one change to SlamConfig(): the JAX package's own SLAM tests
+# use 6 (tests/test_slam.py:29); the default 30 keyframes would take about
+# 450 frames at a keyframe every 12-16.
+SLAM_LOOP_MIN_GAP = 6
+N_SLAM_HOST = 41       # phase 9d: the host Slam on frames 0-40
+N_CLI_FRAMES = 60      # phase 9e
+# The JAX reference's DeviceSlam on phase 9's sequence: accepted closures
+# and the Sim(3)-aligned ATE of the corrected trajectory from the
+# bootstrap frame on: python tools/jax_reference_orbit.py --slam --frames
+# 101 (see PERF.md).
+REF_SLAM_CLOSURES = 1
+REF_SLAM_ATE = 0.27765025824560974
 # Published H100 SXM peaks (NVIDIA's data sheet, dense rates at 700 W): the
 # bounds of phase 7.
 HBM_BYTES_PER_S = 3.35e12
@@ -96,6 +133,19 @@ FP32_FLOPS_PER_S = 67e12
 # sums 2 x 14 adds, ramps 2 x (14 mul + 13 add), blur 2 x (7 mul + 6 add),
 # NMS 8 compares.
 K1_FLOPS_PER_PIXEL = 16 * 9 + 1 + 28 + 54 + 26 + 8
+
+
+def out_and_back(n: int) -> list[int]:
+    """Orbit indices of phase 9's sequence: frames 0..n-1, then n-2..0."""
+    return list(range(n)) + list(range(n - 2, -1, -1))
+
+
+def slam_config():
+    """Phase 9's config: ``SlamConfig()`` with ``loop_min_gap`` 6."""
+    from tinyslam_tpu_torch import SlamConfig
+
+    cfg = SlamConfig()
+    return cfg.replace(pose_graph=cfg.pose_graph.replace(loop_min_gap=SLAM_LOOP_MIN_GAP))
 
 
 def _smi() -> str:
@@ -379,7 +429,7 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
     from tinyslam_tpu_torch.geometry.se3 import se3_compose
     from tinyslam_tpu_torch.models import vo_device as vd
     from tinyslam_tpu_torch.models.two_view import TwoViewEstimator
-    from tinyslam_tpu_torch.models.vo import VisualOdometry, _match_to_map
+    from tinyslam_tpu_torch.models.vo import VisualOdometry, _match_to_map, _reloc_attempt
     from tinyslam_tpu_torch.models.vo_device import SUMMARY_FIELDS, DeviceVO, VOState
     from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
     from tinyslam_tpu_torch.utils.draws import Sampler
@@ -542,8 +592,9 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
                              cfg.frontend)
     R_pred, t_pred = se3_compose(snap_kid.vel_R, snap_kid.vel_t, snap_kid.R, snap_kid.t)
     diag = clone_sampler(gen_kid)
-    guided = vd._reloc_attempt(cam, cfg, snap_kid, feats, R_pred, t_pred, diag, True)
-    globl = vd._reloc_attempt(cam, cfg, snap_kid, feats, R_pred, t_pred, diag, False)
+    key = ("reloc", snap_kid.frame_idx)
+    guided = _reloc_attempt(cam, cfg, snap_kid.map, feats, R_pred, t_pred, diag, key, True)
+    globl = _reloc_attempt(cam, cfg, snap_kid.map, feats, R_pred, t_pred, diag, key, False)
     n_g, n_w = int(globl[2]["num_inliers"]), int(guided[2]["num_inliers"])
     print(f"kidnap: frame {kid} after frame {N_BOOT_FRAMES - 1} ({KIDNAP_STEPS} orbit "
           f"steps): guided attempt {n_w} inliers, global {n_g}; tracked "
@@ -555,8 +606,8 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
         fj = extract_features(torch.from_numpy(frames[N_BOOT_FRAMES - 1 + jump]).to(dev),
                               snap_kid.threshold, cfg.frontend)
         diag = clone_sampler(gen_kid)
-        sweep[jump] = tuple(int(vd._reloc_attempt(cam, cfg, snap_kid, fj, R_pred, t_pred,
-                                                  diag, g)[2]["num_inliers"])
+        sweep[jump] = tuple(int(_reloc_attempt(cam, cfg, snap_kid.map, fj, R_pred, t_pred,
+                                                  diag, key, g)[2]["num_inliers"])
                             for g in (True, False))
     print(f"kidnap sweep, orbit steps -> (guided, global) inliers: {sweep}")
     # f. The reboot.
@@ -656,6 +707,316 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
     if failures:
         raise AssertionError("bootstrap phase: " + "; ".join(failures))
     return launches, reloc_frame
+
+
+def _moved(a, device):
+    """A tensor, or a dataclass of tensors (Features, MapState), on
+    ``device``; anything else as it is."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return type(a)(**{f.name: _moved(getattr(a, f.name), device)
+                          for f in dataclasses.fields(a)})
+    return a
+
+
+def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
+    """Phase 9: Sim(3) loop closure (``slam_config()`` unless ``cfg``) on
+    the out-and-back of the orbit's first ``n`` frames.  Returns the
+    kernels' launch counts of the DeviceSlam run and a callable that runs
+    the first graph solve again (timed in phase 7), or None."""
+    import re
+
+    import torch
+
+    from tinyslam_tpu_torch.models import slam as sm
+    from tinyslam_tpu_torch.models import vo_device as vd
+    from tinyslam_tpu_torch.models.slam import DeviceSlam, Slam
+    from tinyslam_tpu_torch.models.vo_device import DeviceVO
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.utils.draws import Sampler
+    from tinyslam_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = slam_config() if cfg is None else cfg
+    dev = torch.device(dev)
+    seq = out_and_back(n)
+    images = [frames[i] for i in seq]
+    gt = _centres([poses[i][0] for i in seq], [poses[i][1] for i in seq])
+    C = max(2, cfg.pose_graph.loop_candidates)
+    failures = []
+
+    def clone_sampler(state):
+        out = Sampler()
+        out.generator.set_state(state)
+        return out
+
+    def run_timed(step, finish, ims):
+        """Feed the frames; per-frame wall seconds on the host clock (the
+        chunked trackers read back at chunk boundaries), the finish
+        (flush or finalize) added to the last."""
+        secs = []
+        torch.cuda.synchronize()
+        for im in ims:
+            t_start = time.perf_counter()
+            step(im)
+            secs.append(time.perf_counter() - t_start)
+        t_start = time.perf_counter()
+        finish()
+        torch.cuda.synchronize()
+        secs[-1] += time.perf_counter() - t_start
+        return np.array(secs)
+
+    def fps(secs, start):
+        return (len(secs) - start) / secs[start:].sum()
+
+    # The tracker alone: its bootstrap frame and tracked fps.
+    vo = DeviceVO(cfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
+    vo_secs = run_timed(vo.process, vo.flush, images)
+    b_vo = vo.host_frames - 1
+    warm = b_vo + 1 + CHUNK         # after the bootstrap and a warm-up chunk
+
+    # a. DeviceSlam, instrumented: K2 and wall ms per ingest, probe and
+    # solve, syncs per tracked frame and per chunk sync; the first probe's
+    # inputs and draws and the first solve's snapshot are kept for b.
+    calls = {"_kf_ingest": [], "_loop_probe": [], "solve_graph": []}
+    frame_syncs, chunk_syncs, first, probes = [], [], {}, []
+    real = {k: getattr(sm, k) for k in calls}
+    real_step = vd.track_step
+
+    def counted(name):
+        def wrapper(*args, **kw):
+            k2 = match_cuda.LAUNCHES
+            if name == "_loop_probe":
+                inputs = ([_moved(a, "cpu") for a in args[:11]],
+                          args[11].generator.get_state(), kw)
+            t_start = time.perf_counter()
+            out = real[name](*args, **kw)
+            if name == "_loop_probe":
+                out = out.cpu()               # the caller's readback, timed here
+                probes.append(inputs + (out.numpy(),))
+            if name == "solve_graph":
+                first.setdefault("solve", (args[1], out))
+            calls[name].append((match_cuda.LAUNCHES - k2,
+                                (time.perf_counter() - t_start) * 1e3))
+            return out
+        return wrapper
+
+    def step_counted(*args, **kw):
+        out, k = _with_sync_count(lambda: real_step(*args, **kw))
+        frame_syncs.append(k)
+        return out
+
+    slam = DeviceSlam(cfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
+    real_sync = slam._sync_chunk
+
+    def sync_counted():
+        slam.vo._dispatch()           # a partial chunk's frames count as frames
+        chunk_syncs.append(_with_sync_count(real_sync)[1])
+
+    slam._sync_chunk = sync_counted
+    for k in real:
+        setattr(sm, k, counted(k))
+    vd.track_step = step_counted
+    try:
+        torch.cuda.synchronize()
+        fast_cuda.LAUNCHES = 0
+        match_cuda.LAUNCHES = 0
+        slam_secs = run_timed(slam.process_frame, slam.finalize, images)
+        torch.cuda.synchronize()
+        launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
+                    "match_reduce_streaming": match_cuda.LAUNCHES}
+    finally:
+        for k, f in real.items():
+            setattr(sm, k, f)
+        vd.track_step = real_step
+    stats = slam.vo.stats
+    b0 = slam.vo.host_frames - 1
+    n_kf = len(slam.kf_R)
+    ate = ate_rmse(slam.positions[b0:], gt[b0:])
+    raw_ate = ate_rmse(slam.raw_positions[b0:], gt[b0:])
+    lost = [j for j in range(b0, len(seq)) if not stats[j].tracking]
+    print(f"phase 9: {len(seq)} frames (orbit 0..{n - 1}..0), bootstrap at frame {b0} "
+          f"(DeviceVO alone {b_vo}); {n_kf} keyframes at frames "
+          f"{sorted(slam.kf_frame_of.values())}; lost {lost}; "
+          f"{len(calls['_loop_probe'])} probes; candidates (kf, old, n_appear, n_chain, "
+          f"inliers, rmse, s_e, pairs, s_e_med, accepted) "
+          f"{[(r['kf'], r['old'], r['n_appear'], r['n_chain'], r['num_inliers'], round(r['rmse'], 3), round(r['s_e'], 4), r['n_scale_pairs'], round(r['s_e_med'], 4), r['accepted']) for r in slam.loop_log]}")
+    print(f"phase 9: {slam.num_loop_closures} closures accepted; edges (i, j, s, w) "
+          f"{[(i, j, round(s_, 4), w) for i, j, _, _, s_, w in slam.edges if j != i + 1]}; "
+          f"Sim(3)-aligned ATE from the bootstrap frame: corrected {ate:.4f}, raw "
+          f"{raw_ate:.4f} (JAX reference {REF_SLAM_ATE}, {REF_SLAM_CLOSURES} closures)")
+    if not b0 < BOOT_BUDGET:
+        failures.append(f"no bootstrap within {BOOT_BUDGET} frames ({b0})")
+    if REF_SLAM_CLOSURES is None or slam.num_loop_closures < REF_SLAM_CLOSURES:
+        failures.append(f"{slam.num_loop_closures} closures < reference {REF_SLAM_CLOSURES}")
+    if not (n_kf == slam.vo.num_keyframes == len(slam.kf_store)) or not all(
+            0 <= i < n_kf and 0 <= j < n_kf and s_ > 0 and w > 0
+            for i, j, _, _, s_, w in slam.edges):
+        failures.append("keyframe tables or edges inconsistent")
+    if REF_SLAM_ATE is None or not ate <= REF_SLAM_ATE + 0.02:
+        failures.append(f"ATE {ate:.4f} > reference {REF_SLAM_ATE} + 0.02")
+    # K1 once a frame; K2 once an ingest, 1 + C times a probe, the rest on
+    # the tracking path (at least once a tracked frame).
+    k2_ingest = [k for k, _ in calls["_kf_ingest"]]
+    k2_probe = [k for k, _ in calls["_loop_probe"]]
+    k2_track = launches["match_reduce_streaming"] - sum(k2_ingest) - sum(k2_probe)
+    print(f"launches during phase 9a: {launches}; K2 = tracking {k2_track} + ingests "
+          f"{k2_ingest} + probes {k2_probe} (1 + {C} each)")
+    if launches["fast_score_map_fused"] != len(seq):
+        failures.append(f"K1 launched {launches['fast_score_map_fused']} times, expected "
+                        f"{len(seq)} (one a frame)")
+    if (set(k2_ingest) != {1} or len(k2_ingest) != n_kf or set(k2_probe) != {1 + C}
+            or k2_track < len(seq) - b0 - 1):
+        failures.append("K2 launches do not add up")
+    # A tracked frame syncs at most 3 times, 4 on a keyframe, one more after
+    # a lost frame.
+    fs = np.array(frame_syncs)
+    dev_stats = stats[b0 + 1:]
+    if slam.vo.num_reboots or len(fs) != len(dev_stats):
+        failures.append(f"{len(fs)} tracked steps for {len(dev_stats)} frames "
+                        f"({slam.vo.num_reboots} reboots)")
+    else:
+        is_kf = np.array([s_.is_keyframe for s_ in dev_stats])
+        after_lost = np.array([not stats[b0 + i].tracking for i in range(len(dev_stats))])
+        late = np.arange(len(fs)) >= CHUNK          # after the warm-up chunk
+        over = np.flatnonzero(late & (fs > 3 + is_kf + after_lost))
+        if len(over):
+            failures.append(f"frames {(b0 + 1 + over).tolist()} sync too often "
+                            f"({fs[over].tolist()})")
+        plain = late & ~is_kf & ~after_lost
+        print(f"syncs per tracked frame: plain {sorted(set(fs[plain].tolist()))}, keyframe "
+              f"{sorted(set(fs[late & is_kf].tolist()))} (warm-up frames {b0 + 1}-"
+              f"{b0 + CHUNK}: {fs[~late].tolist()}); the SLAM layer's per chunk sync "
+              f"{chunk_syncs}")
+    # The same frames again without the counters, the solver warm: the
+    # stage times and the tracked fps set against DeviceVO's.
+    warm_slam = DeviceSlam(cfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
+    ws_secs = run_timed(warm_slam.process_frame, warm_slam.finalize, images)
+    n_probe, n_solve = len(calls["_loop_probe"]), len(calls["solve_graph"])
+    t = warm_slam.timings
+    per = lambda k, m: 1e3 * t.get(k, 0.0) / m if m else float("nan")  # noqa: E731
+    print(f"SLAM stages, the counted run: probe ms {[round(m, 1) for _, m in calls['_loop_probe']]}"
+          f" (K2, PnP-RANSAC, readback), graph solve ms "
+          f"{[round(m, 1) for _, m in calls['solve_graph']]}; the warm run: wall s by stage "
+          f"{({k: round(v, 3) for k, v in t.items()})}, ms per ingest "
+          f"{per('kf_ingest', len(warm_slam.kf_R)):.2f} (n={len(warm_slam.kf_R)}), per probe "
+          f"{per('loop_probe', n_probe):.2f} (n={n_probe}), per graph solve and its "
+          f"application {per('graph_solve', n_solve):.2f} (n={n_solve})  [{smi}]")
+    print(f"tracked fps from frame {warm} (after the bootstrap and a warm-up chunk): "
+          f"DeviceSlam {fps(ws_secs, warm):.2f} (the counted run, first solve included: "
+          f"{fps(slam_secs, warm):.2f}), DeviceVO {fps(vo_secs, warm):.2f}; host-clock s "
+          f"{ws_secs[warm:].sum():.3f} vs {vo_secs[warm:].sum():.3f}  [{smi}]")
+
+    # b. The first probe, and the one that accepted the first closure, and
+    # the first solve again on the CPU plain path, from the card's inputs
+    # with the same draws.
+    solve = None
+    closing = [r["kf"] for r in slam.loop_log if r["accepted"]][:1]
+    replay = [i for i, p in enumerate(probes) if i == 0 or p[0][10] in closing]
+    ints = ("n_appear", "n_chain", "num_inliers", "n_scale_pairs", "n_scale_old",
+            "n_scale_new")
+    floats = ("rmse", "s_e", "s_e_med")
+    n_gated = 0
+    for i in replay:
+        args, gen, kw, rows = probes[i]
+        got = sm.unpack_probe(sm._loop_probe(*args, clone_sampler(gen), **kw).numpy())
+        card = sm.unpack_probe(rows)
+        same = all(np.array_equal(got[k], card[k]) for k in ints)
+        # The floats of candidates the gate can pass: below loop_min_matches
+        # inliers a candidate is rejected before its pose, RMSE or scales
+        # are read, and its PnP pose rests on a handful of points.
+        used = card["num_inliers"] >= cfg.pose_graph.loop_min_matches
+        n_gated += int(used.sum())
+        pose = np.concatenate([card["R"].reshape(len(used), -1), card["t"]], 1)[used]
+        pose_cpu = np.concatenate([got["R"].reshape(len(used), -1), got["t"]], 1)[used]
+        dp = float(np.abs(pose - pose_cpu).max()) if used.any() else 0.0
+        rel = {}
+        for k in floats:
+            a, b = card[k][used].astype(np.float64), got[k][used].astype(np.float64)
+            both_nan = np.isnan(a) & np.isnan(b)
+            r = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
+            rel[k] = float(np.where(both_nan, 0.0, np.nan_to_num(r, nan=np.inf)).max(
+                initial=0.0))
+        print(f"probe {i} (keyframe {args[10]}, candidates {args[3]}), card vs CPU: counts "
+              f"equal {same} { {k: card[k].astype(int).tolist() for k in ints} }; over the "
+              f"{int(used.sum())} candidate(s) at the inlier gate: max pose diff {dp:.2e}, "
+              f"max relative diff {({k: f'{v:.2e}' for k, v in rel.items()})}")
+        if not (same and dp < 2e-3 and max(rel.values()) < 2e-3):
+            failures.append(f"probe {i} disagrees with the CPU plain path")
+    if replay and not n_gated:
+        failures.append("no replayed probe has a candidate at the inlier gate")
+    if "solve" in first:
+        snap, card = first["solve"]
+        got = sm.solve_graph(cfg, snap, "cpu")
+        d = [float(np.abs(g - c).max()) for g, c in zip(got, card)]
+        print(f"first graph solve ({len(snap[0])} nodes, {len(snap[2])} edges), card vs "
+              f"CPU: max diff R {d[0]:.2e}, t {d[1]:.2e}, s {d[2]:.2e}")
+        if max(d) >= 2e-3:
+            failures.append("the first graph solve disagrees with the CPU plain path")
+        solve = lambda: sm.solve_graph(cfg, snap, dev)  # noqa: E731
+    if not replay or "solve" not in first:
+        failures.append("no probe or no graph solve to replay")
+
+    # c. The asynchronous back-end on the same frames.
+    aslam = DeviceSlam(cfg, cam, chunk=CHUNK, async_backend=True, device=dev,
+                       sampler=Sampler(0))
+    applied = []
+    real_apply = aslam._apply_graph_result
+
+    def apply_counted(*a):
+        applied.append(len(aslam.vo.stats))
+        return real_apply(*a)
+
+    aslam._apply_graph_result = apply_counted
+    try:
+        a_secs = run_timed(aslam.process_frame, aslam.finalize, images)
+        restarts = aslam._worker.restarts
+    finally:
+        aslam.close()
+    a_b0 = aslam.vo.host_frames - 1
+    a_ate = ate_rmse(aslam.positions[a_b0:], gt[a_b0:])
+    print(f"async back-end: {aslam.num_loop_closures} closures, solves applied after "
+          f"frames {applied}, watchdog restarts {restarts}, ATE {a_ate:.4f}, tracked fps "
+          f"{fps(a_secs, warm):.2f}  [{smi}]")
+    if not applied or restarts or REF_SLAM_ATE is None or not a_ate <= REF_SLAM_ATE + 0.02:
+        failures.append("the asynchronous back-end applied no closure, restarted, or "
+                        "missed the ATE")
+
+    # d. The host-stepped Slam on frames 0-40.
+    host = Slam(cfg, cam, device=dev, sampler=Sampler(0))
+    torch.cuda.synchronize()
+    fast_cuda.LAUNCHES = 0
+    h_secs = run_timed(host.process_frame, host.finalize, frames[:N_SLAM_HOST])
+    k1_host = fast_cuda.LAUNCHES
+    hs = host.vo.stats
+    h_b0 = host.vo.kf_frames_log[1] if host.vo.initialized else None
+    print(f"host Slam on frames 0-{N_SLAM_HOST - 1}: bootstrap at frame {h_b0} (DeviceVO "
+          f"{b_vo}), tracked {sum(s_.tracking for s_ in hs)}/{len(hs)}, "
+          f"{host.vo.num_keyframes} keyframes, K1 {k1_host}, wall ms per frame after the "
+          f"bootstrap {1e3 * h_secs[b_vo + 1:].mean():.1f}  [{smi}]")
+    if not (h_b0 == b_vo and all(s_.tracking for s_ in hs[h_b0:])
+            and k1_host == N_SLAM_HOST):
+        failures.append("the host Slam did not bootstrap with DeviceVO, lost a frame, or "
+                        "did not launch K1 once a frame")
+
+    # e. The command line, in a process of its own.
+    extra = [] if dev.type == "cuda" else ["--device", "cpu"]
+    proc = subprocess.run([sys.executable, "-m", "tinyslam_tpu_torch.run", "--dataset",
+                           "synthetic", "--frames", str(N_CLI_FRAMES)] + extra,
+                          capture_output=True, text=True, timeout=600)
+    line = re.search(r"^frames=.*$", proc.stdout, re.M)
+    ate_line = re.search(r"^ATE.*$", proc.stdout, re.M)
+    print(f"command line: exit {proc.returncode}; {line.group(0) if line else '-'}; "
+          f"{ate_line.group(0) if ate_line else '-'}  [{smi}]")
+    if proc.returncode != 0 or not line:
+        failures.append(f"the command line failed: {proc.stderr[-2000:]}")
+    if failures:
+        raise AssertionError("SLAM phase: " + "; ".join(failures))
+    return launches, solve
 
 
 def main() -> None:
@@ -858,6 +1219,9 @@ def main() -> None:
     # ---- 8. DeviceVO from frame 0: bootstrap, relocalization, reboot ------
     boot_launches, reloc_frame = _bootstrap_phase(cam, poses, frames, dev, smi)
 
+    # ---- 9. Sim(3) loop closure: DeviceSlam, the async back-end, Slam, CLI --
+    slam_launches, graph_solve = _slam_phase(cam, poses, frames, dev, smi)
+
     # ---- 7. kernel times -----------------------------------------------------
     # Last: once the profiler has run in a process, every later launch
     # costs more on the host, which would distort the tracked fps above.
@@ -897,20 +1261,25 @@ def main() -> None:
     rel_dev = _device_ms(reloc_frame, reps=5)
     print(f"one relocalization frame (phase 8d, guided): wall {rel_wall:.3f} ms, device "
           f"{rel_dev:.3f} ms, card busy {100 * rel_dev / rel_wall:.1f}%  [{smi}]")
+    solve_wall = _time_ms(graph_solve, reps=3, warmup=1)
+    solve_dev = _device_ms(graph_solve, reps=2)
+    print(f"one graph solve (phase 9's first, 20 Gauss-Newton iterations, upload and "
+          f"readback included): wall {solve_wall:.3f} ms, device {solve_dev:.3f} ms, card "
+          f"busy {100 * solve_dev / solve_wall:.1f}%  [{smi}]")
 
     kernels = [
         {"name": "fast_score_map_fused", "route": "cuda",
          "source": "tinyslam_tpu_torch/csrc/fast.cu",
          "replaces": "tinyslam_tpu/ops/fast_pallas.py:258",
          "launches": sum(x["fast_score_map_fused"]
-                         for x in (launches, kf_launches, boot_launches)),
+                         for x in (launches, kf_launches, boot_launches, slam_launches)),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "match_reduce_streaming", "route": "cuda",
          "source": "tinyslam_tpu_torch/csrc/match.cu",
          "replaces": "tinyslam_tpu/ops/match_pallas.py:140",
          "launches": sum(x["match_reduce_streaming"]
-                         for x in (launches, kf_launches, boot_launches)),
+                         for x in (launches, kf_launches, boot_launches, slam_launches)),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["K2 real guided r=20"][0],
          "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},

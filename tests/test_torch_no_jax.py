@@ -1,7 +1,8 @@
 """The port runs without JAX: in a fresh interpreter where ``import jax``
-fails, every module of tinyslam_tpu_torch imports, and ``DeviceVO``
-bootstraps from frame 0 of a rendered 160x120 orbit and tracks it on the
-CPU, launching no CUDA kernel."""
+fails, every module of tinyslam_tpu_torch imports, ``DeviceVO`` and
+``DeviceSlam`` bootstrap from frame 0 of a rendered 160x120 orbit and
+track it on the CPU, and the command line runs 6 synthetic frames there,
+launching no CUDA kernel."""
 
 from __future__ import annotations
 
@@ -39,7 +40,18 @@ cfg = SlamConfig(frontend=FrontendConfig(height=120, width=160, num_levels=2,
                  vo=VOConfig(max_map_points=512))
 vo = DeviceVO(cfg, cam, chunk=4, device="cpu")
 stats = vo.run(frames)
+from tinyslam_tpu_torch.models.slam import DeviceSlam
+slam = DeviceSlam(cfg, cam, chunk=4, device="cpu")
+slam.run(frames)
+import contextlib, io
+from tinyslam_tpu_torch import run
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = run.main(["--device", "cpu", "--frames", "6"])
 print(json.dumps({"modules": len(mods), "count": stats[0].num_features,
+                  "slam": [slam.vo.initialized, len(slam.kf_R), slam.vo.num_keyframes,
+                           len(slam.positions)],
+                  "cli": [rc, out.getvalue().splitlines()[0]],
                   "tracking": stats[-1].tracking, "initialized": vo.initialized,
                   "jax_loaded": any(k.split(".")[0] in ("jax", "jaxlib") and v is not None
                                     for k, v in sys.modules.items()),
@@ -57,11 +69,15 @@ def result():
 
 
 def test_port_imports_and_tracks_without_jax(result):
-    assert result["modules"] >= 15
+    assert result["modules"] >= 42
     assert not result["jax_loaded"]
     assert result["count"] > 100
     assert result["initialized"]
     assert result["tracking"]
+    initialized, n_kf, vo_kf, n_pos = result["slam"]
+    assert initialized and n_kf == vo_kf >= 2 and n_pos == 10
+    rc, line = result["cli"]
+    assert rc == 0 and line.startswith("frames=6 ") and "loop_closures=" in line
 
 
 def test_cpu_tensors_launch_no_kernel(result):

@@ -29,6 +29,7 @@ from tinyslam_tpu.geometry import pnp as jpnp, se3 as jse3
 from tinyslam_tpu.models.vo_device import track_chunk as jtrack_chunk
 from tinyslam_tpu_torch.geometry import pnp as tpnp
 from tinyslam_tpu_torch.models import vo_device as tvd
+from tinyslam_tpu_torch.models.vo import _reloc_attempt
 from tinyslam_tpu_torch.models.vo_device import SUMMARY_FIELDS, VOState, track_chunk
 
 _COL = {name: i for i, name in enumerate(SUMMARY_FIELDS)}
@@ -153,8 +154,8 @@ def test_staged_relocalization_matches_jax(seed_state, frame, yaw, fallback):
     tstate = VOState.from_numpy(state)
     feats = tvd.extract_features(T(image[0]), tstate.threshold, tcfg.frontend)
     R_pred, t_pred = tvd.se3_compose(tstate.vel_R, tstate.vel_t, tstate.R, tstate.t)
-    guided = tvd._reloc_attempt(tcam, tcfg, tstate, feats, R_pred, t_pred,
-                                P.JaxSampler(), guided=True)
+    guided = _reloc_attempt(tcam, tcfg, tstate.map, feats, R_pred, t_pred,
+                            P.JaxSampler(), ("reloc", tstate.frame_idx), guided=True)
     assert (int(guided[2]["num_inliers"]) < 20) == fallback
     new, ys = track_chunk(tcam, tcfg, tstate, T(image), [True], sampler)
     # The guided attempt, then (only where it failed) the global one, each

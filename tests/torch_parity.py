@@ -121,7 +121,10 @@ class JaxSampler:
     do: ``("two_view", seed, "E" or "H")`` is ``split(PRNGKey(seed))``'s
     first or second key (``TwoViewEstimator.estimate``), ``("reloc",
     frame_idx)`` is ``fold_in(PRNGKey(17), frame_idx)`` (the device
-    tracker's relocalization).  ``calls`` lists the keys drawn, in order."""
+    tracker's relocalization), ``("host_reloc", frame_idx)`` is
+    ``PRNGKey(frame_idx)`` (``VisualOdometry``'s relocalization) and
+    ``("loop", kf_id * 131 + old_id)`` is ``fold_in(PRNGKey(23), n)`` (the
+    loop probe's PnP-RANSAC).  ``calls`` lists the keys drawn, in order."""
 
     def __init__(self):
         self.calls: list = []
@@ -136,6 +139,10 @@ class JaxSampler:
             return jax.random.split(jax.random.PRNGKey(n))[0 if key[2] == "E" else 1]
         if kind == "reloc":
             return jax.random.fold_in(jax.random.PRNGKey(17), n)
+        if kind == "host_reloc":
+            return jax.random.PRNGKey(n)
+        if kind == "loop":
+            return jax.random.fold_in(jax.random.PRNGKey(23), n)
         raise KeyError(key)
 
     def uniform(self, shape, device, key=None) -> torch.Tensor:

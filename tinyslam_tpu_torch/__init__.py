@@ -1,5 +1,5 @@
-"""tinyslam_tpu_torch — the tracker of tinyslam_tpu in PyTorch, with
-hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+"""tinyslam_tpu_torch — tinyslam_tpu in PyTorch, with hand-written CUDA
+kernels for the NVIDIA H100 (sm_90a).
 
 Each module mirrors the JAX module of the same path in ``tinyslam_tpu/``,
 which stays the reference; public functions keep its layouts ((H, W)
@@ -9,16 +9,23 @@ images, (N, 2) xy, (N, 8) packed descriptors).  This package imports
 - ``ops``       image ops, FAST (plain + ``fast_cuda`` kernel), top-k,
                 binned BRIEF, Hamming matching (plain + ``match_cuda``).
 - ``frontend``  ``extract_features``, ``adapt_threshold``, ``OrbFrontend``.
-- ``geometry``  pinhole camera, SE(3), Gauss-Newton PnP and PnP-RANSAC,
-                triangulation, the essential matrix (eight- and five-point),
-                the homography, their LO-RANSAC and decompositions.
-- ``backend``   BA residuals and the Schur-complement LM bundle adjustment.
+- ``geometry``  pinhole camera, SE(3), Sim(3), Gauss-Newton PnP and
+                PnP-RANSAC, triangulation, the essential matrix (eight- and
+                five-point), the homography, their LO-RANSAC and
+                decompositions.
+- ``backend``   BA residuals, the Schur-complement LM bundle adjustment,
+                the SE(3) and Sim(3) pose graphs.
 - ``models``    ``MapState``, ``VOState``, ``track_step`` (relocalization,
                 keyframes and windowed BA included), ``track_chunk``,
                 ``DeviceVO`` (bootstrap and submap reboots),
-                ``TwoViewEstimator``, ``VisualOdometry`` up to its bootstrap.
-- ``utils``     the RANSAC ``Sampler``, Umeyama alignment and ATE.
-- ``data``      the numpy room renderer and orbit trajectories.
+                ``TwoViewEstimator``, ``VisualOdometry``, and ``Slam`` /
+                ``DeviceSlam`` (Sim(3) loop closure).
+- ``parallel``  the latest-wins back-end worker thread.
+- ``utils``     the RANSAC ``Sampler``, Umeyama alignment and ATE, the
+                back-end ``Watchdog``, the metrics registry.
+- ``data``      the numpy room renderer, orbit trajectories, the synthetic
+                VO sequence.
+- ``run``       the command line (``python -m tinyslam_tpu_torch.run``).
 """
 
 import torch as _torch
@@ -40,3 +47,9 @@ from tinyslam_tpu_torch.config import (  # noqa: E402,F401
     slice_config,
 )
 from tinyslam_tpu_torch.types import Features  # noqa: E402,F401
+from tinyslam_tpu_torch.models import (  # noqa: E402,F401
+    DeviceSlam,
+    DeviceVO,
+    Slam,
+    VisualOdometry,
+)

@@ -1,6 +1,6 @@
 """Synthetic scenes, trajectories and rendered frames in numpy (mirrors
-``tinyslam_tpu/data/synthetic.py:look_at, orbit_trajectory, TexturedRoom``,
-without lens distortion).
+``tinyslam_tpu/data/synthetic.py:default_camera, look_at,
+orbit_trajectory, TexturedRoom, vo_sequence``, without lens distortion).
 
 Frames and ground-truth ray casts are bit-equal to the JAX package's for
 the same camera, poses and seed, so the port can render on a machine
@@ -12,6 +12,11 @@ from __future__ import annotations
 import numpy as np
 
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
+
+
+def default_camera(width: int = 640, height: int = 480) -> PinholeCamera:
+    """TUM-fr1-like intrinsics."""
+    return PinholeCamera.create(fx=517.3, fy=516.5, cx=width / 2 - 0.5, cy=height / 2 - 0.5)
 
 
 def look_at(camera_pos: np.ndarray, target: np.ndarray,
@@ -212,3 +217,18 @@ class TexturedRoom:
             + t[y0 + 1, x0] * (1 - ax) * ay
             + t[y0 + 1, x0 + 1] * ax * ay
         )
+
+
+def vo_sequence(rng: np.random.Generator, num_frames: int = 60, num_points: int = 400,
+                width: int = 320, height: int = 240, radius: float = 2.0,
+                step: float = 0.03):
+    """A synthetic VO sequence: a camera orbiting inside a textured room at
+    a fixed angle a frame (so the motion does not depend on the length).
+    ``num_points`` is unused, as in the reference.  Returns (cam, images,
+    ground-truth poses (world->camera), room)."""
+    cam = PinholeCamera.create(fx=260.0, fy=260.0, cx=width / 2 - 0.5, cy=height / 2 - 0.5)
+    room = TexturedRoom(rng)
+    poses = orbit_trajectory(num_frames, radius=radius, step=step, start=-0.35,
+                             target=(0.0, 0.0, 2.0))
+    images = [room.render(cam, R, t, width, height) for R, t in poses]
+    return cam, images, poses, room

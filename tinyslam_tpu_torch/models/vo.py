@@ -1,7 +1,5 @@
-"""Landmark map, tracking helpers, map maintenance and the bootstrap
-phase of the visual odometry (mirrors ``tinyslam_tpu/models/vo.py:
-MapState, _match_to_map, _track_pnp, _triangulate_and_insert, _record_obs,
-VOStats`` and ``VisualOdometry`` up to its initialization).
+"""Landmark map, tracking helpers, map maintenance, relocalization and
+the host-stepped visual odometry (mirrors ``tinyslam_tpu/models/vo.py``).
 
 World frame = camera frame of the first keyframe; poses are world->camera.
 Monocular scale is fixed at bootstrap by normalizing the median depth.
@@ -26,16 +24,18 @@ from tinyslam_tpu_torch.config import SlamConfig
 from tinyslam_tpu_torch.frontend.orb import OrbFrontend
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
 from tinyslam_tpu_torch.geometry.epipolar import depths, triangulate
-from tinyslam_tpu_torch.geometry.pnp import pnp_refine
-from tinyslam_tpu_torch.geometry.se3 import se3_identity
+from tinyslam_tpu_torch.geometry.pnp import pnp_ransac, pnp_refine
+from tinyslam_tpu_torch.geometry.se3 import (
+    se3_compose,
+    se3_exp,
+    se3_identity,
+    se3_inverse,
+    se3_log,
+)
 from tinyslam_tpu_torch.models.two_view import TwoViewEstimator
 from tinyslam_tpu_torch.ops.hamming import hamming_distance_matrix, match_descriptors
 from tinyslam_tpu_torch.types import Features, from_numpy, row, set_row, to_numpy
 from tinyslam_tpu_torch.utils.draws import Sampler
-
-_TRACKING_TODO = ("VisualOdometry's own tracking after the bootstrap is not "
-                  "ported yet (ROADMAP.md queue 1, item 13); DeviceVO tracks "
-                  "on the device from there")
 
 
 @dataclass
@@ -302,19 +302,80 @@ def _observe_keyframe(cam: PinholeCamera, cfg: SlamConfig, map_state: MapState,
                                torch.where(gated, kf_id, map_state.last_seen[ix])))
 
 
+def _cull_map(map_state: MapState, kf_id, max_age: int = 10,
+              min_obs: int = 2) -> MapState:
+    """Invalidate landmarks that stayed single-observation for more than
+    ``max_age`` keyframes: they only take capacity and add ambiguity."""
+    weak = (map_state.obs_count < min_obs) & (kf_id - map_state.last_seen > max_age)
+    return map_state.replace(valid=map_state.valid & ~weak)
+
+
+def _select(pred: torch.Tensor, a, b):
+    """Elementwise ``pred ? a : b`` over matching (nested) tuples/dicts of
+    tensors, with a 0-d bool ``pred`` that stays on the device."""
+    if isinstance(a, dict):
+        return {k: _select(pred, a[k], b[k]) for k in a}
+    if isinstance(a, tuple):
+        return tuple(_select(pred, x, y) for x, y in zip(a, b))
+    return torch.where(pred, a, b)
+
+
+def _reloc_attempt(cam: PinholeCamera, cfg: SlamConfig, map_state: MapState,
+                   feats: Features, R_pred, t_pred, sampler: Sampler, key, guided: bool):
+    """One relocalization attempt: match to the map (guided at 64 px around
+    the stale pose, or globally), then absolute-pose LO-RANSAC with the
+    stale pose as one more hypothesis, its samples drawn under ``key``.
+    Returns (idx, match_valid, out)."""
+    vo = cfg.vo
+    if guided:
+        idx, mvalid = _match_to_map(feats, map_state, cfg.matcher.max_distance,
+                                    cfg.matcher.ratio, cam=cam, R=R_pred, t=t_pred,
+                                    radius_px=64.0)
+    else:
+        idx, mvalid = _match_to_map(feats, map_state, cfg.matcher.max_distance,
+                                    cfg.matcher.ratio)
+    sample = sampler.choice(mvalid, (vo.reloc_hypotheses, 6), key=key)
+    out = pnp_ransac(cam, map_state.X[idx.long()], feats.xy, mvalid, sample,
+                     inlier_px=vo.pnp_inlier_px, refine_iters=vo.pnp_iters,
+                     R_prior=R_pred, t_prior=t_pred)
+    return idx, mvalid, {k: out[k] for k in ("R", "t", "inliers", "num_inliers", "rmse")}
+
+
+def _relocalize(cam: PinholeCamera, cfg: SlamConfig, map_state: MapState,
+                feats: Features, R_pred, t_pred, sampler: Sampler, key):
+    """The staged relocalization of a frame after a lost one: the guided
+    attempt first (under self-similar texture a global match is mostly
+    aliases), the global one only if that seats fewer than 20 inliers,
+    and the attempt with more inliers wins.  Both draw under ``key``.  One
+    sync (the staging)."""
+    if not cfg.vo.staged_reloc:
+        return _reloc_attempt(cam, cfg, map_state, feats, R_pred, t_pred, sampler, key, False)
+    res_w = _reloc_attempt(cam, cfg, map_state, feats, R_pred, t_pred, sampler, key, True)
+    if not bool(res_w[2]["num_inliers"] < 20):                  # sync
+        return res_w
+    res_g = _reloc_attempt(cam, cfg, map_state, feats, R_pred, t_pred, sampler, key, False)
+    return _select(res_g[2]["num_inliers"] > res_w[2]["num_inliers"], res_g, res_w)
+
+
 class VisualOdometry:
-    """The host-stepped monocular tracker, as far as its bootstrap: the
-    first frame becomes the reference keyframe, and from its fourth frame on
-    each frame tries a two-view initialization against it (E and H
-    LO-RANSAC, model selection, the parallax gate, scale by the median
-    depth).  Success seeds the map and a two-keyframe window.  Tracking
-    after that is ``DeviceVO``'s, which takes this state over; ``process``
-    on an initialized tracker raises ``NotImplementedError``.
+    """The host-stepped monocular tracker with sliding-window BA.
+
+    Bootstrap: the first frame becomes the reference keyframe, and from its
+    fourth frame on each frame tries a two-view initialization against it
+    (E and H LO-RANSAC, model selection, the parallax gate, scale by the
+    median depth); success seeds the map and a two-keyframe window, and
+    ``DeviceVO`` takes the state over from there.  Tracking: guided
+    matching around the constant-velocity prediction and Gauss-Newton PnP,
+    a second pass at 8 px below ``second_pass_below`` inliers, the staged
+    relocalization after a lost frame, keyframes with triangulation against
+    the newest and the widest-baseline window keyframes, culling and the
+    window BA.  Every decision reads the device back, as in the reference;
+    ``DeviceVO`` is the tracker that avoids that.
 
     Arrays live on ``device`` as tensors; the window's occupancy and
     keyframe ids are host numpy, as in the reference.  RANSAC samples come
-    from ``sampler`` under the key ``("two_view", frame_idx, ...)``.  An
-    attempt reads the device back once, after its model choice.
+    from ``sampler`` under the keys ``("two_view", frame_idx, ...)`` and
+    ``("host_reloc", frame_idx)``.
     """
 
     def __init__(self, cfg: SlamConfig, camera: PinholeCamera,
@@ -487,30 +548,158 @@ class VisualOdometry:
         self.frames_since_kf = 0
         return True
 
+    # ---------------- keyframe insertion ----------------
+    def _best_baseline_slot(self) -> int | None:
+        """Window slot whose camera centre lies farthest from the current
+        one: back-to-back keyframes have ~zero baseline, and their
+        triangulations all fail the parallax gate."""
+        valid = np.nonzero(self.win_valid)[0]
+        if len(valid) == 0:
+            return None
+        C_cur = (-self.R.T @ self.t).cpu().numpy()
+        C_win = (-torch.einsum("kij,ki->kj", self.win_R, self.win_t)).cpu().numpy()
+        best, best_d = None, -1.0
+        for s in valid:
+            if self.win_feats[s] is None:
+                continue
+            d = float(np.linalg.norm(C_win[s] - C_cur))
+            if d > best_d:
+                best, best_d = int(s), d
+        return best
+
+    def _insert_keyframe(self, feats: Features, match_valid, inliers) -> int:
+        """Make the current frame keyframe ``num_keyframes``: triangulate
+        against the newest and the widest-baseline window keyframes (the
+        first matches best, the second triangulates best), re-record each
+        partner's observations, push the frame into the window, record its
+        own, cull weak landmarks and run the window BA.  Returns the number
+        of landmarks inserted."""
+        dev = self.device
+        kf_id = self.num_keyframes
+        self.num_keyframes += 1
+        kf = torch.tensor(kf_id, dtype=torch.int32, device=dev)
+        already = match_valid & inliers
+        newest = int(np.nonzero(self.win_valid)[0].max()) if self.win_valid.any() else None
+        refs = []
+        for r in (newest, self._best_baseline_slot()):
+            if r is not None and r not in refs and self.win_feats[r] is not None:
+                refs.append(r)
+        n_new = 0
+        for ref in refs:
+            ref_feats = self.win_feats[ref]
+            m = match_descriptors(feats.desc, feats.valid, ref_feats.desc, ref_feats.valid,
+                                  max_distance=self.cfg.matcher.max_distance,
+                                  ratio=self.cfg.matcher.ratio, cross_check=True)
+            self.map, n_ins = _triangulate_and_insert(
+                self.camera, self.map, kf, self.R, self.t, feats,
+                self.win_R[ref], self.win_t[ref], ref_feats, m["idx_b"], m["valid"],
+                already, max_new=self.cfg.frontend.features_per_level,
+                band_lo=self.cfg.vo.tri_band_lo, band_hi=self.cfg.vo.tri_band_hi,
+                dup_radius_px=self.cfg.vo.dup_radius_px,
+                local_band=self.cfg.vo.tri_local_band)
+            n_new += int(n_ins)
+            # Second-view registration of the landmarks just triangulated.
+            self._record_kf_observations(ref, ref_feats)
+        slot = self._push_keyframe(self.R, self.t, feats, kf_id)
+        self._record_kf_observations(slot, feats)
+        self.kf_feats = feats
+        self.kf_pose = (self.R, self.t)
+        self.kf_poses_log.append((kf_id, self.R.cpu().numpy(), self.t.cpu().numpy()))
+        self.kf_frames_log.append(self.frame_idx)
+        self.map = _cull_map(self.map, kf)
+        self._local_ba()
+        self.frames_since_kf = 0
+        return n_new
+
     # ---------------- per-frame ----------------
     def process(self, image) -> VOStats:
-        """One frame of the bootstrap phase ((H, W) numpy array or tensor,
-        uint8 or float in [0, 1])."""
-        if self.initialized:
-            raise NotImplementedError(_TRACKING_TODO)
+        """One frame ((H, W) numpy array or tensor, uint8 or float in
+        [0, 1]): a bootstrap attempt until the map exists, tracking after."""
         self.frame_idx += 1
         image = torch.as_tensor(image).to(self.device)
         feats = self.frontend.extract(image)
         n_feat, n_lm = torch.stack([feats.count.to(torch.int64),
                                     self.map.valid.sum()]).tolist()
         st = VOStats(frame=self.frame_idx, num_features=n_feat, num_landmarks=n_lm)
-        if self.kf0_feats is None:
-            self.kf0_feats = feats
-            self._kf0_frame = self.frame_idx
-            st.is_keyframe = True
-        else:
-            # The first two frames after the seed have near-zero baseline
-            # and always fail the parallax gate: skip only those.
-            age = self.frame_idx - self._kf0_frame
-            if age >= 3 and self._try_bootstrap(feats):
-                st.tracking = True
+        if not self.initialized:
+            if self.kf0_feats is None:
+                self.kf0_feats = feats
+                self._kf0_frame = self.frame_idx
                 st.is_keyframe = True
-                st.num_landmarks = int(self.map.valid.sum())
+            else:
+                # The first two frames after the seed have near-zero baseline
+                # and always fail the parallax gate: skip only those.
+                age = self.frame_idx - self._kf0_frame
+                if age >= 3 and self._try_bootstrap(feats):
+                    st.tracking = True
+                    st.is_keyframe = True
+                    st.num_landmarks = int(self.map.valid.sum())
+        else:
+            self._track(feats, st)
         self.trajectory.append((self.R.cpu().numpy(), self.t.cpu().numpy()))
         self.stats.append(st)
         return st
+
+    def _track(self, feats: Features, st: VOStats) -> None:
+        cfg, vo = self.cfg, self.cfg.vo
+        R_pred, t_pred = se3_compose(*self.vel, self.R, self.t)
+        relocalizing = self.force_reloc or (bool(self.stats) and not self.stats[-1].tracking)
+        self.force_reloc = False
+        if relocalizing:
+            # A local Gauss-Newton from a stale pose cannot recover.
+            idx, mvalid, out = _relocalize(self.camera, cfg, self.map, feats, R_pred, t_pred,
+                                           self.sampler, ("host_reloc", self.frame_idx))
+        else:
+            idx, mvalid = _match_to_map(feats, self.map, cfg.matcher.max_distance,
+                                        cfg.matcher.ratio, cam=self.camera, R=R_pred,
+                                        t=t_pred, radius_px=vo.track_radius_px)
+            out = _track_pnp(self.camera, feats, self.map, idx, mvalid, R_pred, t_pred,
+                             iters=vo.pnp_iters, inlier_px=vo.pnp_inlier_px)
+        st.num_matches = int(mvalid.sum())
+        if vo.track_two_pass and 15 <= int(out["num_inliers"]) < vo.second_pass_below:
+            # Re-match under a tight radius around the refined pose.
+            idx2, mvalid2 = _match_to_map(feats, self.map, cfg.matcher.max_distance,
+                                          cfg.matcher.ratio, cam=self.camera, R=out["R"],
+                                          t=out["t"], radius_px=8.0)
+            if int(mvalid2.sum()) >= st.num_matches:
+                out2 = _track_pnp(self.camera, feats, self.map, idx2, mvalid2, out["R"],
+                                  out["t"], iters=vo.pnp_iters, inlier_px=vo.pnp_inlier_px)
+                if int(out2["num_inliers"]) >= int(out["num_inliers"]):
+                    idx, mvalid, out = idx2, mvalid2, out2
+        finite = torch.isfinite(out["R"]).all() & torch.isfinite(out["t"]).all()
+        n_in, rmse, pose_finite = torch.stack([
+            out["num_inliers"].to(torch.float32), out["rmse"], finite.to(torch.float32)]).tolist()
+        n_in = int(n_in)
+        st.num_inliers, st.rmse_px = n_in, rmse
+        if n_in >= 20 and pose_finite and rmse < 3.0 * vo.pnp_inlier_px:
+            R_prev, t_prev = self.R, self.t
+            self.R, self.t = out["R"], out["t"]
+            if relocalizing:
+                # The previous pose was stale: its velocity would be bogus.
+                self.vel = se3_identity(device=self.device)
+            else:
+                # Low-passed constant-velocity model.
+                Rv, tv = se3_compose(self.R, self.t, *se3_inverse(R_prev, t_prev))
+                self.vel = se3_exp(0.6 * se3_log(Rv, tv) + 0.4 * se3_log(*self.vel))
+            st.tracking = True
+        else:
+            # Lost: hold the last pose and reset the motion model.
+            self.vel = se3_identity(device=self.device)
+        self.frames_since_kf += 1
+        need_kf = st.tracking and (
+            self.frames_since_kf >= vo.keyframe_max_interval
+            or (n_in < vo.keyframe_min_inliers
+                and self.frames_since_kf >= vo.keyframe_min_interval)
+            or n_in < vo.keyframe_critical_inliers)
+        if need_kf:
+            self._insert_keyframe(feats, mvalid, out["inliers"])
+            st.is_keyframe = True
+            st.num_landmarks = int(self.map.valid.sum())
+
+    def run(self, images) -> list[VOStats]:
+        return [self.process(im) for im in images]
+
+    @property
+    def positions(self) -> np.ndarray:
+        """Camera centres (world frame) of the trajectory."""
+        return np.asarray([-R.T @ t for R, t in self.trajectory])

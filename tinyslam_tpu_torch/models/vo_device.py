@@ -33,7 +33,6 @@ from tinyslam_tpu_torch.backend.ba import bundle_adjust
 from tinyslam_tpu_torch.config import SlamConfig
 from tinyslam_tpu_torch.frontend.orb import adapt_threshold, extract_features
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
-from tinyslam_tpu_torch.geometry.pnp import pnp_ransac
 from tinyslam_tpu_torch.geometry.se3 import (
     se3_compose,
     se3_exp,
@@ -45,8 +44,11 @@ from tinyslam_tpu_torch.models.vo import (
     MapState,
     VisualOdometry,
     VOStats,
+    _cull_map,
     _match_to_map,
     _observe_keyframe,
+    _relocalize,
+    _select,
     _track_pnp,
     _triangulate_and_insert,
 )
@@ -172,16 +174,6 @@ SUMMARY_FIELDS = (
 )
 
 
-def _select(pred: torch.Tensor, a, b):
-    """Elementwise ``pred ? a : b`` over matching (nested) tuples/dicts of
-    tensors, with a 0-d bool ``pred`` that stays on the device."""
-    if isinstance(a, dict):
-        return {k: _select(pred, a[k], b[k]) for k in a}
-    if isinstance(a, tuple):
-        return tuple(_select(pred, x, y) for x, y in zip(a, b))
-    return torch.where(pred, a, b)
-
-
 def _newest_slot(win_kf_id: torch.Tensor) -> torch.Tensor:
     return torch.argmax(win_kf_id)
 
@@ -252,11 +244,8 @@ def _local_ba(cam: PinholeCamera, cfg: SlamConfig, state: VOState) -> VOState:
         R=row(out["R"], newest), t=row(out["t"], newest))
 
 
-def _cull_landmarks(state: VOState, kf_id, max_age: int = 10,
-                    min_obs: int = 2) -> VOState:
-    age = kf_id - state.map.last_seen
-    weak = (state.map.obs_count < min_obs) & (age > max_age)
-    return state.replace(map=state.map.replace(valid=state.map.valid & ~weak))
+def _cull_landmarks(state: VOState, kf_id) -> VOState:
+    return state.replace(map=_cull_map(state.map, kf_id))
 
 
 def _best_baseline_slot(state: VOState) -> torch.Tensor:
@@ -308,42 +297,6 @@ def _insert_keyframe(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
     return state
 
 
-def _reloc_attempt(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
-                   feats: Features, R_pred, t_pred, sampler: Sampler, guided: bool):
-    """One relocalization attempt: match to the map (guided at 64 px around
-    the stale pose, or globally), then absolute-pose LO-RANSAC with the
-    stale pose as one more hypothesis.  The samples are drawn under the
-    key ``("reloc", frame_idx)``.  Returns (idx, match_valid, out)."""
-    vo = cfg.vo
-    if guided:
-        idx, mvalid = _match_to_map(feats, state.map, cfg.matcher.max_distance,
-                                    cfg.matcher.ratio, cam=cam, R=R_pred, t=t_pred,
-                                    radius_px=64.0)
-    else:
-        idx, mvalid = _match_to_map(feats, state.map, cfg.matcher.max_distance,
-                                    cfg.matcher.ratio)
-    sample = sampler.choice(mvalid, (vo.reloc_hypotheses, 6), key=("reloc", state.frame_idx))
-    out = pnp_ransac(cam, state.map.X[idx.long()], feats.xy, mvalid, sample,
-                     inlier_px=vo.pnp_inlier_px, refine_iters=vo.pnp_iters,
-                     R_prior=R_pred, t_prior=t_pred)
-    return idx, mvalid, {k: out[k] for k in ("R", "t", "inliers", "num_inliers", "rmse")}
-
-
-def _relocalize(cam: PinholeCamera, cfg: SlamConfig, state: VOState, feats: Features,
-                R_pred, t_pred, sampler: Sampler):
-    """The staged relocalization of a frame after a lost one: the guided
-    attempt first (under self-similar texture a global match is mostly
-    aliases), the global one only if that seats fewer than 20 inliers,
-    and the attempt with more inliers wins.  One sync (the staging)."""
-    if not cfg.vo.staged_reloc:
-        return _reloc_attempt(cam, cfg, state, feats, R_pred, t_pred, sampler, False)
-    res_w = _reloc_attempt(cam, cfg, state, feats, R_pred, t_pred, sampler, True)
-    if not bool(res_w[2]["num_inliers"] < 20):                  # sync
-        return res_w
-    res_g = _reloc_attempt(cam, cfg, state, feats, R_pred, t_pred, sampler, False)
-    return _select(res_g[2]["num_inliers"] > res_w[2]["num_inliers"], res_g, res_w)
-
-
 def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
                image: torch.Tensor, sampler: Sampler) -> tuple[VOState, dict]:
     """One tracked frame: relocalization where the last frame was lost, a
@@ -374,7 +327,8 @@ def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
     else:
         # Lost last frame: a local Gauss-Newton from a stale pose cannot
         # recover, so absolute-pose RANSAC.
-        idx, mvalid, out = _relocalize(cam, cfg, state, feats, R_pred, t_pred, sampler)
+        idx, mvalid, out = _relocalize(cam, cfg, state.map, feats, R_pred, t_pred, sampler,
+                                       ("reloc", state.frame_idx))
 
     if vo.track_two_pass:
         n1 = out["num_inliers"]

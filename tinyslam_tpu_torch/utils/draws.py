@@ -11,10 +11,13 @@ synchronizes with the device.
 
 Each call names the reference's stream in ``key``: ``("two_view", seed,
 "E" or "H")`` for the two-view estimate's samplers (the reference splits
-``PRNGKey(seed)``, the bootstrap's seed being the frame number) and
-``("reloc", frame_idx)`` for relocalization (``fold_in(PRNGKey(17),
-frame_idx)``, ``frame_idx`` a device tensor).  This sampler ignores the
-key; a test's sampler can use it to replay the JAX streams.
+``PRNGKey(seed)``, the bootstrap's seed being the frame number),
+``("reloc", frame_idx)`` for the device tracker's relocalization
+(``fold_in(PRNGKey(17), frame_idx)``, ``frame_idx`` a device tensor),
+``("host_reloc", frame_idx)`` for ``VisualOdometry``'s (``PRNGKey(
+frame_idx)``) and ``("loop", kf_id * 131 + old_id)`` for the loop probe's
+PnP-RANSAC (``fold_in(PRNGKey(23), n)``).  This sampler ignores the key;
+a test's sampler can use it to replay the JAX streams.
 """
 
 from __future__ import annotations

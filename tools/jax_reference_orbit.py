@@ -14,8 +14,16 @@ tracking flags, and the Sim(3)-aligned ATE over frames 14..N-1 (both
 trackers must have bootstrapped by frame 14), which
 ``chip_smoke.REF_BOOT_ATE`` holds.
 
+``--slam``: runs the JAX ``DeviceSlam`` from frame 0 over the out-and-back
+of the orbit that phase 9 runs (frames 0..N-1, then N-2..0), under the
+default ``SlamConfig()`` with ``pose_graph.loop_min_gap`` 6.  Prints the
+keyframes, every loop candidate's decision, the accepted closures and the
+Sim(3)-aligned ATE of the corrected trajectory from the bootstrap frame
+on, which ``chip_smoke.REF_SLAM_ATE`` and ``REF_SLAM_CLOSURES`` hold.
+
     python tools/jax_reference_orbit.py --frames 189 [--out ref.json]
     python tools/jax_reference_orbit.py --bootstrap --frames 101
+    python tools/jax_reference_orbit.py --slam --frames 101
 
 Full width takes about 3 minutes and a few GB on an 8-core CPU.  Where
 ``flax`` is not installed, a minimal stand-in for ``flax.struct`` (a frozen
@@ -63,6 +71,8 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--bootstrap", action="store_true",
                     help="run DeviceVO from frame 0 instead of a seeded map")
+    ap.add_argument("--slam", action="store_true",
+                    help="run DeviceSlam from frame 0 over the out-and-back")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
@@ -101,6 +111,15 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     jcfg = JaxSlamConfig()
+    if args.slam:
+        jcfg = jcfg.replace(pose_graph=jcfg.pose_graph.replace(
+            loop_min_gap=chip_smoke.SLAM_LOOP_MIN_GAP))
+        seq = chip_smoke.out_and_back(n)
+        result = _slam(jcfg, jcam, [frames[i] for i in seq], [poses[i] for i in seq])
+        result.update(sequence=seq)
+        if args.out is not None:
+            args.out.write_text(json.dumps(result))
+        return
     if args.bootstrap:
         result = _bootstrap(jcfg, jcam, frames, poses)
         if args.out is not None:
@@ -173,6 +192,40 @@ def _bootstrap(jcfg, jcam, frames, poses) -> dict:
           f"the bootstrap: {lost}; keyframes {vo.num_keyframes}")
     return {"frames": n, "bootstrap_frame": boot, "model": models[-1][0],
             "ate": ate, "lost": lost, "num_keyframes": vo.num_keyframes}
+
+
+def _slam(jcfg, jcam, frames, poses) -> dict:
+    """The JAX DeviceSlam from frame 0; the result phase 9 is held to."""
+    import chip_smoke
+    from tinyslam_tpu.models.slam import DeviceSlam
+    from tinyslam_tpu.utils.evaluation import ate_rmse
+
+    slam = DeviceSlam(jcfg, jcam, chunk=chip_smoke.CHUNK)
+    t0 = time.perf_counter()
+    for f in frames:
+        slam.process_frame(f)
+    slam.finalize()
+    n = len(frames)
+    boot = slam.vo.host_frames - 1
+    gt = np.stack([-R.T @ t for R, t in poses])
+    ate = ate_rmse(slam.positions[boot:], gt[boot:])
+    raw = ate_rmse(slam.raw_positions[boot:], gt[boot:])
+    lost = [i for i in range(boot, n) if not slam.vo.stats[i].tracking]
+    log = [{k: (float(v) if isinstance(v, (float, np.floating)) else v) for k, v in r.items()}
+           for r in slam.loop_log]
+    print(f"DeviceSlam from frame 0: {n} frames in {time.perf_counter() - t0:.1f} s "
+          f"(compile included); bootstrap at frame {boot}; {len(slam.kf_R)} keyframes at "
+          f"frames {sorted(slam.kf_frame_of.values())}; lost after the bootstrap: {lost}")
+    for r in log:
+        print("loop candidate", r)
+    print("edges", [(i, j, round(s, 4), w) for i, j, _, _, s, w in slam.edges])
+    print(f"accepted closures {slam.num_loop_closures}; Sim(3)-aligned ATE from the "
+          f"bootstrap frame: corrected {ate}, raw {raw}; timings {slam.timings}")
+    return {"frames": n, "bootstrap_frame": boot, "closures": slam.num_loop_closures,
+            "ate": ate, "raw_ate": raw, "lost": lost, "num_keyframes": len(slam.kf_R),
+            "kf_frame_of": {str(k): v for k, v in slam.kf_frame_of.items()},
+            "loop_log": log,
+            "edges": [(i, j, float(s), float(w)) for i, j, _, _, s, w in slam.edges]}
 
 
 if __name__ == "__main__":
