@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits nonzero:
   1. the card: name and power limit (nvidia-smi), torch, CUDA and nvcc;
   2. build the CUDA kernels from tinyslam_tpu_torch/csrc at first use;
   3. K1, the fused FAST kernel, one launch over the four pyramid levels of
-     a rendered 640x480 frame, bit-equal to its plain PyTorch version on
-     every level, all five maps;
+     a rendered 640x480 frame and of a 752x480 one with real-camera
+     photometrics (EuRoC's width: levels 376, 188 and 94 wide), bit-equal
+     to its plain PyTorch version on every level, all five maps;
   4. K2, the streaming Hamming matcher on the int8 tensor cores, equal to
      its plain version at
      N=2048 features x M=8192 map points, guided (r=20, 8, the keyframes'
@@ -77,7 +78,21 @@ Phases, in order; any failure raises and the script exits nonzero:
      ``Slam`` on frames 0-40 bootstraps on ``DeviceVO``'s frame and tracks
      every later frame, K1 once a frame; (e) the command line (``python -m
      tinyslam_tpu_torch.run --dataset synthetic --frames 60``) exits 0 on
-     the card.
+     the card;
+ 10. the datasets: (a) tools/eval_ate.py's fr1_desk-like sequence (640x480
+     through the distorted fr1 camera, handheld motion, photometrics) and
+     its mh01-like one (752x480, EuRoC's camera, MAV motion), rendered by
+     the port and written in the TUM and EuRoC layouts under
+     build/tinyslam_tpu_torch/seq/ (reused on a rerun); (b) the native
+     loader alone: decode and undistort frames/s, the first frame equal to
+     the rendered one once undistorted; (c) ``run.main(["--dataset", "tum",
+     ...])`` in this process on the first ``N_TUM`` frames, (d) ``--dataset
+     euroc`` on ``N_EUROC``: exit 0, the summary line, K1 once a frame and
+     K2 on the path; then the same run under three more sets of RANSAC
+     draws, and the medians of the four inside the JAX reference's envelope
+     over four sets of its own (``REF_TUM_*``, ``REF_EUROC_*``): tracked
+     frames at least its fewest less 2, keyframes and closures at least its
+     fewest, the Sim(3)-aligned ATE at most its largest + 2 cm.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -88,6 +103,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -123,6 +139,27 @@ N_CLI_FRAMES = 60      # phase 9e
 # 101 (see PERF.md).
 REF_SLAM_CLOSURES = 1
 REF_SLAM_ATE = 0.27765025824560974
+# Phase 10's sequences: tools/eval_ate.py's fr1_desk-like (:29-46) and
+# mh01-like (:64-76) builders, rendered by the port at these lengths.
+TUM_SEQ = dict(kind="tum", seed=101, frames=150, width=640, height=480,
+               room=dict(tex_res=256, octaves=4, clutter=8))
+EUROC_SEQ = dict(kind="euroc", seed=202, frames=60, width=752, height=480,
+                 room=dict(half_size=(8.0, 5.0, 8.0), tex_res=256, octaves=4, clutter=16))
+SEQ_DIR = Path(__file__).resolve().parent / "build" / "tinyslam_tpu_torch" / "seq"
+# The prefixes phase 10 runs (the longest the JAX reference tracks without
+# a reboot, at most 150 and 60 frames), and the envelope of the JAX
+# reference's DeviceSlam there, as its command line runs it, over key
+# offsets 0-3 (its RANSAC draws under four seeds; one run is one sample of
+# a knife-edge bootstrap): the fewest tracked frames, keyframes and accepted
+# closures, the largest Sim(3)-aligned ATE.  python
+# tools/jax_reference_orbit.py --tum --frames N_TUM --key-offset S, and
+# --euroc --frames N_EUROC (see PERF.md).
+N_TUM = 150
+N_EUROC = 60
+REF_TUM_TRACKED, REF_TUM_KEYFRAMES, REF_TUM_CLOSURES = 142, 20, 0
+REF_TUM_ATE = 0.6044219900662758
+REF_EUROC_TRACKED, REF_EUROC_KEYFRAMES, REF_EUROC_CLOSURES = 55, 19, 0
+REF_EUROC_ATE = 0.3265627921063381
 # Published H100 SXM peaks (NVIDIA's data sheet, dense rates at 700 W): the
 # bounds of phase 7.
 HBM_BYTES_PER_S = 3.35e12
@@ -601,15 +638,21 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
           f"{kid_stat.tracking} with {kid_stat.num_inliers} inliers")
     if not (n_w < 20 and n_g >= 20 and kid_stat.tracking):
         failures.append("kidnap not re-acquired by the global fallback")
-    sweep = {}                    # the same two attempts for other jumps
+    # The same two attempts for other jumps, and the whole relocalization
+    # frame from the same state, as tools/jax_reference_orbit.py --bootstrap
+    # --kidnap runs the reference.
+    sweep = {}
+    lost_kid = snap_kid.replace(last_tracking=torch.zeros((), dtype=torch.bool, device=dev))
     for jump in range(2, 2 * KIDNAP_STEPS + 1, 2):
-        fj = extract_features(torch.from_numpy(frames[N_BOOT_FRAMES - 1 + jump]).to(dev),
-                              snap_kid.threshold, cfg.frontend)
+        img = torch.from_numpy(frames[N_BOOT_FRAMES - 1 + jump]).to(dev)
+        fj = extract_features(img, snap_kid.threshold, cfg.frontend)
         diag = clone_sampler(gen_kid)
         sweep[jump] = tuple(int(_reloc_attempt(cam, cfg, snap_kid.map, fj, R_pred, t_pred,
                                                   diag, key, g)[2]["num_inliers"])
                             for g in (True, False))
-    print(f"kidnap sweep, orbit steps -> (guided, global) inliers: {sweep}")
+        _, ys = vd.track_step(cam, cfg, lost_kid, img, clone_sampler(gen_kid))
+        sweep[jump] += (bool(ys["summary"][col["tracking"]] > 0),)
+    print(f"kidnap sweep, orbit steps -> (guided inliers, global inliers, tracked): {sweep}")
     # f. The reboot.
     ev = vo.submap_events
     second = [j for j in boot if j > reboot_at]
@@ -1019,13 +1062,222 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     return launches, solve
 
 
+def _scene(spec):
+    """tools/eval_ate.py's builder for ``spec`` through the port: (the
+    generator after the room's and the trajectory's draws, room, camera,
+    poses, distortion)."""
+    from tinyslam_tpu_torch.data import synthetic as syn
+    from tinyslam_tpu_torch.data.euroc import EUROC_CAM0, EUROC_DIST
+    from tinyslam_tpu_torch.data.tum import FR1_DIST, FR1_INTRINSICS
+    from tinyslam_tpu_torch.geometry.camera import PinholeCamera
+
+    tum = spec["kind"] == "tum"
+    rng = np.random.default_rng(spec["seed"])
+    room = syn.TexturedRoom(rng, **spec["room"])
+    cam = PinholeCamera.create(**(FR1_INTRINSICS if tum else EUROC_CAM0))
+    poses = (syn.handheld_trajectory if tum else syn.mav_trajectory)(rng, spec["frames"])
+    return rng, room, cam, poses, FR1_DIST if tum else EUROC_DIST
+
+
+_WORKER_SCENE = None
+
+
+def _init_worker(spec) -> None:
+    global _WORKER_SCENE
+    _, room, cam, poses, dist = _scene(spec)
+    _WORKER_SCENE = (room, cam, poses, dist, spec["width"], spec["height"])
+
+
+def _render_one(i: int) -> np.ndarray:
+    room, cam, poses, dist, w, h = _WORKER_SCENE
+    return room.render(cam, *poses[i], w, h, dist=dist)
+
+
+class _Rendered:
+    """Stands in for the room in ``render_sequence``: hands back the clean
+    frames rendered beforehand, in order, so that the generator's draws
+    (the exposure track, then one noise image a frame) stay its own."""
+
+    def __init__(self, images):
+        self._images = iter(images)
+
+    def render(self, cam, R, t, width, height, dist=None):
+        return next(self._images)
+
+
+def dataset_sequence(spec, workers: int | None = None) -> tuple[Path, float]:
+    """Render ``spec``'s sequence with ``render_sequence`` (the clean ray
+    casts on ``workers`` processes) and write it in its dataset's layout,
+    with the first frame as ``frame0.npy``, under SEQ_DIR, keyed by a hash
+    of ``spec`` and of the renderer's sources; a sequence written already
+    is reused.  Returns (its directory, seconds spent, 0 if reused)."""
+    import hashlib
+    import multiprocessing
+    import os
+    import shutil
+
+    from tinyslam_tpu_torch.data import synthetic as syn
+
+    key = hashlib.sha256(json.dumps(spec, sort_keys=True).encode())
+    for name in ("synthetic.py", "undistort.py", "png.py"):
+        key.update((Path(syn.__file__).parent / name).read_bytes())
+    root = SEQ_DIR / f"{spec['kind']}_{key.hexdigest()[:12]}"
+    if (root / "frame0.npy").exists():
+        return root, 0.0
+    t_start = time.perf_counter()
+    rng, _, cam, poses, dist = _scene(spec)
+    workers = workers or min(8, os.cpu_count() or 1)
+    with multiprocessing.get_context("spawn").Pool(workers, _init_worker, (spec,)) as pool:
+        clean = pool.map(_render_one, range(len(poses)))
+    frames = syn.render_sequence(rng, poses, cam, spec["width"], spec["height"],
+                                 _Rendered(clean), dist=dist)
+    tmp = root.with_name(f"{root.name}.{os.getpid()}.tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    writer = syn.write_tum_sequence if spec["kind"] == "tum" else syn.write_euroc_sequence
+    writer(tmp, frames, poses)
+    np.save(tmp / "frame0.npy", frames[0])
+    shutil.rmtree(root, ignore_errors=True)
+    os.replace(tmp, root)
+    return root, time.perf_counter() - t_start
+
+
+_SUMMARY = (r"^frames=(\d+) tracked=(\d+) keyframes=(\d+) landmarks=(\d+) "
+            r"fps=([\d.]+) loop_closures=(\d+)$")
+
+
+def _dataset_phase(dev, smi):
+    """Phase 10: the TUM and EuRoC sequences through the native loader and
+    the command line, in this process.  Returns the kernels' launch counts
+    of the two command-line runs."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from tinyslam_tpu_torch import SlamConfig, run
+    from tinyslam_tpu_torch.data.euroc import EUROC_CAM0, EUROC_DIST, EurocSequence
+    from tinyslam_tpu_torch.data.tum import FR1_DIST, FR1_INTRINSICS, TumSequence
+    from tinyslam_tpu_torch.data.undistort import Undistorter
+    from tinyslam_tpu_torch.geometry.camera import PinholeCamera
+    from tinyslam_tpu_torch.models import DeviceSlam
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.utils.draws import Sampler
+    from tinyslam_tpu_torch.utils.evaluation import ate_rmse
+
+    def other_draws(seq, cam, n, seed):
+        """The command line's run under Sampler(seed): (tracked, keyframes,
+        closures, ATE)."""
+        slam = DeviceSlam(SlamConfig(), cam, chunk=16, device=dev, sampler=Sampler(seed))
+        for i, (_, img) in enumerate(seq.frames()):
+            if i == n:
+                break
+            slam.process_frame(img.astype(np.float32) / 255.0)
+        slam.finalize()
+        vo = slam.vo
+        first = next(i for i, st in enumerate(vo.stats) if st.tracking)
+        gt = seq.gt_positions()
+        ate = ate_rmse(vo.positions[first:len(gt)], gt[first:len(vo.positions)])
+        return (sum(st.tracking for st in vo.stats), vo.num_keyframes,
+                slam.num_loop_closures, round(float(ate), 4))
+
+    failures = []
+    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0}
+    cases = (
+        (TUM_SEQ, N_TUM, TumSequence, FR1_INTRINSICS, FR1_DIST,
+         (REF_TUM_TRACKED, REF_TUM_KEYFRAMES, REF_TUM_CLOSURES, REF_TUM_ATE)),
+        (EUROC_SEQ, N_EUROC, EurocSequence, EUROC_CAM0, EUROC_DIST,
+         (REF_EUROC_TRACKED, REF_EUROC_KEYFRAMES, REF_EUROC_CLOSURES, REF_EUROC_ATE)))
+    for spec, n, sequence, intrinsics, dist, ref in cases:
+        kind, w, h = spec["kind"], spec["width"], spec["height"]
+        # a. Render and write.
+        root, secs = dataset_sequence(spec)
+        print(f"phase 10 {kind}: {spec['frames']} frames {w}x{h} in {root.name} "
+              f"({f'rendered and written in {secs:.1f} s' if secs else 'reused'})")
+        # b. The loader alone: decode, then decode and undistort, after a
+        # pass that brings the files into the page cache.
+        seq = sequence.open(root)
+        rates = {}
+        for label, kw in (("warm", dict(undistort=False)), ("decode", dict(undistort=False)),
+                          ("decode+undistort", {})):
+            t_start = time.perf_counter()
+            for i, (_, img) in enumerate(seq.frames(**kw)):
+                if i == 0:
+                    first = img
+                if i + 1 == n:
+                    break
+            rates[label] = n / (time.perf_counter() - t_start)
+        want = Undistorter(intrinsics, dist, h, w)(np.load(root / "frame0.npy"))
+        same = first.shape == want.shape and np.array_equal(first, want)
+        print(f"phase 10 {kind} loader, {n} frames: "
+              + ", ".join(f"{k} {v:.1f} frames/s ({1e3 / v:.2f} ms a frame)"
+                          for k, v in rates.items() if k != "warm")
+              + f"; first frame equal to the rendered one undistorted: {same}  [{smi}]")
+        if not same:
+            failures.append(f"{kind}: the first decoded frame differs from the render")
+        # c, d. The command line, in this process, on the card.
+        out = SEQ_DIR / f"{root.name}_run"
+        out.mkdir(exist_ok=True)
+        argv = ["--dataset", kind, "--root", str(root), "--frames", str(n),
+                "--output", str(out / "traj.txt"), "--metrics", str(out / "metrics.json")]
+        if dev.type != "cuda":
+            argv += ["--device", "cpu"]
+        text = io.StringIO()
+        torch.cuda.synchronize()
+        fast_cuda.LAUNCHES = 0
+        match_cuda.LAUNCHES = 0
+        with contextlib.redirect_stdout(text):
+            rc = run.main(argv)
+        torch.cuda.synchronize()
+        k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
+        launches["fast_score_map_fused"] += k1
+        launches["match_reduce_streaming"] += k2
+        text = text.getvalue()
+        m = re.search(_SUMMARY, text, re.M)
+        a = re.search(r"^ATE RMSE \(Sim3\): ([\d.]+) m$", text, re.M)
+        if rc != 0 or not m or not a:
+            raise AssertionError(f"phase 10 {kind}: the command line exited {rc}:\n{text}")
+        frames, tracked, kfs = (int(g) for g in m.groups()[:3])
+        fps, closures, ate = float(m.group(5)), int(m.group(6)), float(a.group(1))
+        r_tracked, r_kfs, r_closures, r_ate = ref
+        lines = len((out / "traj.txt").read_text().splitlines())
+        print(f"phase 10 {kind} command line: {m.group(0)}; ATE {ate} (JAX reference over "
+              f"four key offsets: tracked >= {r_tracked}, keyframes >= {r_kfs}, closures >= "
+              f"{r_closures}, ATE <= {r_ate}); "
+              f"K1 {k1}, K2 {k2}; tracked fps {fps} against the loader's "
+              f"{rates['decode+undistort']:.1f} frames/s  [{smi}]")
+        # The same run under three other sets of RANSAC draws: a bootstrap
+        # on these frames is a knife edge, so one run is one sample, and the
+        # medians of four are held to the reference's envelope.
+        cam = PinholeCamera.create(**intrinsics)
+        runs = [(tracked, kfs, closures, ate)]
+        runs += [other_draws(seq, cam, n, seed) for seed in (1, 2, 3)]
+        med = [float(v) for v in np.median(np.array(runs, np.float64), axis=0)]
+        print(f"phase 10 {kind}, (tracked, keyframes, closures, ATE) under Sampler(0) (the "
+              f"command line), (1), (2), (3): {runs}; medians {med}  [{smi}]")
+        if frames != n or lines != n:
+            failures.append(f"{kind}: {frames} frames, {lines} trajectory lines, not {n}")
+        if k1 != n:
+            failures.append(f"{kind}: K1 launched {k1} times, expected {n} (one a frame)")
+        if k2 < tracked:
+            failures.append(f"{kind}: K2 launched {k2} times for {tracked} tracked frames")
+        if not (med[0] >= r_tracked - 2 and med[1] >= r_kfs and med[2] >= r_closures
+                  and med[3] <= r_ate + 0.02):
+            failures.append(f"{kind}: medians (tracked, keyframes, closures, ATE) {med} "
+                            f"outside the reference's envelope {ref}")
+    if failures:
+        raise AssertionError("dataset phase: " + "; ".join(failures))
+    return launches
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from tinyslam_tpu_torch import slice_config
-    from tinyslam_tpu_torch.data.synthetic import TexturedRoom, orbit_trajectory
+    from tinyslam_tpu_torch.data.synthetic import (TexturedRoom, apply_photometrics,
+                                                   orbit_trajectory)
     from tinyslam_tpu_torch.frontend.orb import extract_features
     from tinyslam_tpu_torch.geometry.camera import PinholeCamera
     from tinyslam_tpu_torch.models.vo_device import DeviceVO, VOState, track_chunk
@@ -1037,6 +1289,7 @@ def main() -> None:
 
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
+    t_main = time.perf_counter()
 
     # ---- 1. the card ------------------------------------------------------
     smi = _smi()
@@ -1068,25 +1321,33 @@ def main() -> None:
 
     # ---- 3. K1 against plain ---------------------------------------------
     thr = torch.tensor(fe.threshold, dtype=torch.float32, device=dev)
-    levels = build_pyramid(torch.from_numpy(frames[0]).to(dev), fe.num_levels)
     args = (thr, fe.border, fe.streak_length, fe.blur_sigma)
     timed = []      # (label, kernel call, plain call), timed in phase 7
     names = ("score_raw", "score_nms", "m10", "m01", "blurred")
-    run_k = lambda: fast_cuda.fast_pyramid_maps(levels, *args)  # noqa: E731
-    run_p = lambda: [fast_maps(lvl, *args) for lvl in levels]  # noqa: E731
-    got, want = run_k(), run_p()
-    torch.cuda.synchronize()
+    # EuRoC's width, with real-camera photometrics (noise, vignetting).
+    cam_e = PinholeCamera.create(fx=458.654, fy=457.296, cx=375.5, cy=239.5)
+    frame_e = apply_photometrics(room.render(cam_e, *poses[0], 752, 480),
+                                 np.random.default_rng(9)).astype(np.float32) / 255.0
     k1_err = 0.0
-    for lvl, g_maps, w_maps in zip(levels, got, want):
-        for name, g, w in zip(names, g_maps, w_maps):
-            err = float((g - w).abs().max())
-            if not torch.equal(g, w):
-                raise AssertionError(f"K1 {name} at {tuple(lvl.shape)}: not "
-                                     f"bit-equal (max |diff| {err})")
-            k1_err = max(k1_err, err)
-        print(f"K1 {tuple(lvl.shape)}: corners {int((g_maps[1] > 0).sum())}, "
-              f"bit-equal, max |diff| {k1_err}")
-    timed.append(("K1 pyramid", run_k, run_p))
+    k1_levels = {}
+    for label, image in (("", frames[0]), (" 752x480", frame_e)):
+        levels = build_pyramid(torch.from_numpy(image).to(dev), fe.num_levels)
+        run_k = lambda levels=levels: fast_cuda.fast_pyramid_maps(levels, *args)  # noqa: E731
+        run_p = lambda levels=levels: [fast_maps(lvl, *args) for lvl in levels]  # noqa: E731
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        for lvl, g_maps, w_maps in zip(levels, got, want):
+            for name, g, w in zip(names, g_maps, w_maps):
+                err = float((g - w).abs().max())
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K1 {name} at {tuple(lvl.shape)}: not "
+                                         f"bit-equal (max |diff| {err})")
+                k1_err = max(k1_err, err)
+            print(f"K1 {tuple(lvl.shape)}: corners {int((g_maps[1] > 0).sum())}, "
+                  f"bit-equal, max |diff| {k1_err}")
+        timed.append((f"K1 pyramid{label}", run_k, run_p))
+        k1_levels[label] = levels
+    levels = k1_levels[""]
     for lvl in levels:      # one level a launch: the per-level split
         timed.append((f"K1 level {tuple(lvl.shape)}",
                       lambda lvl=lvl: fast_cuda.fast_score_map_fused(lvl, *args),
@@ -1222,6 +1483,9 @@ def main() -> None:
     # ---- 9. Sim(3) loop closure: DeviceSlam, the async back-end, Slam, CLI --
     slam_launches, graph_solve = _slam_phase(cam, poses, frames, dev, smi)
 
+    # ---- 10. the datasets: render, write, load, the command line ----------
+    data_launches = _dataset_phase(dev, smi)
+
     # ---- 7. kernel times -----------------------------------------------------
     # Last: once the profiler has run in a process, every later launch
     # costs more on the host, which would distort the tracked fps above.
@@ -1244,6 +1508,13 @@ def main() -> None:
           f"{sum(v[0] for k, v in ms.items() if k.startswith('K1 level')):.4f} ms; bound "
           f"{k1_bound[0]:.5f} ms ({k1_bound[1]}, {k1_bytes} B), kernel at "
           f"{100 * k1_bound[0] / k1_ms:.1f}% of it  [{smi}]")
+    e_pixels = sum(lvl.numel() for lvl in k1_levels[" 752x480"])
+    e_bound = _bound_ms(4 * e_pixels * 6 + 4, K1_FLOPS_PER_PIXEL * e_pixels, FP32_FLOPS_PER_S)
+    e_ms = ms["K1 pyramid 752x480"][0]
+    print(f"K1 one 752x480 frame ({len(levels)} levels, 1 launch), device: kernel "
+          f"{e_ms:.4f} ms, plain {ms['K1 pyramid 752x480'][1]:.4f} ms; bound "
+          f"{e_bound[0]:.5f} ms ({e_bound[1]}), kernel at {100 * e_bound[0] / e_ms:.1f}% "
+          f"of it  [{smi}]")
     k2_bound = {}
     for label, (case, r) in k2_shapes.items():
         n_, m_ = case["desc_a"].shape[0], case["desc_b"].shape[0]
@@ -1272,18 +1543,21 @@ def main() -> None:
          "source": "tinyslam_tpu_torch/csrc/fast.cu",
          "replaces": "tinyslam_tpu/ops/fast_pallas.py:258",
          "launches": sum(x["fast_score_map_fused"]
-                         for x in (launches, kf_launches, boot_launches, slam_launches)),
+                         for x in (launches, kf_launches, boot_launches, slam_launches,
+                                   data_launches)),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "match_reduce_streaming", "route": "cuda",
          "source": "tinyslam_tpu_torch/csrc/match.cu",
          "replaces": "tinyslam_tpu/ops/match_pallas.py:140",
          "launches": sum(x["match_reduce_streaming"]
-                         for x in (launches, kf_launches, boot_launches, slam_launches)),
+                         for x in (launches, kf_launches, boot_launches, slam_launches,
+                                   data_launches)),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["K2 real guided r=20"][0],
          "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},
     ]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_main:.1f} s  [{smi}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -36,7 +36,8 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(120, 160), (97, 131), (33, 40), (480, 640)])
+@pytest.mark.parametrize("shape", [(120, 160), (97, 131), (33, 40), (480, 640),
+                                   (480, 752)])
 @pytest.mark.parametrize("border,streak,threshold", [(20, 9, 0.06), (0, 12, 0.02), (3, 9, 0.1)])
 def test_fast_kernel_bit_equal(dev, shape, border, streak, threshold):
     rng = np.random.default_rng(shape[0] * 7 + border)
@@ -54,10 +55,11 @@ def test_fast_kernel_bit_equal(dev, shape, border, streak, threshold):
     assert (int((got[1] > 0).sum()) > 0) == interior
 
 
-@pytest.mark.parametrize("shape,levels", [((480, 640), 4), ((97, 131), 3)])
+@pytest.mark.parametrize("shape,levels", [((480, 640), 4), ((480, 752), 4), ((97, 131), 3)])
 def test_fast_pyramid_kernel_bit_equal(dev, shape, levels):
     """One launch over every level; rows of 131 are not 16-byte aligned and
-    take the kernel's clamped scalar path."""
+    take the kernel's clamped scalar path; EuRoC's 752 gives levels 376,
+    188 and 94 wide."""
     from tinyslam_tpu_torch.ops.image import build_pyramid
 
     rng = np.random.default_rng(sum(shape))

@@ -1,8 +1,9 @@
 """The port runs without JAX: in a fresh interpreter where ``import jax``
 fails, every module of tinyslam_tpu_torch imports, ``DeviceVO`` and
 ``DeviceSlam`` bootstrap from frame 0 of a rendered 160x120 orbit and
-track it on the CPU, and the command line runs 6 synthetic frames there,
-launching no CUDA kernel."""
+track it on the CPU, and the command line runs 6 synthetic frames there
+and a TUM sequence written by the port's writer, read through the native
+loader it builds, launching no CUDA kernel."""
 
 from __future__ import annotations
 
@@ -48,7 +49,21 @@ from tinyslam_tpu_torch import run
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
     rc = run.main(["--device", "cpu", "--frames", "6"])
-print(json.dumps({"modules": len(mods), "count": stats[0].num_features,
+import tempfile
+from pathlib import Path
+from tinyslam_tpu_torch import native
+from tinyslam_tpu_torch.data.synthetic import apply_photometrics, write_tum_sequence
+lib = native.build()
+tmp = Path(tempfile.mkdtemp())
+rng = np.random.default_rng(8)
+write_tum_sequence(tmp / "seq", [apply_photometrics(f, rng) for f in frames], poses)
+(tmp / "cfg.json").write_text(cfg.to_json())
+tum_out = io.StringIO()
+with contextlib.redirect_stdout(tum_out):
+    tum_rc = run.main(["--dataset", "tum", "--root", str(tmp / "seq"), "--config",
+                       str(tmp / "cfg.json"), "--fx", "130", "--fy", "130", "--cx", "79.5",
+                       "--cy", "59.5", "--chunk", "4", "--device", "cpu"])
+print(json.dumps({"tum": [tum_rc, tum_out.getvalue().splitlines()[0], str(lib.parent)],"modules": len(mods), "count": stats[0].num_features,
                   "slam": [slam.vo.initialized, len(slam.kf_R), slam.vo.num_keyframes,
                            len(slam.positions)],
                   "cli": [rc, out.getvalue().splitlines()[0]],
@@ -78,6 +93,9 @@ def test_port_imports_and_tracks_without_jax(result):
     assert initialized and n_kf == vo_kf >= 2 and n_pos == 10
     rc, line = result["cli"]
     assert rc == 0 and line.startswith("frames=6 ") and "loop_closures=" in line
+    rc, line, lib_dir = result["tum"]
+    assert rc == 0 and line.startswith("frames=10 ") and "loop_closures=" in line
+    assert Path(lib_dir) == REPO / "build" / "tinyslam_tpu_torch"
 
 
 def test_cpu_tensors_launch_no_kernel(result):

@@ -372,6 +372,9 @@ def test_watchdog_resubmits_a_stuck_graph_solve(monkeypatch):
         assert entered.wait(10.0)
         slam.finalize()             # past the deadline: rebuilt, resubmitted
         assert slam._worker.restarts == 1 and not release.is_set()
+        # The resubmitted solve is real work, slower under a loaded host than
+        # the 0.5 s that caught the hang: give it the time it needs.
+        slam._worker.solve_timeout_s = 60.0
         slam.finalize()             # the resubmitted solve's result
         assert len(applied) == 1 and slam._worker.restarts == 1
     finally:
@@ -379,7 +382,8 @@ def test_watchdog_resubmits_a_stuck_graph_solve(monkeypatch):
         slam.close()
     # The abandoned solve runs out too, unharmed by the one beside it; only
     # its own worker object, which the Slam no longer reads, holds the result.
-    stuck.close()
+    stuck.abandon()
+    stuck._thread.join(timeout=120.0)
     assert not stuck.alive
     late = stuck.poll()[1]
     for g, w, a in zip(applied[0], want, late):

@@ -180,3 +180,20 @@ def perturb(rng, d, flips=8):
         bit = rng.integers(0, 32, len(out))
         out[np.arange(len(out)), word] ^= (np.uint32(1) << bit).astype(np.uint32)
     return out
+
+
+def jax_native_library(directory):
+    """The JAX package's native library (``tinyslam_tpu/native/``'s sources,
+    its Makefile's flags) compiled into ``directory``.  Parity tests point
+    ``tinyslam_tpu.native._SO`` at it: the package itself builds in place
+    on first use, which races with its own tests under several workers."""
+    import subprocess
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "tinyslam_tpu" / "native"
+    out = Path(directory) / "libtinyslam_native.so"
+    subprocess.run(["g++", "-O3", "-fPIC", "-std=c++17", "-Wall", str(src / "decode.cpp"),
+                    str(src / "loader.cpp"), "-shared", "-lz", "-lpthread", "-o", str(out)],
+                   check=True, capture_output=True)
+    return out
+

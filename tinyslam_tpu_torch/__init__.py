@@ -23,8 +23,12 @@ images, (N, 2) xy, (N, 8) packed descriptors).  This package imports
 - ``parallel``  the latest-wins back-end worker thread.
 - ``utils``     the RANSAC ``Sampler``, Umeyama alignment and ATE, the
                 back-end ``Watchdog``, the metrics registry.
-- ``data``      the numpy room renderer, orbit trajectories, the synthetic
-                VO sequence.
+- ``data``      TUM RGB-D and EuRoC sequences, radtan undistortion, the
+                PNG writer, the numpy room renderer (clean or eval-grade:
+                a distorted camera, photometrics, handheld and MAV
+                trajectories) and the dataset writers.
+- ``native``    the C++ PNG/PGM decoder and prefetching frame loader
+                (``g++`` at first use, ``ctypes``).
 - ``run``       the command line (``python -m tinyslam_tpu_torch.run``).
 """
 

@@ -1,1 +1,1 @@
-"""Synthetic scenes and trajectories (numpy)."""
+"""Datasets (TUM RGB-D, EuRoC), undistortion and the synthetic renderer (numpy)."""

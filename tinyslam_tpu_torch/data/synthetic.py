@@ -1,22 +1,37 @@
 """Synthetic scenes, trajectories and rendered frames in numpy (mirrors
-``tinyslam_tpu/data/synthetic.py:default_camera, look_at,
-orbit_trajectory, TexturedRoom, vo_sequence``, without lens distortion).
+``tinyslam_tpu/data/synthetic.py``).
 
-Frames and ground-truth ray casts are bit-equal to the JAX package's for
-the same camera, poses and seed, so the port can render on a machine
-without JAX.
+Frames, ground-truth ray casts and written sequences are bit-equal to the
+JAX package's for the same camera, poses and seed: every function draws
+from the numpy ``Generator`` in the same order and with the same shapes.
+The eval-grade half renders through a distorted camera with real-camera
+photometrics and writes the result in the TUM RGB-D and EuRoC layouts, so
+that the loaders, the native PNG decoder and the undistortion run end to
+end without a dataset on disk.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from pathlib import Path
 
+import numpy as np
+import torch
+
+from tinyslam_tpu_torch.data.png import write_png
+from tinyslam_tpu_torch.data.undistort import radtan_undistort_points
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
 
 
 def default_camera(width: int = 640, height: int = 480) -> PinholeCamera:
     """TUM-fr1-like intrinsics."""
     return PinholeCamera.create(fx=517.3, fy=516.5, cx=width / 2 - 0.5, cy=height / 2 - 0.5)
+
+
+def random_points(rng: np.random.Generator, n: int,
+                  center=(0.0, 0.0, 0.0), extent=(4.0, 3.0, 2.0)) -> np.ndarray:
+    c = np.asarray(center)
+    e = np.asarray(extent)
+    return (rng.random((n, 3)) - 0.5) * e + c
 
 
 def look_at(camera_pos: np.ndarray, target: np.ndarray,
@@ -58,6 +73,63 @@ def orbit_trajectory(num_frames: int, radius: float = 6.0,
     return poses
 
 
+def project_points(cam: PinholeCamera, R: np.ndarray, t: np.ndarray, X: np.ndarray,
+                   width: int = 640, height: int = 480, noise_px: float = 0.0,
+                   outlier_frac: float = 0.0, rng: np.random.Generator | None = None):
+    """Project world points; returns (uv (N, 2) float32, visible (N,) bool).
+    Optionally adds Gaussian pixel noise and replaces a fraction with
+    uniform outliers (still marked visible)."""
+    rng = rng or np.random.default_rng(0)
+    Xc = X @ np.asarray(R).T + np.asarray(t)
+    z = Xc[:, 2]
+    vis = z > 0.1
+    zs = np.where(vis, z, 1.0)
+    u = cam.fx * Xc[:, 0] / zs + cam.cx
+    v = cam.fy * Xc[:, 1] / zs + cam.cy
+    uv = np.stack([u, v], axis=-1)
+    if noise_px > 0:
+        uv = uv + rng.normal(0.0, noise_px, uv.shape)
+    if outlier_frac > 0:
+        out = rng.random(len(uv)) < outlier_frac
+        uv[out] = rng.random((out.sum(), 2)) * np.array([width, height])
+    vis &= (uv[:, 0] >= 0) & (uv[:, 0] < width) & (uv[:, 1] >= 0) & (uv[:, 1] < height)
+    return uv.astype(np.float32), vis
+
+
+def render_dots(uv: np.ndarray, visible: np.ndarray, width: int = 640, height: int = 480,
+                radius: int = 2, bg: float = 0.2, fg: float = 0.9) -> np.ndarray:
+    """Visible points as bright squares: frames whose FAST corners sit at
+    the projected landmarks."""
+    img = np.full((height, width), bg, np.float32)
+    r = radius
+    for (x, y), v in zip(np.rint(uv).astype(int), visible):
+        if v and r <= x < width - r and r <= y < height - r:
+            img[y - r: y + r + 1, x - r: x + r + 1] = fg
+    return img
+
+
+def normalized(cam: PinholeCamera, uv: np.ndarray) -> np.ndarray:
+    """Pixels -> normalized image coordinates, in float32."""
+    return cam.normalize(torch.from_numpy(np.asarray(uv, np.float32))).numpy()
+
+
+def landmark_patches(rng: np.random.Generator, n: int, size: int = 9) -> np.ndarray:
+    """(n, size, size) high-contrast texture sprites, one per landmark, so
+    that BRIEF descriptors are distinctive."""
+    return (rng.random((n, size, size)) > 0.5).astype(np.float32) * 0.7 + 0.15
+
+
+def render_patches(uv: np.ndarray, visible: np.ndarray, patches: np.ndarray,
+                   width: int = 640, height: int = 480, bg: float = 0.45) -> np.ndarray:
+    """Landmark sprites pasted at their projections (no perspective warp)."""
+    img = np.full((height, width), bg, np.float32)
+    r = patches.shape[-1] // 2
+    for i, ((x, y), v) in enumerate(zip(np.rint(uv).astype(int), visible)):
+        if v and r <= x < width - r and r <= y < height - r:
+            img[y - r: y + r + 1, x - r: x + r + 1] = patches[i]
+    return img
+
+
 class TexturedRoom:
     """A procedurally textured axis-aligned box room, rendered by ray
     casting (perspective-correct, view-consistent).  Each face carries a
@@ -90,18 +162,23 @@ class TexturedRoom:
             up = np.repeat(np.repeat(btex, 2, axis=1), 2, axis=2)[:, :65, :65]
             btex = np.clip(up + (fine - 0.5) * 0.3, 0.02, 0.98)
             self.boxes.append((center, size, btex))
-        self._rays: dict = {}   # pixel ray grid per (intrinsics, size)
+        self._rays: dict = {}   # pixel ray grid per (intrinsics, size, distortion)
 
     def render(self, cam: PinholeCamera, R: np.ndarray, t: np.ndarray,
-               width: int, height: int) -> np.ndarray:
-        """(height, width) float32 image of the room seen from pose (R, t)."""
+               width: int, height: int, dist: dict | None = None) -> np.ndarray:
+        """(height, width) float32 image of the room seen from pose (R, t).
+        With ``dist`` (a radtan dict) the camera is a distorted pinhole:
+        each pixel's ray is cast through the inverse distortion, so the
+        image is exactly distorted with no resampling pass."""
         fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
-        key = (fx, fy, cx, cy, width, height)
+        key = (fx, fy, cx, cy, width, height, tuple(sorted(dist.items())) if dist else None)
         d_cam = self._rays.get(key)
         if d_cam is None:
             us, vs = np.meshgrid(np.arange(width), np.arange(height))
             xn = (us - cx) / fx
             yn = (vs - cy) / fy
+            if dist is not None:
+                xn, yn = radtan_undistort_points(xn, yn, **dist)
             d_cam = np.stack([xn, yn, np.ones_like(xn, np.float64)], -1)
             self._rays = {key: d_cam}
         Rm = np.asarray(R, np.float64)
@@ -217,6 +294,164 @@ class TexturedRoom:
             + t[y0 + 1, x0] * (1 - ax) * ay
             + t[y0 + 1, x0 + 1] * ax * ay
         )
+
+
+def _smooth_walk(rng: np.random.Generator, n: int, dims: int, sigma: float,
+                 window: int) -> np.ndarray:
+    """(n, dims) zero-mean smooth random walk: white noise, cumulative sum,
+    box smoothing, the mean taken out (the slow wander of handheld
+    motion)."""
+    steps = rng.normal(0.0, sigma, (n + window, dims))
+    walk = np.cumsum(steps, axis=0)
+    kernel = np.ones(window) / window
+    sm = np.stack([np.convolve(walk[:, d], kernel, mode="same") for d in range(dims)],
+                  -1)[:n]
+    return sm - sm.mean(axis=0)
+
+
+def handheld_trajectory(rng: np.random.Generator, num_frames: int, radius: float = 2.0,
+                        step: float = 0.012, target=(0.0, 0.0, 2.0),
+                        jitter_pos: float = 0.004, jitter_tgt: float = 0.01,
+                        height_amp: float = 0.15) -> list[tuple[np.ndarray, np.ndarray]]:
+    """A TUM-fr1-desk-like handheld sweep: a slow arc around the scene with
+    smoothed 6-DoF jitter (position tremor and an independent look-target
+    wander) and a slow vertical bob."""
+    tgt0 = np.asarray(target, np.float64)
+    jp = _smooth_walk(rng, num_frames, 3, jitter_pos, 12)
+    jt = _smooth_walk(rng, num_frames, 3, jitter_tgt, 18)
+    poses = []
+    for i in range(num_frames):
+        a = -0.45 + i * step
+        h = 0.4 + height_amp * np.sin(i * 0.05)
+        pos = np.array([radius * np.sin(a), h, -radius * np.cos(a)]) + tgt0
+        poses.append(look_at(pos + jp[i], tgt0 + jt[i]))
+    return poses
+
+
+def mav_trajectory(rng: np.random.Generator, num_frames: int, radius: float = 3.0,
+                   step: float = 0.02,
+                   target=(0.0, 0.0, 1.0)) -> list[tuple[np.ndarray, np.ndarray]]:
+    """A EuRoC-MH-like sweep: a faster arc, larger excursions, yaw ahead of
+    the track (a MAV looks into the turn), strong height changes."""
+    tgt0 = np.asarray(target, np.float64)
+    jp = _smooth_walk(rng, num_frames, 3, 0.01, 20)
+    jt = _smooth_walk(rng, num_frames, 3, 0.02, 25)
+    poses = []
+    for i in range(num_frames):
+        a = -0.6 + i * step
+        h = 0.2 + 0.8 * np.sin(i * 0.025)
+        pos = np.array([radius * np.sin(a), h, -radius * np.cos(a)]) + tgt0
+        look = tgt0 + np.array([1.2 * np.sin(a + 0.3), 0.3 * np.sin(i * 0.04),
+                                -1.2 * np.cos(a + 0.3)]) * 0.3
+        poses.append(look_at(pos + jp[i], look + jt[i]))
+    return poses
+
+
+def apply_photometrics(img: np.ndarray, rng: np.random.Generator, exposure: float = 1.0,
+                       vignette: float = 0.25, noise_std: float = 0.006,
+                       quantize: bool = True) -> np.ndarray:
+    """Real-camera statistics on a clean render: vignetting, a per-frame
+    exposure gain, sensor noise and 8-bit quantization (uint8 when
+    ``quantize``, what a dataset's PNG holds)."""
+    h, w = img.shape[:2]
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    r2 = (((xx - w / 2) / (w / 2)) ** 2 + ((yy - h / 2) / (h / 2)) ** 2) / 2.0
+    vig = 1.0 - vignette * r2
+    out = img * vig * exposure
+    out = out + rng.normal(0.0, noise_std, out.shape)
+    out = np.clip(out, 0.0, 1.0)
+    if quantize:
+        return np.rint(out * 255.0).astype(np.uint8)
+    return out.astype(np.float32)
+
+
+def exposure_track(rng: np.random.Generator, n: int, amp: float = 0.15) -> np.ndarray:
+    """Smooth per-frame exposure gains around 1.0 (auto-exposure hunting)."""
+    return 1.0 + _smooth_walk(rng, n, 1, amp / 8, 30)[:, 0].clip(-amp, amp)
+
+
+def render_sequence(rng: np.random.Generator, poses, cam: PinholeCamera, width: int,
+                    height: int, room: TexturedRoom, dist: dict | None = None,
+                    photometric: bool = True) -> list[np.ndarray]:
+    """Render poses through a (possibly distorted) camera with photometric
+    effects: uint8 frames shaped like a real dataset's.  Draws the exposure
+    track first, then one noise image a frame."""
+    gains = exposure_track(rng, len(poses)) if photometric else None
+    frames = []
+    for i, (R, t) in enumerate(poses):
+        img = room.render(cam, R, t, width, height, dist=dist)
+        if photometric:
+            img = apply_photometrics(img, rng, exposure=float(gains[i]))
+        frames.append(img)
+    return frames
+
+
+def write_tum_sequence(root, images, poses, fps: float = 30.0) -> None:
+    """Frames and ground truth in the TUM RGB-D layout (rgb.txt, rgb/*.png,
+    groundtruth.txt)."""
+    root = Path(root)
+    (root / "rgb").mkdir(parents=True, exist_ok=True)
+    rgb_lines, gt_lines = [], []
+    for i, (img, (R, t)) in enumerate(zip(images, poses)):
+        ts = i / fps
+        name = f"rgb/{ts:.6f}.png"
+        write_png(root / name, img)
+        rgb_lines.append(f"{ts:.6f} {name}")
+        C = -np.asarray(R).T @ np.asarray(t)
+        q = rotation_to_quat(np.asarray(R).T)     # cam->world, the TUM convention
+        gt_lines.append(f"{ts:.6f} {C[0]:.6f} {C[1]:.6f} {C[2]:.6f} "
+                        f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}")
+    (root / "rgb.txt").write_text("# ts path\n" + "\n".join(rgb_lines) + "\n")
+    (root / "groundtruth.txt").write_text(
+        "# ts tx ty tz qx qy qz qw\n" + "\n".join(gt_lines) + "\n")
+
+
+def write_euroc_sequence(root, images, poses, fps: float = 20.0) -> None:
+    """Frames and ground truth in the EuRoC ASL layout (mav0/cam0/data.csv,
+    data/*.png, state_groundtruth_estimate0/data.csv)."""
+    root = Path(root)
+    cam_dir = root / "mav0" / "cam0" / "data"
+    cam_dir.mkdir(parents=True, exist_ok=True)
+    gt_dir = root / "mav0" / "state_groundtruth_estimate0"
+    gt_dir.mkdir(parents=True, exist_ok=True)
+    cam_lines, gt_lines = [], []
+    for i, (img, (R, t)) in enumerate(zip(images, poses)):
+        ts_ns = int(1.4e18) + int(i * 1e9 / fps)
+        write_png(cam_dir / f"{ts_ns}.png", img)
+        cam_lines.append(f"{ts_ns},{ts_ns}.png")
+        C = -np.asarray(R).T @ np.asarray(t)
+        q = rotation_to_quat(np.asarray(R).T)     # body (= cam) -> world
+        gt_lines.append(f"{ts_ns},{C[0]:.6f},{C[1]:.6f},{C[2]:.6f},"
+                        f"{q[3]:.6f},{q[0]:.6f},{q[1]:.6f},{q[2]:.6f},"
+                        "0,0,0,0,0,0,0,0,0")
+    (root / "mav0" / "cam0" / "data.csv").write_text(
+        "#timestamp [ns],filename\n" + "\n".join(cam_lines) + "\n")
+    (gt_dir / "data.csv").write_text(
+        "#timestamp,p_x,p_y,p_z,q_w,q_x,q_y,q_z,...\n" + "\n".join(gt_lines) + "\n")
+
+
+def rotation_to_quat(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> quaternion (qx, qy, qz, qw); the inverse of
+    ``data/tum.py:quat_to_rotation``."""
+    R = np.asarray(R, np.float64)
+    tr = np.trace(R)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        qw = 0.25 * s
+        qx = (R[2, 1] - R[1, 2]) / s
+        qy = (R[0, 2] - R[2, 0]) / s
+        qz = (R[1, 0] - R[0, 1]) / s
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = np.sqrt(max(R[i, i] - R[j, j] - R[k, k] + 1.0, 1e-12)) * 2
+        q = np.zeros(4)
+        q[i] = 0.25 * s
+        q[3] = (R[k, j] - R[j, k]) / s
+        q[j] = (R[j, i] + R[i, j]) / s
+        q[k] = (R[k, i] + R[i, k]) / s
+        qx, qy, qz, qw = q
+    return np.array([qx, qy, qz, qw])
 
 
 def vo_sequence(rng: np.random.Generator, num_frames: int = 60, num_points: int = 400,

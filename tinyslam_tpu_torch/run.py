@@ -1,6 +1,8 @@
 """Command line: run VO or SLAM over a sequence (mirrors
 ``tinyslam_tpu/run.py``).
 
+    python -m tinyslam_tpu_torch.run --dataset tum --root /data/fr1_desk \\
+        --output traj.txt --metrics metrics.json
     python -m tinyslam_tpu_torch.run --dataset synthetic --frames 60
     python -m tinyslam_tpu_torch.run --mode vo --tracker host --device cpu
 
@@ -8,10 +10,12 @@
 ``--mode vo`` the tracker alone; ``--tracker device`` (the default) is the
 chunked ``DeviceVO``, ``--tracker host`` the host-stepped
 ``VisualOdometry``.  Everything runs on ``--device`` (default ``cuda``;
-``cpu`` takes the kernels' plain versions).  The synthetic sequence is the
-built-in textured room; ``tum`` and ``euroc`` need the native frame
-loader, which is not ported yet.  Prints one summary line (and the ATE
-where there is ground truth).
+``cpu`` takes the kernels' plain versions).  ``--dataset tum`` reads a
+TUM RGB-D sequence, ``euroc`` a EuRoC ASL one, through the native frame
+loader and undistorted on the host, with the dataset's intrinsics unless
+``--fx/--fy/--cx/--cy`` override them; ``synthetic`` renders the built-in
+textured room.  Prints one summary line (and the ATE where there is ground
+truth).
 """
 
 from __future__ import annotations
@@ -19,11 +23,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-# ROADMAP.md queue 1: the dataset loaders with the native C++ frame loader.
-_LOADERS_TODO = ("--dataset {} needs the native frame loader "
-                 "(tinyslam_tpu/native/), which is not ported yet; see ROADMAP.md "
-                 "queue 1, the data loaders")
 
 
 def main(argv=None) -> int:
@@ -51,27 +50,41 @@ def main(argv=None) -> int:
     import torch
 
     from tinyslam_tpu_torch.config import SlamConfig
+    from tinyslam_tpu_torch.geometry.camera import PinholeCamera
     from tinyslam_tpu_torch.models import DeviceSlam, DeviceVO, Slam, VisualOdometry
     from tinyslam_tpu_torch.utils.draws import Sampler
     from tinyslam_tpu_torch.utils.evaluation import ate_rmse
     from tinyslam_tpu_torch.utils.metrics import Metrics
 
-    if args.dataset != "synthetic":
-        raise NotImplementedError(_LOADERS_TODO.format(args.dataset))
     cfg = SlamConfig()
     if args.config:
         with open(args.config) as f:
             cfg = SlamConfig.from_json(f.read())
     device = torch.device(args.device)
 
-    from tinyslam_tpu_torch.data.synthetic import vo_sequence
+    gt_positions = None
+    if args.dataset == "synthetic":
+        from tinyslam_tpu_torch.data.synthetic import vo_sequence
 
-    n = args.frames or 60
-    cam, frames_np, gt_poses, _ = vo_sequence(
-        np.random.default_rng(7), num_frames=n, width=min(cfg.frontend.width, 320),
-        height=min(cfg.frontend.height, 240))
-    frame_iter = ((i * 0.033, f) for i, f in enumerate(frames_np))
-    gt_positions = np.stack([-(R.T @ t) for R, t in gt_poses])
+        n = args.frames or 60
+        cam, frames_np, gt_poses, _ = vo_sequence(
+            np.random.default_rng(7), num_frames=n, width=min(cfg.frontend.width, 320),
+            height=min(cfg.frontend.height, 240))
+        frame_iter = ((i * 0.033, f) for i, f in enumerate(frames_np))
+        gt_positions = np.stack([-(R.T @ t) for R, t in gt_poses])
+    else:
+        if args.dataset == "tum":
+            from tinyslam_tpu_torch.data.tum import FR1_INTRINSICS as intr
+            from tinyslam_tpu_torch.data.tum import TumSequence as Sequence
+        else:
+            from tinyslam_tpu_torch.data.euroc import EUROC_CAM0 as intr
+            from tinyslam_tpu_torch.data.euroc import EurocSequence as Sequence
+        seq = Sequence.open(args.root)
+        cam = PinholeCamera.create(fx=args.fx or intr["fx"], fy=args.fy or intr["fy"],
+                                   cx=args.cx or intr["cx"], cy=args.cy or intr["cy"])
+        frame_iter = seq.frames()
+        if seq.groundtruth:
+            gt_positions = seq.gt_positions()
 
     if args.mode == "slam":
         system = (DeviceSlam(cfg, cam, chunk=args.chunk, device=device)
@@ -83,20 +96,23 @@ def main(argv=None) -> int:
     metrics = Metrics()
     timestamps = []
     t0 = time.time()
-    for ts, img in frame_iter:
-        if args.frames and len(timestamps) >= args.frames:
-            break
-        img = np.asarray(img)
-        if img.dtype == np.uint8:
-            img = img.astype(np.float32) / 255.0
-        with metrics.timer("frame"):
-            st = system.process_frame(img) if args.mode == "slam" else system.process(img)
-        metrics.step()
-        if st is not None:          # the device tracker's stats lag by a chunk
-            metrics.record("features", st.num_features)
-            metrics.record("inliers", st.num_inliers)
-            metrics.record("tracking", int(st.tracking))
-        timestamps.append(ts)
+    try:
+        for ts, img in frame_iter:
+            if args.frames and len(timestamps) >= args.frames:
+                break
+            img = np.asarray(img)
+            if img.dtype == np.uint8:
+                img = img.astype(np.float32) / 255.0
+            with metrics.timer("frame"):
+                st = system.process_frame(img) if args.mode == "slam" else system.process(img)
+            metrics.step()
+            if st is not None:      # the device tracker's stats lag by a chunk
+                metrics.record("features", st.num_features)
+                metrics.record("inliers", st.num_inliers)
+                metrics.record("tracking", int(st.tracking))
+            timestamps.append(ts)
+    finally:
+        frame_iter.close()          # stops the loader's workers at --frames
     if hasattr(system, "finalize"):
         system.finalize()
     elif hasattr(system, "flush"):
@@ -112,7 +128,7 @@ def main(argv=None) -> int:
         line += f" loop_closures={system.num_loop_closures}"
     print(line)
 
-    if tracked > 5:
+    if gt_positions is not None and tracked > 5:
         first = next(i for i, s in enumerate(vo.stats) if s.tracking)
         n_eval = min(len(vo.positions), len(gt_positions))
         ate = ate_rmse(vo.positions[first:n_eval], gt_positions[first:n_eval])

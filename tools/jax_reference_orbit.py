@@ -21,9 +21,38 @@ keyframes, every loop candidate's decision, the accepted closures and the
 Sim(3)-aligned ATE of the corrected trajectory from the bootstrap frame
 on, which ``chip_smoke.REF_SLAM_ATE`` and ``REF_SLAM_CLOSURES`` hold.
 
+``--bootstrap --kidnap``: the same DeviceVO with phase 8's forced
+relocalization at frame 60 and its kidnap: from the state after frame 100,
+relocalization forced, each frame 2, 4, ..., 20 orbit steps ahead is
+tracked from that state.  Prints (tracked, inliers) for each jump, which
+phase 8e's sweep prints for the port; then the port's ``track_step`` on
+the CPU from the same state, with the reference's draws
+(``torch_parity.JaxSampler``) and with ``Sampler(0)``, ``(1)``, ``(2)``.
+
+``--tum [DIR]``, ``--euroc [DIR]``: the JAX ``DeviceSlam`` over the first
+``--frames`` frames of a TUM or EuRoC sequence, as ``tinyslam_tpu.run``
+runs it (the default ``SlamConfig()``, chunk 16, the dataset's
+intrinsics, uint8 frames as float32 / 255, the ATE from the first tracked
+frame).  The frames come through the port's loader, which gives the JAX
+loader's frames exactly (tests/test_torch_data.py).  Without DIR, the
+sequence is chip_smoke.py's phase 10 one, rendered first if it is not on
+disk.  Prints tracked frames, keyframes, accepted closures, reboots and the
+ATE.  With ``--prefix``, a run that reboots is repeated on the prefix
+before the first reboot until one does not: phase 10's ``N_TUM`` and
+``N_EUROC``.  ``--key-offset S`` adds 1000 S to every
+``jax.random.PRNGKey`` seed the JAX package draws from (its RANSAC and
+relocalization streams): the same run under other draws.  A bootstrap
+on these sequences is a knife edge (its first attempts see a baseline of
+a few centimetres), so one run is one sample: ``chip_smoke.REF_TUM_*`` and
+``REF_EUROC_*`` hold the envelope of offsets 0-3 (the fewest tracked
+frames, keyframes and closures, the largest ATE).
+
     python tools/jax_reference_orbit.py --frames 189 [--out ref.json]
     python tools/jax_reference_orbit.py --bootstrap --frames 101
+    python tools/jax_reference_orbit.py --bootstrap --kidnap
     python tools/jax_reference_orbit.py --slam --frames 101
+    python tools/jax_reference_orbit.py --tum --frames 150 --prefix [--key-offset S]
+    python tools/jax_reference_orbit.py --euroc --frames 60 --prefix [--key-offset S]
 
 Full width takes about 3 minutes and a few GB on an 8-core CPU.  Where
 ``flax`` is not installed, a minimal stand-in for ``flax.struct`` (a frozen
@@ -73,12 +102,25 @@ def main() -> None:
                     help="run DeviceVO from frame 0 instead of a seeded map")
     ap.add_argument("--slam", action="store_true",
                     help="run DeviceSlam from frame 0 over the out-and-back")
+    ap.add_argument("--kidnap", action="store_true",
+                    help="with --bootstrap: phase 8's forced relocalization and kidnap sweep")
+    ap.add_argument("--tum", nargs="?", const="", default=None, metavar="DIR",
+                    help="run DeviceSlam over a TUM sequence (default: phase 10's)")
+    ap.add_argument("--euroc", nargs="?", const="", default=None, metavar="DIR",
+                    help="run DeviceSlam over a EuRoC sequence (default: phase 10's)")
+    ap.add_argument("--prefix", action="store_true",
+                    help="with --tum/--euroc: shorten the run to the prefix before a reboot")
+    ap.add_argument("--key-offset", type=int, default=0,
+                    help="add 1000 x this to every jax.random.PRNGKey seed")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.key_offset:
+        key = jax.random.PRNGKey
+        jax.random.PRNGKey = lambda n, *a, **kw: key(n + 1000 * args.key_offset, *a, **kw)
     try:
         import flax.struct  # noqa: F401
     except ImportError:
@@ -98,7 +140,18 @@ def main() -> None:
     from tinyslam_tpu_torch.models.vo_device import VOState
     from tinyslam_tpu_torch.types import Features
 
+    jcfg = JaxSlamConfig()
+    for kind in ("tum", "euroc"):
+        root = getattr(args, kind)
+        if root is not None:
+            result = _dataset(jcfg, kind, root, args.frames, args.prefix)
+            result["key_offset"] = args.key_offset
+            if args.out is not None:
+                args.out.write_text(json.dumps(result))
+            return
     n = args.frames
+    if args.kidnap:
+        n = max(n, chip_smoke.N_BOOT_FRAMES + 2 * chip_smoke.KIDNAP_STEPS)
     w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
     cam = PinholeCamera.create(fx=520.0, fy=520.0, cx=w / 2 - 0.5, cy=h / 2 - 0.5)
     jcam = JaxCamera.create(520.0, 520.0, w / 2 - 0.5, h / 2 - 0.5)
@@ -110,7 +163,6 @@ def main() -> None:
     print(f"jax {jax.__version__}; rendered {n} frames in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    jcfg = JaxSlamConfig()
     if args.slam:
         jcfg = jcfg.replace(pose_graph=jcfg.pose_graph.replace(
             loop_min_gap=chip_smoke.SLAM_LOOP_MIN_GAP))
@@ -121,7 +173,7 @@ def main() -> None:
             args.out.write_text(json.dumps(result))
         return
     if args.bootstrap:
-        result = _bootstrap(jcfg, jcam, frames, poses)
+        result = (_kidnap if args.kidnap else _bootstrap)(jcfg, jcam, frames, poses)
         if args.out is not None:
             args.out.write_text(json.dumps(result))
         return
@@ -192,6 +244,130 @@ def _bootstrap(jcfg, jcam, frames, poses) -> dict:
           f"the bootstrap: {lost}; keyframes {vo.num_keyframes}")
     return {"frames": n, "bootstrap_frame": boot, "model": models[-1][0],
             "ate": ate, "lost": lost, "num_keyframes": vo.num_keyframes}
+
+
+def _kidnap(jcfg, jcam, frames, poses) -> dict:
+    """Phase 8's forced relocalization at frame 60 and its kidnap sweep on
+    the JAX DeviceVO: the result phase 8e's sweep is compared with."""
+    import chip_smoke
+    from tinyslam_tpu.models.vo_device import DeviceVO
+
+    vo = DeviceVO(jcfg, jcam, chunk=chip_smoke.CHUNK)
+    for i in range(chip_smoke.RELOC_FRAME):
+        vo.process(frames[i])
+    vo.flush()
+    vo.force_reloc = True
+    for i in range(chip_smoke.RELOC_FRAME, chip_smoke.N_BOOT_FRAMES):
+        vo.process(frames[i])
+    vo.flush()
+    st = vo.stats[chip_smoke.RELOC_FRAME]
+    print(f"bootstrap at frame {vo.host_frames - 1}; forced relocalization at frame "
+          f"{chip_smoke.RELOC_FRAME}: tracked {st.tracking}, {st.num_inliers} inliers; "
+          f"frames 60-100 tracked {sum(s.tracking for s in vo.stats[60:])}/41")
+    snap, last = vo.state, chip_smoke.N_BOOT_FRAMES - 1
+    sweep = {}
+    for jump in range(2, 2 * chip_smoke.KIDNAP_STEPS + 1, 2):
+        vo.state = snap
+        vo.force_reloc = True
+        vo.process(frames[last + jump])
+        vo.flush()
+        sweep[jump] = (bool(vo.stats[-1].tracking), int(vo.stats[-1].num_inliers))
+    print(f"kidnap sweep, orbit steps ahead of frame {last} -> (tracked, inliers): {sweep}")
+
+    # The port from the reference's state: the same frames and draws.
+    import torch
+    import torch_parity as P
+    from tinyslam_tpu_torch import SlamConfig
+    from tinyslam_tpu_torch.geometry.camera import PinholeCamera
+    from tinyslam_tpu_torch.models import vo_device as vd
+    from tinyslam_tpu_torch.utils.draws import Sampler
+
+    flat = {}
+    for f in dataclasses.fields(snap):
+        v = getattr(snap, f.name)
+        if dataclasses.is_dataclass(v):
+            flat.update({f"{f.name}.{g.name}": np.asarray(getattr(v, g.name))
+                         for g in dataclasses.fields(v)})
+        else:
+            flat[f.name] = np.asarray(v)
+    lost = vd.VOState.from_numpy(flat, "cpu").replace(
+        last_tracking=torch.zeros((), dtype=torch.bool))
+    cam = PinholeCamera.create(float(jcam.fx), float(jcam.fy), float(jcam.cx), float(jcam.cy))
+    col = {k: i for i, k in enumerate(vd.SUMMARY_FIELDS)}
+    port = {}
+    for jump in sweep:
+        image = torch.from_numpy(frames[last + jump])
+        port[jump] = []
+        for sampler in (P.JaxSampler(), Sampler(0), Sampler(1), Sampler(2)):
+            summary = vd.track_step(cam, SlamConfig(), lost, image, sampler)[1]["summary"]
+            port[jump].append((bool(summary[col["tracking"]] > 0),
+                               int(summary[col["num_inliers"]])))
+    print("the port from the reference's state, (tracked, inliers) with the reference's "
+          "draws, then Sampler(0), (1), (2):", port)
+    return {"bootstrap_frame": vo.host_frames - 1, "reloc_tracked": bool(st.tracking),
+            "sweep": {str(k): v for k, v in sweep.items()},
+            "port": {str(k): v for k, v in port.items()}}
+
+
+def _dataset(jcfg, kind: str, root: str, n: int, prefix: bool) -> dict:
+    """The JAX DeviceSlam over the first n frames of a TUM or EuRoC
+    sequence, as ``tinyslam_tpu.run`` runs it; the result phase 10 is held
+    to.  With ``prefix``, repeated on the prefix before the first reboot
+    until a run has none."""
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from tinyslam_tpu.geometry.camera import PinholeCamera as JaxCamera
+    from tinyslam_tpu.models.slam import DeviceSlam
+    from tinyslam_tpu.utils.evaluation import ate_rmse
+    from tinyslam_tpu_torch.data.euroc import EUROC_CAM0, EurocSequence
+    from tinyslam_tpu_torch.data.tum import FR1_INTRINSICS, TumSequence
+
+    if not root:
+        spec = chip_smoke.TUM_SEQ if kind == "tum" else chip_smoke.EUROC_SEQ
+        root, secs = chip_smoke.dataset_sequence(spec)
+        print(f"{kind}: phase 10's sequence {root} ({secs:.1f} s to render and write)",
+              flush=True)
+    seq = (TumSequence if kind == "tum" else EurocSequence).open(root)
+    cam = JaxCamera.create(**(FR1_INTRINSICS if kind == "tum" else EUROC_CAM0))
+    gt = seq.gt_positions() if seq.groundtruth else None
+    runs = []
+    while True:
+        slam = DeviceSlam(jcfg, cam, chunk=16)
+        t0 = time.perf_counter()
+        frames = 0
+        for _, img in seq.frames():
+            if frames >= n:
+                break
+            img = np.asarray(img)
+            if img.dtype == np.uint8:
+                img = img.astype(np.float32) / 255.0
+            slam.process_frame(jnp.asarray(img))
+            frames += 1
+        slam.finalize()
+        vo = slam.vo
+        tracked = sum(1 for s in vo.stats if s.tracking)
+        ate = None
+        if tracked > 5:
+            first = next(i for i, s in enumerate(vo.stats) if s.tracking)
+            n_eval = min(len(vo.positions), len(gt))
+            ate = float(ate_rmse(vo.positions[first:n_eval], gt[first:n_eval]))
+        result = {"kind": kind, "frames": frames, "tracked": tracked,
+                  "keyframes": vo.num_keyframes, "closures": slam.num_loop_closures,
+                  "ate": ate, "reboots": [int(e["frame"]) for e in vo.submap_events],
+                  "bootstrap_frame": vo.host_frames - 1 if vo.num_reboots == 0 else None,
+                  "lost": [i for i, s in enumerate(vo.stats) if not s.tracking],
+                  "landmarks": int(np.sum(np.asarray(vo.map.valid)))}
+        runs.append(result)
+        print(f"{kind} frames={frames} tracked={tracked} keyframes={vo.num_keyframes} "
+              f"loop_closures={slam.num_loop_closures} ATE {ate} reboots at "
+              f"{result['reboots']}; lost {result['lost']}; "
+              f"{time.perf_counter() - t0:.1f} s (compile included)", flush=True)
+        if not (prefix and result["reboots"]):
+            break
+        n = min(frames - 1, result["reboots"][0])
+    result["runs"] = runs[:-1]
+    return result
 
 
 def _slam(jcfg, jcam, frames, poses) -> dict:
