@@ -92,7 +92,29 @@ Phases, in order; any failure raises and the script exits nonzero:
      draws, and the medians of the four inside the JAX reference's envelope
      over four sets of its own (``REF_TUM_*``, ``REF_EUROC_*``): tracked
      frames at least its fewest less 2, keyframes and closures at least its
-     fewest, the Sim(3)-aligned ATE at most its largest + 2 cm.
+     fewest, the Sim(3)-aligned ATE at most its largest + 2 cm;
+ 11. recovery and instrumentation: (a) phase 8's ``DeviceVO`` after
+     frame 40 saved (``utils/checkpoint.py``), restored into a fresh one on
+     the card, both tracking frames 41-60 with 8d's relocalization forced
+     at 60: equal flags, inliers and keyframes, centres within 1e-5 m, K1
+     once a frame and K2 on the resumed path; (b) the same checkpoint on
+     the CPU plain path, frames 41-48 within 2e-3 of the card; (c) phase
+     9's ``DeviceSlam`` snapshotted every keyframe (``SnapshotPolicy``,
+     keep 2), dropped after frame 69, the newest snapshot restored into a
+     fresh one (tables and edges equal to the snapshot's), at most 3 of
+     frames 70-99 lost; (d) ``Heartbeat(device="cuda")`` answers, a probe
+     that sleeps reports dead within its 0.2 s; (e) continuous-angle BRIEF
+     (nearest, then bilinear) on phase 3's frame equal to the CPU plain
+     path's but for bits whose samples are within 1e-5 (counted), the
+     front-end's ms a frame binned and continuous, ``DeviceVO`` under
+     bilinear BRIEF on phase 5's 24 frames, ``dispatch_slope`` of one
+     ``track_step`` beside phase 5's ms a frame, and a ``profiling.trace``
+     of one chunk naming ``orb_level0``-``3`` and both kernels; (f) the
+     card/CPU differences that remain, pinned: in lockstep on identical
+     frames and draws the front-end agrees bit for bit and the first
+     quantity that differs is the one ROADMAP names (the two-view estimate
+     at frame 3 of the 160x120 bootstrap under ``Sampler(4)`` and of the
+     host ``Slam``; the pose refinement at frame 1 of phase 6).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -139,6 +161,11 @@ N_CLI_FRAMES = 60      # phase 9e
 # 101 (see PERF.md).
 REF_SLAM_CLOSURES = 1
 REF_SLAM_ATE = 0.27765025824560974
+REC_SAVE_FRAME = 41     # phase 11a: frames 0-40 tracked, then saved; 41-60 resumed
+REC_CPU_FRAMES = 8      # phase 11b: frames 41-48 on the CPU from the card's checkpoint
+CRASH_AT = 70           # phase 11c: the DeviceSlam dropped after frame 69 ...
+CRASH_END = 100         # ... and frames 70-99 tracked after the restore
+REC_DIR = Path(__file__).resolve().parent / "build" / "tinyslam_tpu_torch" / "phase11"
 # Phase 10's sequences: tools/eval_ate.py's fr1_desk-like (:29-46) and
 # mh01-like (:64-76) builders, rendered by the port at these lengths.
 TUM_SEQ = dict(kind="tum", seed=101, frames=150, width=640, height=480,
@@ -1270,6 +1297,302 @@ def _dataset_phase(dev, smi):
     return launches
 
 
+def _recovery_phase(cam, room, poses, frames, dev, smi, slice_cfg, slice_seed, slice_ms):
+    """Phase 11: checkpoint and resume, crash recovery, the heartbeat,
+    profiling and the continuous-angle BRIEF front-end.  ``slice_cfg``,
+    ``slice_seed`` and ``slice_ms`` are phase 5's config, seeded state
+    and ms a frame.  Returns the kernels' launch counts of the phase."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from tinyslam_tpu_torch import SlamConfig
+    from tinyslam_tpu_torch.frontend.orb import extract_features
+    from tinyslam_tpu_torch.models import vo_device as vd
+    from tinyslam_tpu_torch.models.slam import DeviceSlam
+    from tinyslam_tpu_torch.models.vo_device import DeviceVO
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops.brief import brief_samples
+    from tinyslam_tpu_torch.ops.compact import select_topk
+    from tinyslam_tpu_torch.ops.fast_cuda import fast_pyramid_maps
+    from tinyslam_tpu_torch.ops.image import build_pyramid
+    from tinyslam_tpu_torch.types import unpack_descriptor_bits
+    from tinyslam_tpu_torch.utils import checkpoint as ck
+    from tinyslam_tpu_torch.utils import profiling
+    from tinyslam_tpu_torch.utils.draws import Sampler
+    from tinyslam_tpu_torch.utils.faults import Heartbeat, SnapshotPolicy
+
+    failures = []
+    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0}
+    shutil.rmtree(REC_DIR, ignore_errors=True)
+
+    def counted(fn):
+        """fn() with both counters from 0; adds its launches to the
+        phase's; returns (fn's result, K1 launches, K2 launches)."""
+        torch.cuda.synchronize()
+        fast_cuda.LAUNCHES = 0
+        match_cuda.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
+        launches["fast_score_map_fused"] += k1
+        launches["match_reduce_streaming"] += k2
+        return out, k1, k2
+
+    def timed_ms(fn):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t_start) * 1e3
+
+    def disk_bytes(path):
+        return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+    # a. Phase 8's DeviceVO to frame 40, saved, restored on the card; both
+    # track frames 41-60, the relocalization of 8d forced at frame 60.
+    cfg = SlamConfig()
+    n0 = REC_SAVE_FRAME
+
+    def to_save():
+        v = DeviceVO(cfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
+        for i in range(n0):
+            v.process(frames[i])
+        v.flush()
+        return v
+
+    vo, _, _ = counted(to_save)
+    _, save_ms = timed_ms(lambda: ck.save_device_vo(vo, REC_DIR / "vo"))
+    back = DeviceVO(cfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
+    _, restore_ms = timed_ms(lambda: ck.restore_device_vo(back, REC_DIR / "vo"))
+    vo_bytes = disk_bytes(REC_DIR / "vo")
+
+    def resume(v):
+        for i in range(n0, RELOC_FRAME):
+            v.process(frames[i])
+        v.flush()
+        v.force_reloc = True
+        v.process(frames[RELOC_FRAME])
+        v.flush()
+
+    counted(lambda: resume(vo))
+    _, k1_r, k2_r = counted(lambda: resume(back))
+    flags = lambda v: [(s_.tracking, s_.num_inliers, s_.is_keyframe)  # noqa: E731
+                       for s_ in v.stats[n0:]]
+    dc = float(np.abs(back.positions[n0:] - vo.positions[n0:]).max())
+    n_res = RELOC_FRAME + 1 - n0
+    print(f"phase 11a: DeviceVO saved after frame {n0 - 1} ({vo.num_keyframes} keyframes, "
+          f"{vo_bytes} B on disk), save {save_ms:.1f} ms, restore {restore_ms:.1f} ms; "
+          f"frames {n0}-{RELOC_FRAME} (relocalization forced at {RELOC_FRAME}) resumed "
+          f"against uninterrupted: flags equal {flags(back) == flags(vo)}, max centre diff "
+          f"{dc:.2e} m; resumed path K1 {k1_r}, K2 {k2_r}; frame {RELOC_FRAME} "
+          f"{back.stats[RELOC_FRAME].num_inliers} inliers  [{smi}]")
+    if not (flags(back) == flags(vo) and len(flags(vo)) == n_res and dc < 1e-5):
+        failures.append("the resumed DeviceVO differs from the uninterrupted one")
+    if not (k1_r == n_res and k2_r >= n_res and back.stats[RELOC_FRAME].tracking):
+        failures.append(f"the resumed path launched K1 {k1_r} (expected {n_res}), K2 {k2_r}, "
+                        f"or lost frame {RELOC_FRAME}")
+
+    # b. The same checkpoint on the CPU plain path, 8 frames.
+    cpu = DeviceVO(cfg, cam, chunk=CHUNK, device="cpu", sampler=Sampler(0))
+    ck.restore_device_vo(cpu, REC_DIR / "vo")
+    for i in range(n0, n0 + REC_CPU_FRAMES):
+        cpu.process(frames[i])
+    cpu.flush()
+    span = slice(n0, n0 + REC_CPU_FRAMES)
+    dcpu = float(np.abs(cpu.positions[span] - vo.positions[span]).max())
+    same = [s_.tracking for s_ in cpu.stats[span]] == [s_.tracking for s_ in vo.stats[span]]
+    print(f"phase 11b: the card's checkpoint restored on the CPU: frames {n0}-"
+          f"{n0 + REC_CPU_FRAMES - 1} tracked {sum(s_.tracking for s_ in cpu.stats[span])}"
+          f"/{REC_CPU_FRAMES}, max centre diff to the card {dcpu:.2e} m")
+    if not (same and dcpu < 2e-3):
+        failures.append("the checkpoint restored on the CPU does not track as the card")
+
+    # c. Crash recovery: phase 9's DeviceSlam snapshotted every keyframe,
+    # dropped at frame 70, restored into a fresh instance, frames 70-99.
+    scfg = slam_config()
+    images = [frames[i] for i in out_and_back(N_SLAM)]
+    policy = SnapshotPolicy(REC_DIR / "snaps", every_keyframes=1, keep=2)
+    slam = DeviceSlam(scfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
+    snap_ms, tables = [], {}
+
+    def crash_run():
+        for i in range(CRASH_AT):
+            slam.process_frame(images[i])
+            path, ms = timed_ms(lambda: policy.maybe_snapshot(slam))
+            if path is not None:
+                snap_ms.append(ms)
+                tables[path.name] = ([a.copy() for a in slam.kf_R],
+                                     [a.copy() for a in slam.kf_t], list(slam.edges))
+
+    counted(crash_run)
+    del slam                                                  # the crash
+    fresh = DeviceSlam(scfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
+    restored, rest_ms = timed_ms(lambda: policy.restore_latest(fresh))
+    if restored is None:
+        raise AssertionError(f"phase 11c: no snapshot restored ({policy.skipped})")
+    kf_R, kf_t, edges = tables[restored.name]
+    same_tables = (len(fresh.kf_R) == len(kf_R) and len(fresh.edges) == len(edges)
+                   and all(np.array_equal(a, b) for a, b in zip(fresh.kf_R, kf_R))
+                   and all(np.array_equal(a, b) for a, b in zip(fresh.kf_t, kf_t))
+                   and all(e[:2] == f[:2] and np.array_equal(e[2], f[2])
+                           and np.array_equal(e[3], f[3]) and e[4:] == f[4:]
+                           for e, f in zip(fresh.edges, edges)))
+    n_before = len(fresh.vo.stats)
+
+    def resume_slam():
+        for i in range(CRASH_AT, CRASH_END):
+            fresh.process_frame(images[i])
+        fresh.finalize()
+
+    _, k1_c, k2_c = counted(resume_slam)
+    new = fresh.vo.stats[n_before:]
+    lost = [CRASH_AT + j for j, s_ in enumerate(new) if not s_.tracking]
+    print(f"phase 11c: {len(snap_ms)} snapshots to frame {CRASH_AT - 1}, ms per save "
+          f"{np.mean(snap_ms):.1f} ({[round(m, 1) for m in snap_ms]}), {disk_bytes(restored)} "
+          f"B on disk; restored {restored.name} ({len(kf_R)} keyframes, {len(edges)} edges) "
+          f"in {rest_ms:.1f} ms, tables equal {same_tables}; frames {CRASH_AT}-"
+          f"{CRASH_END - 1}: lost {lost}, K1 {k1_c}, K2 {k2_c}, {fresh.num_loop_closures} "
+          f"closures  [{smi}]")
+    if not (same_tables and len(new) == CRASH_END - CRASH_AT and len(lost) <= 3):
+        failures.append("crash recovery: tables differ from the snapshot or more than 3 "
+                        "frames lost")
+
+    # d. The heartbeat.
+    hb = Heartbeat(device="cuda", timeout_s=5.0)
+    alive, hb_ms = timed_ms(hb.beat)
+    hung = Heartbeat(probe_fn=lambda: time.sleep(2.0), timeout_s=0.2)
+    t_start = time.perf_counter()
+    dead = not hung.beat()
+    dead_ms = (time.perf_counter() - t_start) * 1e3
+    print(f"phase 11d: heartbeat on {hb.device}: alive {alive} in {hb_ms:.2f} ms; a probe "
+          f"that sleeps: dead {dead} after {dead_ms:.1f} ms (timeout 200 ms)  [{smi}]")
+    if not (alive and dead and dead_ms < 400):
+        failures.append("the heartbeat did not answer, or did not report the hang in time")
+
+    # e. Continuous BRIEF, card against the CPU plain path: nearest, then
+    # bilinear, on phase 3's frame; a bit may differ only where its two
+    # samples are within 1e-5.
+    thr = torch.tensor(slice_cfg.frontend.threshold, dtype=torch.float32, device=dev)
+    img = torch.from_numpy(frames[0]).to(dev)
+    fe_ms = {"binned": _time_ms(lambda: extract_features(img, thr, slice_cfg.frontend),
+                                reps=20, warmup=3)}
+    for interp in (False, True):
+        fcfg = dataclasses.replace(slice_cfg.frontend, brief_bins=0,
+                                   interpolate_descriptors=interp)
+        card_f = extract_features(img, thr, fcfg)
+        cpu_f = extract_features(img.cpu(), thr.cpu(), fcfg)
+        fe_ms["bilinear" if interp else "nearest"] = _time_ms(
+            lambda fcfg=fcfg: extract_features(img, thr, fcfg), reps=20, warmup=3)
+        others = all(torch.equal(getattr(card_f, k).cpu(), getattr(cpu_f, k))
+                     for k in ("xy", "angle", "score", "valid", "level"))
+        bits = unpack_descriptor_bits(card_f.desc.cpu()) != unpack_descriptor_bits(cpu_f.desc)
+        near = torch.zeros_like(bits)
+        if bits.any():
+            # The samples of every bit, from the CPU plain path's levels.
+            levels = build_pyramid(img.cpu(), fcfg.num_levels)
+            maps = fast_pyramid_maps(levels, thr.cpu(), fcfg.border, fcfg.streak_length,
+                                     fcfg.blur_sigma)
+            gaps = []
+            for sr, sn, m10, m01, blurred in maps:
+                sel = select_topk(sn if fcfg.nms else sr, sr, m10, m01,
+                                  fcfg.features_per_level)
+                va, vb = brief_samples(blurred, sel["xy"], sel["angle"], interp)
+                gaps.append((va - vb).abs())
+            near = bits & (torch.cat(gaps) < 1e-5)
+        n_bits, n_near = int(bits.sum()), int(near.sum())
+        print(f"phase 11e: continuous BRIEF ({'bilinear' if interp else 'nearest'}), "
+              f"{int(card_f.count)} features, card vs CPU: other fields equal {others}, "
+              f"{n_bits} descriptor bits differ, {n_near} of them with samples within 1e-5")
+        if not others or n_bits != n_near:
+            failures.append(f"continuous BRIEF ({interp}) differs between the card and the CPU")
+    print(f"phase 11e: front-end ms a frame on the card (640x480, 4 levels x 512): "
+          f"{ {k: round(v, 3) for k, v in fe_ms.items()} }  [{smi}]")
+    # DeviceVO under bilinear continuous BRIEF on phase 5's slice.
+    icfg = dataclasses.replace(slice_cfg, frontend=dataclasses.replace(
+        slice_cfg.frontend, interpolate_descriptors=True))
+
+    def interp_run():
+        f0 = extract_features(img, thr, icfg.frontend)
+        v = DeviceVO(icfg, cam, chunk=CHUNK, device=dev)
+        v.state = _seeded(icfg, f0, room, cam, poses[0])
+        for im in frames[1:N_FRAMES]:
+            v.process(im)
+        v.flush()
+        return v
+
+    vi, k1_i, k2_i = counted(interp_run)
+    gt = _centres([p[0] for p in poses[1:N_FRAMES]], [p[1] for p in poses[1:N_FRAMES]])
+    err_i = float(np.linalg.norm(vi.positions - gt, axis=1).max())
+    n_tr = sum(s_.tracking for s_ in vi.stats)
+    print(f"phase 11e: DeviceVO with bilinear BRIEF on phase 5's slice: tracked {n_tr}/"
+          f"{N_FRAMES - 1}, max centre error {err_i:.4f} m, K1 {k1_i}, K2 {k2_i}")
+    if not (n_tr == N_FRAMES - 1 == len(vi.stats) and err_i < 0.05):
+        failures.append("DeviceVO with bilinear BRIEF lost a frame or drifted")
+    # dispatch_slope of one track_step, from phase 5's seeded state.
+    sampler = Sampler(0)
+    inputs = [torch.from_numpy(frames[i]).to(dev) for i in range(1, 1 + CHUNK)]
+    slope = profiling.dispatch_slope(
+        lambda im: vd.track_step(cam, slice_cfg, slice_seed, im, sampler), inputs,
+        reps=9, attempts=3)
+    print(f"phase 11e: dispatch_slope of one track_step (phase 5's slice): "
+          f"{1e3 * slope:.2f} ms, beside phase 5's {slice_ms:.2f} ms a frame  [{smi}]")
+    # A trace of one tracked chunk: the level scopes and both kernels.
+    def traced_chunk():
+        with profiling.trace(REC_DIR / "trace", device=dev) as log_dir:
+            for i in range(RELOC_FRAME + 1, RELOC_FRAME + 1 + CHUNK):
+                back.process(frames[i])
+            back.flush()
+        return log_dir
+
+    log_dir, _, _ = counted(traced_chunk)
+    text = (log_dir / "trace.json").read_text()
+    want = [f"orb_level{i}" for i in range(4)] + ["fast_pyramid_kernel", "match_reduce_kernel"]
+    missing = [w for w in want if w not in text]
+    print(f"phase 11e: trace of frames {RELOC_FRAME + 1}-{RELOC_FRAME + CHUNK} "
+          f"({len(text)} B): names {[w for w in want if w in text]}, missing {missing}")
+    if missing:
+        failures.append(f"the trace does not name {missing}")
+    print(f"launches during phase 11: {launches}")
+    if failures:
+        raise AssertionError("recovery phase: " + "; ".join(failures))
+    return launches
+
+
+def _difference_pins(dev, smi):
+    """Phase 11f: the card/CPU differences that remain (ROADMAP queue 3),
+    traced in lockstep by ``tools/trace_card_cpu.py`` on identical frames
+    and draws: the front-end (pyramid, FAST maps, top-k, descriptors) must
+    agree bit for bit, and the first quantity that differs must be the one
+    ROADMAP names: the two-view estimate at the first bootstrap attempt
+    (frame 3) of the 160x120 bootstrap under ``Sampler(4)`` and of the host
+    ``Slam``, and the pose refinement at frame 1 of phase 6."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import trace_card_cpu as tc
+
+    t_start = time.perf_counter()
+    with tc.Recorder() as rec:
+        boot = tc.case_boot160(dev, rec, frames_n=6, seeds=[4])[0]
+        host = tc.case_slamhost(dev, rec, n=6)[0]
+        kf = tc.case_phase6(dev, rec, n=3)[0]
+    failures = []
+    for r, frame, kinds in ((boot, 3, ("two_view.",)), (host, 3, ("two_view.",)),
+                            (kf, 1, ("rmse_px", "pose.", "summary"))):
+        first = r["first_difference"]
+        said = (f"at frame {first[0]}: {first[1]} (max |diff| {first[2]:.3g})" if first
+                else "none")
+        print(f"phase 11f: {r['case']}: first difference card vs CPU {said}; first "
+              f"differing decision {r['first_decision']}; bootstrap frames (card, CPU) "
+              f"{r.get('bootstrap_frame')}")
+        if not (first and first[0] == frame and first[1].startswith(kinds)):
+            failures.append(f"{r['case']}: expected the first difference at frame {frame} "
+                            f"in {kinds}, got {first}")
+    print(f"phase 11f: {time.perf_counter() - t_start:.1f} s  [{smi}]")
+    if failures:
+        raise AssertionError("difference pins: " + "; ".join(failures))
+
+
 def main() -> None:
     import torch
 
@@ -1486,6 +1809,11 @@ def main() -> None:
     # ---- 10. the datasets: render, write, load, the command line ----------
     data_launches = _dataset_phase(dev, smi)
 
+    # ---- 11. checkpoint and resume, crash recovery, heartbeat, profiling ---
+    rec_launches = _recovery_phase(cam, room, poses, frames, dev, smi, cfg, seed,
+                                   1e3 * sum(chunk_s[1:]) / n_timed)
+    _difference_pins(dev, smi)
+
     # ---- 7. kernel times -----------------------------------------------------
     # Last: once the profiler has run in a process, every later launch
     # costs more on the host, which would distort the tracked fps above.
@@ -1544,7 +1872,7 @@ def main() -> None:
          "replaces": "tinyslam_tpu/ops/fast_pallas.py:258",
          "launches": sum(x["fast_score_map_fused"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
-                                   data_launches)),
+                                   data_launches, rec_launches)),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "match_reduce_streaming", "route": "cuda",
@@ -1552,7 +1880,7 @@ def main() -> None:
          "replaces": "tinyslam_tpu/ops/match_pallas.py:140",
          "launches": sum(x["match_reduce_streaming"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
-                                   data_launches)),
+                                   data_launches, rec_launches)),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["K2 real guided r=20"][0],
          "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},

@@ -283,3 +283,25 @@ def test_device_slam_card_matches_cpu(dev):
     dc = np.linalg.norm(gpu.positions - cpu.positions, axis=1)
     assert ate_rmse(gpu.positions[b0:], gt[b0:]) == pytest.approx(
         ate_rmse(cpu.positions[b0:], gt[b0:]), abs=1e-3), dc.round(4).tolist()
+
+
+@pytest.mark.parametrize("kind", ["rgb_uint8", "rgb_float", "gray"])
+def test_gray_pyramid_blur_card_equals_cpu(dev, kind):
+    """Grayscale, the 2x2 pyramid and the separable blur at 160x120 give
+    the same bits on the card as on the CPU (a uint8 frame was divided by
+    255 as a multiply by the reciprocal on the card)."""
+    from tinyslam_tpu_torch.ops.image import build_pyramid, gaussian_blur, rgb_to_gray
+
+    rng = np.random.default_rng(13)
+    img = rng.integers(0, 256, (P.HEIGHT, P.WIDTH, 3), np.uint8)
+    if kind != "rgb_uint8":
+        img = img.astype(np.float32) / np.float32(255)
+    if kind == "gray":
+        img = img[..., 0].copy()
+    x = torch.from_numpy(img)
+    gray_gpu = rgb_to_gray(x.to(dev)) if kind != "gray" else x.to(dev)
+    gray_cpu = rgb_to_gray(x) if kind != "gray" else x
+    assert torch.equal(gray_gpu.cpu(), gray_cpu)
+    for a, b in zip(build_pyramid(gray_gpu, 3), build_pyramid(gray_cpu, 3)):
+        assert torch.equal(a.cpu(), b)
+        assert torch.equal(gaussian_blur(a).cpu(), gaussian_blur(b))

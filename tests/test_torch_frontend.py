@@ -180,6 +180,15 @@ def test_extract_uint8_and_rgb_inputs():
     assert abs(int(b.count) - int(a.count)) <= 2     # luma of equal channels rounds
 
 
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_rgb_to_gray_bit_equal_jax(dtype):
+    rgb = np.random.default_rng(12).integers(0, 256, (P.HEIGHT, P.WIDTH, 3), np.uint8)
+    if dtype == "float32":
+        rgb = rgb.astype(np.float32) / np.float32(255)
+    np.testing.assert_array_equal(timage.rgb_to_gray(torch.from_numpy(rgb)).numpy(),
+                                  np.asarray(jimage.rgb_to_gray(jnp.asarray(rgb))))
+
+
 @pytest.mark.parametrize("count", [0, 700, 1536, 1800, 2048])
 def test_adapt_threshold_matches_jax(count):
     for th in (0.011, 0.06, 0.49):
@@ -203,9 +212,3 @@ def test_orb_frontend_requires_a_device():
         torb.OrbFrontend(TFrontendConfig(**P.FRONTEND))
     with pytest.raises(TypeError):
         torb.OrbFrontend(TFrontendConfig(**P.FRONTEND), "cpu")
-
-
-def test_continuous_brief_path_raises():
-    cfg = TFrontendConfig(**P.FRONTEND, brief_bins=0)
-    with pytest.raises(NotImplementedError, match="continuous-angle BRIEF"):
-        torb.extract_features(torch.from_numpy(_FRAMES[0]), 0.06, cfg)

@@ -1,7 +1,8 @@
 """The port runs without JAX: in a fresh interpreter where ``import jax``
 fails, every module of tinyslam_tpu_torch imports, ``DeviceVO`` and
 ``DeviceSlam`` bootstrap from frame 0 of a rendered 160x120 orbit and
-track it on the CPU, and the command line runs 6 synthetic frames there
+track it on the CPU, a checkpoint of the tracker restores into a fresh
+one without Orbax, and the command line runs 6 synthetic frames there
 and a TUM sequence written by the port's writer, read through the native
 loader it builds, launching no CUDA kernel."""
 
@@ -21,6 +22,7 @@ _SCRIPT = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None           # any import of jax now raises ImportError
 sys.modules["flax"] = None
+sys.modules["orbax"] = None
 import numpy as np, torch
 torch.set_num_threads(2)
 import tinyslam_tpu_torch
@@ -41,6 +43,14 @@ cfg = SlamConfig(frontend=FrontendConfig(height=120, width=160, num_levels=2,
                  vo=VOConfig(max_map_points=512))
 vo = DeviceVO(cfg, cam, chunk=4, device="cpu")
 stats = vo.run(frames)
+import tempfile
+from pathlib import Path
+from tinyslam_tpu_torch.utils.checkpoint import restore_device_vo, save_device_vo
+ck = Path(tempfile.mkdtemp()) / "ck"
+save_device_vo(vo, ck)
+back = DeviceVO(cfg, cam, chunk=4, device="cpu")
+restore_device_vo(back, ck)
+ckpt = bool(np.array_equal(back.positions, vo.positions) and back.initialized)
 from tinyslam_tpu_torch.models.slam import DeviceSlam
 slam = DeviceSlam(cfg, cam, chunk=4, device="cpu")
 slam.run(frames)
@@ -63,12 +73,13 @@ with contextlib.redirect_stdout(tum_out):
     tum_rc = run.main(["--dataset", "tum", "--root", str(tmp / "seq"), "--config",
                        str(tmp / "cfg.json"), "--fx", "130", "--fy", "130", "--cx", "79.5",
                        "--cy", "59.5", "--chunk", "4", "--device", "cpu"])
-print(json.dumps({"tum": [tum_rc, tum_out.getvalue().splitlines()[0], str(lib.parent)],"modules": len(mods), "count": stats[0].num_features,
+print(json.dumps({"ckpt": ckpt, "tum": [tum_rc, tum_out.getvalue().splitlines()[0], str(lib.parent)],"modules": len(mods), "count": stats[0].num_features,
                   "slam": [slam.vo.initialized, len(slam.kf_R), slam.vo.num_keyframes,
                            len(slam.positions)],
                   "cli": [rc, out.getvalue().splitlines()[0]],
                   "tracking": stats[-1].tracking, "initialized": vo.initialized,
-                  "jax_loaded": any(k.split(".")[0] in ("jax", "jaxlib") and v is not None
+                  "jax_loaded": any(k.split(".")[0] in ("jax", "jaxlib", "orbax")
+                                    and v is not None
                                     for k, v in sys.modules.items()),
                   "launches": [fast_cuda.LAUNCHES, match_cuda.LAUNCHES]}))
 """
@@ -89,6 +100,7 @@ def test_port_imports_and_tracks_without_jax(result):
     assert result["count"] > 100
     assert result["initialized"]
     assert result["tracking"]
+    assert result["ckpt"]
     initialized, n_kf, vo_kf, n_pos = result["slam"]
     assert initialized and n_kf == vo_kf >= 2 and n_pos == 10
     rc, line = result["cli"]
@@ -103,10 +115,11 @@ def test_cpu_tensors_launch_no_kernel(result):
 
 
 def test_no_jax_import_in_the_port():
-    """No module of the port, nor chip_smoke.py, imports jax or flax."""
+    """No module of the port, nor chip_smoke.py, imports jax, flax, orbax
+    or the JAX package."""
     import re
 
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|tinyslam_tpu)\b(?!_torch)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|orbax|tinyslam_tpu)\b(?!_torch)", re.M)
     files = sorted((REPO / "tinyslam_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 15
     for f in files:

@@ -7,7 +7,9 @@ images, (N, 2) xy, (N, 8) packed descriptors).  This package imports
 ``torch`` and ``numpy`` and never JAX.
 
 - ``ops``       image ops, FAST (plain + ``fast_cuda`` kernel), top-k,
-                binned BRIEF, Hamming matching (plain + ``match_cuda``).
+                binned and continuous steered BRIEF, the C library's
+                float trigonometry (``fmath``), Hamming matching (plain +
+                ``match_cuda``).
 - ``frontend``  ``extract_features``, ``adapt_threshold``, ``OrbFrontend``.
 - ``geometry``  pinhole camera, SE(3), Sim(3), Gauss-Newton PnP and
                 PnP-RANSAC, triangulation, the essential matrix (eight- and
@@ -22,7 +24,11 @@ images, (N, 2) xy, (N, 8) packed descriptors).  This package imports
                 ``DeviceSlam`` (Sim(3) loop closure).
 - ``parallel``  the latest-wins back-end worker thread.
 - ``utils``     the RANSAC ``Sampler``, Umeyama alignment and ATE, the
-                back-end ``Watchdog``, the metrics registry.
+                metrics registry, profiling (``trace``, ``named_scope``,
+                ``dispatch_slope``), checkpoint and resume of every
+                tracker (``.npz`` arrays, the JAX package's meta files),
+                and fault handling (the back-end ``Watchdog``,
+                ``SnapshotPolicy``, the device ``Heartbeat``).
 - ``data``      TUM RGB-D and EuRoC sequences, radtan undistortion, the
                 PNG writer, the numpy room renderer (clean or eval-grade:
                 a distorted camera, photometrics, handheld and MAV

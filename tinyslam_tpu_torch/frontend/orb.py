@@ -1,11 +1,14 @@
-"""The ORB front-end: frame in, oriented-FAST + binned steered-BRIEF
-features out (mirrors ``tinyslam_tpu/frontend/orb.py``).
+"""The ORB front-end: frame in, oriented-FAST + steered-BRIEF features
+out (mirrors ``tinyslam_tpu/frontend/orb.py``).
 
 One launch of the fused FAST kernel over the whole pyramid
 (``ops/fast_cuda.py:fast_pyramid_maps``; its plain version on CPU tensors)
 gives every level's score maps, moments and blurred level; then, per
-level, exact top-k compaction and binned BRIEF.  The adaptive threshold stays a
-0-d tensor on the image's device, so extraction reads nothing back.
+level and under the profiler label ``orb_level{n}``, exact top-k
+compaction and BRIEF: binned (``brief_bins`` > 0), or with the continuous
+angle, nearest or bilinear (``brief_bins`` 0 or ``interpolate_descriptors``).
+The adaptive threshold stays a 0-d tensor on the image's device, so
+extraction reads nothing back.
 """
 
 from __future__ import annotations
@@ -13,11 +16,12 @@ from __future__ import annotations
 import torch
 
 from tinyslam_tpu_torch.config import FrontendConfig
-from tinyslam_tpu_torch.ops.brief import brief_descriptors_binned
+from tinyslam_tpu_torch.ops.brief import brief_descriptors, brief_descriptors_binned
 from tinyslam_tpu_torch.ops.compact import select_topk
 from tinyslam_tpu_torch.ops.fast_cuda import fast_pyramid_maps
 from tinyslam_tpu_torch.ops.image import build_pyramid, rgb_to_gray
 from tinyslam_tpu_torch.types import Features
+from tinyslam_tpu_torch.utils.profiling import named_scope
 
 
 def extract_features(image: torch.Tensor, threshold, cfg: FrontendConfig) -> Features:
@@ -25,11 +29,6 @@ def extract_features(image: torch.Tensor, threshold, cfg: FrontendConfig) -> Fea
 
     ``threshold`` is a float or a 0-d float32 tensor on the image's device.
     """
-    if cfg.brief_bins <= 0 or cfg.interpolate_descriptors:
-        raise NotImplementedError(
-            "continuous-angle BRIEF (brief_bins == 0 or "
-            "interpolate_descriptors) is not ported yet; see ROADMAP.md "
-            "queue 1, ops/brief.py:brief_descriptors")
     if image.dtype == torch.uint8:
         image = image.to(torch.float32) * (1.0 / 255.0)
     gray = rgb_to_gray(image) if image.dim() == 3 else image.to(torch.float32)
@@ -38,20 +37,25 @@ def extract_features(image: torch.Tensor, threshold, cfg: FrontendConfig) -> Fea
     maps = fast_pyramid_maps(build_pyramid(gray, cfg.num_levels), t, cfg.border,
                              cfg.streak_length, cfg.blur_sigma)
     parts: list[Features] = []
+    k = cfg.features_per_level
     for lvl, (score_raw, score_nms, m10, m01, blurred) in enumerate(maps):
-        score = score_nms if cfg.nms else score_raw
-        sel = select_topk(score, score_raw, m10, m01, cfg.features_per_level)
-        desc = brief_descriptors_binned(blurred, sel["xy"], sel["angle"],
-                                        sel["valid"], bins=cfg.brief_bins)
-        k = cfg.features_per_level
-        parts.append(Features(
-            xy=sel["xy"] * float(1 << lvl),   # level-0 pixel coords
-            level=torch.full((k,), lvl, dtype=torch.int32, device=gray.device),
-            angle=sel["angle"],
-            score=sel["score"],
-            desc=desc,
-            valid=sel["valid"],
-        ))
+        with named_scope(f"orb_level{lvl}"):
+            score = score_nms if cfg.nms else score_raw
+            sel = select_topk(score, score_raw, m10, m01, k)
+            if cfg.brief_bins > 0 and not cfg.interpolate_descriptors:
+                desc = brief_descriptors_binned(blurred, sel["xy"], sel["angle"],
+                                                sel["valid"], bins=cfg.brief_bins)
+            else:
+                desc = brief_descriptors(blurred, sel["xy"], sel["angle"], sel["valid"],
+                                         interpolate=cfg.interpolate_descriptors)
+            parts.append(Features(
+                xy=sel["xy"] * float(1 << lvl),   # level-0 pixel coords
+                level=torch.full((k,), lvl, dtype=torch.int32, device=gray.device),
+                angle=sel["angle"],
+                score=sel["score"],
+                desc=desc,
+                valid=sel["valid"],
+            ))
     return Features.concatenate(parts)
 
 

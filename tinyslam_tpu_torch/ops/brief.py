@@ -1,7 +1,14 @@
-"""Steered BRIEF-256 with binned orientation (mirrors
-``tinyslam_tpu/ops/brief.py:brief_descriptors_binned``).
+"""Steered BRIEF-256, with continuous or binned orientation (mirrors
+``tinyslam_tpu/ops/brief.py``: ``brief_descriptors`` and
+``brief_descriptors_binned``).
 
-The JAX package forms every bin's 256 differences with one
+Continuous: the pattern is rotated by each feature's angle and sampled at
+the nearest pixel or bilinearly.  Its arithmetic follows the JAX package's
+on the CPU bit for bit: sine and cosine round as the C library's
+(``ops/fmath.py``), and the products that XLA contracts into fused
+multiply-adds are fused here too (``fmath.fma``), in the same pairs.
+
+Binned: the JAX package forms every bin's 256 differences with one
 ``(N, 1600) x (1600, bins*256)`` matmul against a +-1 table: each output is
 exactly ``va - vb`` of one pattern pair.  Here the same two pixels are
 gathered directly and subtracted, which rounds identically (one f32
@@ -17,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from tinyslam_tpu_torch.ops.fmath import fma, sincosf
 from tinyslam_tpu_torch.types import pack_descriptor_bits
 
 PATCH_RADIUS = 13  # +/-13 box of the sampling pattern
@@ -75,6 +83,71 @@ def _binned_tables(bins: int) -> np.ndarray:
                 ox, oy = off[a, j, k]
                 D[(oy + PATCH_REACH) * ps + (ox + PATCH_REACH), a * 256 + j] += sign
     return D
+
+
+@functools.lru_cache(maxsize=8)
+def _pattern_on(device: torch.device) -> torch.Tensor:
+    """``BRIEF_PATTERN`` as float32 on ``device``, uploaded once."""
+    return torch.from_numpy(BRIEF_PATTERN.astype(np.float32)).to(device)
+
+
+def brief_samples(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
+                  interpolate: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two intensities (N, 256) that each bit of ``brief_descriptors``
+    compares: the pattern's points a and b rotated by each feature's angle
+    about its position, sampled from ``blurred``."""
+    h, w = blurred.shape
+    flat = blurred.reshape(-1)
+    pat = _pattern_on(blurred.device)
+    s, c = sincosf(angle)
+    s, c = s[:, None], c[:, None]
+    x0, y0 = xy[:, 0:1], xy[:, 1:2]
+
+    def rotated(px, py):
+        # XLA's contraction: rx = fma(c, px, -(s py)) + x0,
+        # ry = fma(s, px, c py) + y0.
+        return fma(c, px, -(s * py)) + x0, fma(s, px, c * py) + y0
+
+    def sample(rx, ry):
+        if interpolate:
+            fx = torch.clamp(rx, 0.0, float(np.float32(w - 1.001)))
+            fy = torch.clamp(ry, 0.0, float(np.float32(h - 1.001)))
+            x1 = torch.floor(fx).to(torch.int64)
+            y1 = torch.floor(fy).to(torch.int64)
+            ax = fx - x1.to(torch.float32)
+            ay = fy - y1.to(torch.float32)
+            i00 = flat[y1 * w + x1]
+            i01 = flat[y1 * w + x1 + 1]
+            i10 = flat[(y1 + 1) * w + x1]
+            i11 = flat[(y1 + 1) * w + x1 + 1]
+            # (i00 (1 - ax) + i01 ax) (1 - ay) + (i10 (1 - ax) + i11 ax) ay,
+            # fused as XLA fuses it.
+            top = fma(i01, ax, i00 * (1.0 - ax))
+            bottom = fma(i11, ax, i10 * (1.0 - ax))
+            return fma(top, 1.0 - ay, bottom * ay)
+        tx = torch.clamp(torch.round(rx).to(torch.int64), 0, w - 1)
+        ty = torch.clamp(torch.round(ry).to(torch.int64), 0, h - 1)
+        return flat[ty * w + tx]
+
+    va = sample(*rotated(pat[None, :, 0, 0], pat[None, :, 0, 1]))
+    vb = sample(*rotated(pat[None, :, 1, 0], pat[None, :, 1, 1]))
+    return va, vb
+
+
+def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
+                      valid: torch.Tensor, interpolate: bool = False) -> torch.Tensor:
+    """Steered BRIEF-256 for the features of ONE blurred pyramid level,
+    with the pattern rotated by each feature's continuous angle.
+
+    blurred (H, W) float32; xy (N, 2) positions in this level's pixels;
+    angle (N,) radians; valid (N,).  Nearest sampling rounds half to even
+    and clamps into the image; ``interpolate`` samples bilinearly, clamped
+    to [0, W - 1.001] x [0, H - 1.001].  Returns (N, 8) int32 packed
+    descriptors, zero for invalid slots.
+    """
+    va, vb = brief_samples(blurred, xy, angle, interpolate)
+    desc = pack_descriptor_bits(va > vb)
+    return torch.where(valid[:, None], desc, torch.zeros_like(desc))
 
 
 @functools.lru_cache(maxsize=8)

@@ -2,12 +2,16 @@
 (mirrors the exact top-k path of ``tinyslam_tpu/ops/compact.py``).
 
 Ties go to the lowest flat index, as ``lax.top_k`` does: a stable
-descending sort gives that order, where ``torch.topk`` promises none.
+descending sort gives that order, where ``torch.topk`` promises none.  The
+orientation is ``fmath.atan2f``, which rounds as the JAX package's CPU
+backend does and gives the same bits on the card.
 """
 
 from __future__ import annotations
 
 import torch
+
+from tinyslam_tpu_torch.ops.fmath import atan2f
 
 
 def _subpixel_offset(flat: torch.Tensor, idx: torch.Tensor, stride: int,
@@ -40,7 +44,7 @@ def select_topk(score_sel: torch.Tensor, score_raw: torch.Tensor,
     valid = vals > 0.0
     dx = _subpixel_offset(flat_raw, idx, 1, n)
     dy = _subpixel_offset(flat_raw, idx, w, n)
-    ang = torch.atan2(m01.reshape(-1)[idx], m10.reshape(-1)[idx])
+    ang = atan2f(m01.reshape(-1)[idx], m10.reshape(-1)[idx])
     xy = torch.stack([x.to(torch.float32) + dx, y.to(torch.float32) + dy], dim=-1)
     zero = torch.zeros((), dtype=torch.float32, device=xy.device)
     return {

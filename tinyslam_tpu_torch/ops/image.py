@@ -12,18 +12,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tinyslam_tpu_torch.ops.fmath import fma
+
 # Rec.601 luminance coefficients.
 LUMA = (0.299, 0.587, 0.114)
 
 
 def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
-    """(..., H, W, 3|4) RGB[A] -> (..., H, W) float32 luminance in [0, 1]."""
+    """(..., H, W, 3|4) RGB[A] -> (..., H, W) float32 luminance in [0, 1].
+
+    The JAX package's CPU backend computes the three-term dot as
+    fma(b, w2, fma(g, w1, r w0)); so does this, on any device.  uint8 is
+    divided by 255 with a divisor tensor on the device: divided by a
+    Python number, a CUDA tensor is multiplied by its reciprocal, which
+    rounds differently from a true division.
+    """
     if rgb.dtype == torch.uint8:
-        rgb = rgb.to(torch.float32) / 255.0
-    if rgb.shape[-1] == 4:
-        rgb = rgb[..., :3]
-    w = torch.tensor(LUMA, dtype=torch.float32, device=rgb.device)
-    return torch.tensordot(rgb.to(torch.float32), w, dims=([-1], [0]))
+        rgb = rgb.to(torch.float32) / torch.full((), 255.0, device=rgb.device)
+    rgb = rgb.to(torch.float32)
+    w = [float(np.float32(v)) for v in LUMA]
+    return fma(rgb[..., 2], w[2], fma(rgb[..., 1], w[1], rgb[..., 0] * w[0]))
 
 
 def downsample2x(img: torch.Tensor) -> torch.Tensor:
