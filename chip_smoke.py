@@ -35,8 +35,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      on the path, and a frame may synchronize with the host at most 3 times
      (4 on a keyframe);
   7. the kernels and their plain versions timed at the shapes of phases
-     3 and 4 (device time from the profiler, wall time per call), K1 also
-     one level a launch for the per-level split, K2's library yardstick
+     3, 4 and 12 (device time from the profiler, wall time per call), K1
+     also one level a launch for the per-level split and one launch over
+     phase 12's 8 frames, K2's library yardstick
      (torch._int_mm of the +-1 int8 unpacking, or a bf16 matmul, whichever
      is faster: the distance matrix alone, never called by the port), each
      kernel's bound from this run's shapes, and the device time of one
@@ -114,7 +115,28 @@ Phases, in order; any failure raises and the script exits nonzero:
      frames and draws the front-end agrees bit for bit and the first
      quantity that differs is the one ROADMAP names (the two-view estimate
      at frame 3 of the 160x120 bootstrap under ``Sampler(4)`` and of the
-     host ``Slam``; the pose refinement at frame 1 of phase 6).
+     host ``Slam``; the pose refinement at frame 1 of phase 6);
+ 12. the distributed layer (``tinyslam_tpu_torch/parallel/``): (a)
+     ``initialize_multihost`` with NCCL at world size 1 on a free local
+     port, ``make_mesh()`` gives (1, 1) on the card; (b)
+     ``extract_features_batch`` on 8 frames of the orbit at full width
+     (``FrontendConfig()``: 4 levels x 512) through that mesh: one K1 launch
+     for the batch, every frame bit-equal to ``extract_features`` on the card
+     and to the CPU plain path, the wall time of a batch against 8 single
+     frames, K1's batched launch against 8 single ones; (c)
+     ``bundle_adjust_sharded`` at ``BAConfig()``'s size (K=10, L=2048, 6
+     iterations) on a problem built as ``__graft_entry__.py`` builds its BA
+     stage, bit-equal to ``bundle_adjust`` (both under
+     ``torch.use_deterministic_algorithms``), ms an LM iteration; (d) at
+     ``PoseGraphConfig()``'s size (N=256, E=1024: an odometry chain, 512
+     loop edges and invalid padding) ``optimize_pose_graph_sharded`` over 20
+     iterations bit-equal to ``optimize_pose_graph`` (deterministic: its
+     ``index_add_`` adds by atomics otherwise) and
+     ``optimize_pose_graph_node_sharded`` (halo 8, 40 iterations) with
+     centres within 0.05 m of it, ms each; (e) two processes on the one card
+     over gloo with CUDA tensors (``chip_smoke.py --dist-rank``) running (c)
+     and the edge-sharded (d) at world size 2: both ranks equal, within
+     ``tests/test_torch_parallel.py``'s tolerances of world size 1.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -173,6 +195,10 @@ TUM_SEQ = dict(kind="tum", seed=101, frames=150, width=640, height=480,
 EUROC_SEQ = dict(kind="euroc", seed=202, frames=60, width=752, height=480,
                  room=dict(half_size=(8.0, 5.0, 8.0), tex_res=256, octaves=4, clutter=16))
 SEQ_DIR = Path(__file__).resolve().parent / "build" / "tinyslam_tpu_torch" / "seq"
+N_DP_FRAMES = 8        # phase 12b: frames of one batch through frontend_dp
+N_PG_LOOPS = 512       # phase 12d: loop edges beside the 255 odometry ones
+NODE_ITERS, NODE_HALO = 40, 8   # phase 12d: the node-sharded solver
+DIST_DIR = Path(__file__).resolve().parent / "build" / "tinyslam_tpu_torch" / "phase12"
 # The prefixes phase 10 runs (the longest the JAX reference tracks without
 # a reboot, at most 150 and 60 frames), and the envelope of the JAX
 # reference's DeviceSlam there, as its command line runs it, over key
@@ -1593,6 +1619,309 @@ def _difference_pins(dev, smi):
         raise AssertionError("difference pins: " + "; ".join(failures))
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_problems(seed: int = 12) -> dict:
+    """Phase 12's solver inputs (numpy, from a seed).  The BA window at
+    ``BAConfig()``'s full size, built as ``__graft_entry__.py``'s
+    ``dryrun_multichip`` builds its BA stage: K=10 orbit poses, L=2048
+    random points seen at 0.3 px of noise, the first two poses gauge-fixed,
+    the points moved by 2 cm.  The pose graph at ``PoseGraphConfig()``'s:
+    N=256 poses on a circle of radius 5 m, the drifting odometry chain (255
+    edges with 0.005 m and 0.01 rad of noise), 512 loop edges at their true
+    relative transforms between nodes at least 10 apart, and the rest of
+    the E=1024 slots invalid padding."""
+    import torch
+
+    from tinyslam_tpu_torch import BAConfig
+    from tinyslam_tpu_torch.config import PoseGraphConfig
+    from tinyslam_tpu_torch.data.synthetic import (default_camera, orbit_trajectory,
+                                                   project_points, random_points)
+    from tinyslam_tpu_torch.geometry.se3 import se3_compose, se3_exp, se3_inverse
+
+    rng = np.random.default_rng(seed)
+    ba, pg = BAConfig(), PoseGraphConfig()
+    K, L = ba.max_keyframes, ba.max_landmarks
+    cam = default_camera(WIDTH, HEIGHT)
+    X = random_points(rng, L).astype(np.float32)
+    poses = orbit_trajectory(K)
+    z = np.zeros((L, K, 2), np.float32)
+    mask = np.zeros((L, K), bool)
+    for k, (R, t) in enumerate(poses):
+        z[:, k], mask[:, k] = project_points(cam, R, t, X, width=WIDTH, height=HEIGHT,
+                                             noise_px=0.3, rng=rng)
+    out = {"ba_R": np.stack([p[0] for p in poses]), "ba_t": np.stack([p[1] for p in poses]),
+           "ba_X": X + rng.normal(0, 0.02, X.shape).astype(np.float32), "ba_z": z,
+           "ba_mask": mask, "ba_pose_free": np.r_[[False, False], np.ones(K - 2, bool)]}
+
+    n, E = pg.max_nodes, pg.max_edges
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    ang = 2 * np.pi * np.arange(n) / n
+    xi = np.zeros((n, 6))
+    xi[:, 4] = ang
+    Rg, _ = se3_exp(T(xi))
+    C = np.stack([5.0 * np.sin(ang), np.zeros(n), 5.0 * (1 - np.cos(ang))], -1)
+    tg = -torch.einsum("nab,nb->na", Rg, T(C))
+
+    def relative(a, b):
+        return se3_compose(Rg[b], tg[b], *se3_inverse(Rg[a], tg[a]))
+
+    i = np.arange(n - 1)
+    noise = np.concatenate([rng.normal(0, 0.005, (n - 1, 3)), rng.normal(0, 0.01, (n - 1, 3))], 1)
+    odo_R, odo_t = se3_compose(*se3_exp(T(noise)), *relative(i, i + 1))
+    R_est, t_est = [Rg[0]], [tg[0]]
+    for k in range(n - 1):
+        Rn, tn = se3_compose(odo_R[k], odo_t[k], R_est[-1], t_est[-1])
+        R_est.append(Rn)
+        t_est.append(tn)
+    a = rng.integers(0, n, 4 * N_PG_LOOPS)
+    b = rng.integers(0, n, 4 * N_PG_LOOPS)
+    keep = np.abs(a - b) >= 10
+    a, b = a[keep][:N_PG_LOOPS], b[keep][:N_PG_LOOPS]
+    loop_R, loop_t = relative(a, b)
+    pad = E - (n - 1) - N_PG_LOOPS
+    out.update(
+        pg_R=torch.stack(R_est).numpy(), pg_t=torch.stack(t_est).numpy(),
+        pg_ei=np.r_[i, a, np.zeros(pad)].astype(np.int32),
+        pg_ej=np.r_[i + 1, b, np.ones(pad)].astype(np.int32),
+        pg_eR=torch.cat([odo_R, loop_R, torch.eye(3).expand(pad, 3, 3)]).numpy(),
+        pg_et=torch.cat([odo_t, loop_t, torch.zeros(pad, 3)]).numpy(),
+        pg_ev=np.r_[np.ones(n - 1 + N_PG_LOOPS, bool), np.zeros(pad, bool)],
+        pg_ew=np.r_[np.ones(n - 1 + N_PG_LOOPS), np.zeros(pad)].astype(np.float32))
+    return out
+
+
+def _ba_kwargs() -> dict:
+    from tinyslam_tpu_torch import BAConfig
+
+    ba = BAConfig()
+    return dict(max_iters=ba.max_iters, huber=ba.huber_delta, lam0=ba.damping_init,
+                lam_up=ba.damping_up, lam_down=ba.damping_down)
+
+
+def _dist_args(prob: dict, dev):
+    """(camera, BA arguments, pose-graph arguments) on ``dev``."""
+    import torch
+
+    from tinyslam_tpu_torch.data.synthetic import default_camera
+
+    T = lambda k: torch.from_numpy(prob[k]).to(dev)  # noqa: E731
+    return (default_camera(WIDTH, HEIGHT),
+            [T(f"ba_{k}") for k in ("R", "t", "X", "z", "mask", "pose_free")],
+            [T(f"pg_{k}") for k in ("R", "t", "ei", "ej", "eR", "et", "ev", "ew")])
+
+
+def _deterministic(fn):
+    """fn() under ``torch.use_deterministic_algorithms``: ``index_add_``
+    on the card adds by atomics, in an order that changes run to run."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _dist_rank(rank: int, port: str, device: str) -> None:
+    """Phase 12e, one of two ranks on the one card over gloo, CUDA tensors
+    (``device`` "cuda"; "cpu" rehearses it): phase 12c's BA and 12d's
+    edge-sharded pose graph on a (1, 2) mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from tinyslam_tpu_torch.config import PoseGraphConfig
+    from tinyslam_tpu_torch.parallel import (bundle_adjust_sharded, initialize_multihost,
+                                             make_mesh, optimize_pose_graph_sharded)
+
+    initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh(device_type=device)
+    if tuple(mesh.shape) != (1, 2):
+        raise AssertionError(f"rank {rank}: mesh {tuple(mesh.shape)}, expected (1, 2)")
+    cam, ba_args, pg_args = _dist_args(dict(np.load(DIST_DIR / "in.npz")), torch.device(device))
+    ba = bundle_adjust_sharded(mesh, cam, *ba_args, **_ba_kwargs())
+    pg = optimize_pose_graph_sharded(mesh, *pg_args, iters=PoseGraphConfig().gn_iters)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    np.savez(DIST_DIR / f"out{rank}.npz", **{f"ba_{k}": v.cpu().numpy() for k, v in ba.items()},
+             **{f"pg_{k}": v.cpu().numpy() for k, v in pg.items()})
+    dist.destroy_process_group()
+    print(f"phase 12e rank {rank}: done on {device}")
+
+
+def _dist_phase(frames, dev, smi, timed):
+    """Phase 12: the distributed layer on the card.  Returns the kernels'
+    launch counts of its main path, (b); appends the batched K1 launch to
+    ``timed`` for phase 7."""
+    import torch
+    import torch.distributed as dist
+
+    from tinyslam_tpu_torch import FrontendConfig
+    from tinyslam_tpu_torch.backend.ba import bundle_adjust
+    from tinyslam_tpu_torch.backend.pose_graph import optimize_pose_graph
+    from tinyslam_tpu_torch.config import PoseGraphConfig
+    from tinyslam_tpu_torch.frontend.orb import extract_batch, extract_features
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops.fast import fast_maps
+    from tinyslam_tpu_torch.ops.image import build_pyramid
+    from tinyslam_tpu_torch.parallel import (bundle_adjust_sharded, extract_features_batch,
+                                             initialize_multihost, make_mesh,
+                                             optimize_pose_graph_node_sharded,
+                                             optimize_pose_graph_sharded)
+
+    t_phase = time.perf_counter()
+    # (a) NCCL at world size 1 and the default mesh.
+    initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                         backend="nccl" if dev.type == "cuda" else "gloo")
+    try:
+        mesh = make_mesh(device_type=dev.type)
+        if tuple(mesh.shape) != (1, 1) or mesh.device_type != dev.type:
+            raise AssertionError(f"mesh {tuple(mesh.shape)} on {mesh.device_type}")
+        print(f"phase 12a: {dist.get_backend()} at world size {dist.get_world_size()}, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}")
+
+        # (b) ORB over a batch of full-width frames, split on `frame`.
+        fe = FrontendConfig()
+        ims = torch.from_numpy(np.stack(frames[:N_DP_FRAMES])).to(dev)
+        thr = torch.tensor(fe.threshold, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        fast_cuda.LAUNCHES = 0
+        match_cuda.LAUNCHES = 0
+        batch = extract_features_batch(ims, thr, fe, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
+                    "match_reduce_streaming": match_cuda.LAUNCHES}
+        print("phase 12b launches:", launches)
+        if launches["fast_score_map_fused"] != 1:
+            raise AssertionError(f"K1 launched {launches['fast_score_map_fused']} times for "
+                                 f"one batch of {N_DP_FRAMES} frames, expected 1")
+        cpu = extract_batch(ims.cpu(), fe.threshold, fe)
+        for i in range(N_DP_FRAMES):
+            single = extract_features(ims[i], thr, fe)
+            for name in ("xy", "level", "angle", "score", "desc", "valid"):
+                got = getattr(batch, name)[i]
+                for ref, where in ((getattr(single, name), "per-frame on the card"),
+                                   (getattr(cpu, name)[i], "the CPU plain path")):
+                    if not torch.equal(got.cpu(), ref.cpu()):
+                        raise AssertionError(f"phase 12b frame {i} {name}: not equal to {where}")
+        ms_batch = _time_ms(lambda: extract_features_batch(ims, thr, fe, mesh=mesh),
+                            reps=10, warmup=2)
+        ms_single = _time_ms(lambda: [extract_features(im, thr, fe) for im in ims],
+                             reps=10, warmup=2)
+        print(f"phase 12b: {N_DP_FRAMES} frames {tuple(ims.shape[1:])}, "
+              f"{int(batch.valid.sum())} features, bit-equal per frame on the card and to the "
+              f"CPU; wall a batch {ms_batch:.3f} ms, {N_DP_FRAMES} single frames "
+              f"{ms_single:.3f} ms  [{smi}]")
+        k1_args = (thr, fe.border, fe.streak_length, fe.blur_sigma)
+        levels_b = build_pyramid(ims, fe.num_levels)
+        levels_1 = [build_pyramid(im, fe.num_levels) for im in ims]
+        k1_b = _time_ms(lambda: fast_cuda.fast_pyramid_maps(levels_b, *k1_args))
+        k1_1 = _time_ms(lambda: [fast_cuda.fast_pyramid_maps(lv, *k1_args) for lv in levels_1])
+        print(f"phase 12b K1 alone: one launch over {N_DP_FRAMES} frames {k1_b:.4f} ms, "
+              f"{N_DP_FRAMES} launches of one frame {k1_1:.4f} ms (wall, CUDA events)  [{smi}]")
+        timed.append((f"K1 batch {N_DP_FRAMES}x480x640",
+                      lambda: fast_cuda.fast_pyramid_maps(levels_b, *k1_args),
+                      lambda: [[fast_maps(lvl, *k1_args) for lvl in lv] for lv in levels_1]))
+
+        # (c) landmark-sharded BA at BAConfig()'s full size.
+        prob = _dist_problems()
+        cam, ba_args, pg_args = _dist_args(prob, dev)
+        kw = _ba_kwargs()
+        ba_sh = _deterministic(lambda: bundle_adjust_sharded(mesh, cam, *ba_args, **kw))
+        ba_1 = _deterministic(lambda: bundle_adjust(cam, *ba_args, **kw))
+        for k in ("R", "t", "X", "cost", "initial_cost", "lam"):
+            if not torch.equal(ba_sh[k], ba_1[k]):
+                raise AssertionError(f"phase 12c: bundle_adjust_sharded {k} differs from "
+                                     f"bundle_adjust by {float((ba_sh[k] - ba_1[k]).abs().max())}")
+        if not float(ba_sh["cost"]) < 0.5 * float(ba_sh["initial_cost"]):
+            raise AssertionError(f"phase 12c: cost {float(ba_sh['cost'])} from "
+                                 f"{float(ba_sh['initial_cost'])}")
+        ms_ba = _time_ms(lambda: bundle_adjust_sharded(mesh, cam, *ba_args, **kw), reps=5, warmup=1)
+        ms_ba1 = _time_ms(lambda: bundle_adjust(cam, *ba_args, **kw), reps=5, warmup=1)
+        print(f"phase 12c: bundle_adjust_sharded K={ba_args[0].shape[0]} L={ba_args[2].shape[0]}, "
+              f"{kw['max_iters']} iterations, bit-equal to bundle_adjust; cost "
+              f"{float(ba_sh['initial_cost']):.1f} -> {float(ba_sh['cost']):.1f}; wall an LM "
+              f"iteration {ms_ba / kw['max_iters']:.3f} ms, unsharded "
+              f"{ms_ba1 / kw['max_iters']:.3f} ms  [{smi}]")
+
+        # (d) the pose graphs at PoseGraphConfig()'s sizes.
+        iters = PoseGraphConfig().gn_iters
+        pg_sh = _deterministic(lambda: optimize_pose_graph_sharded(mesh, *pg_args, iters=iters))
+        pg_1 = _deterministic(lambda: optimize_pose_graph(*pg_args, iters=iters))
+        for k in ("R", "t", "costs"):
+            if not torch.equal(pg_sh[k], pg_1[k]):
+                raise AssertionError(f"phase 12d: optimize_pose_graph_sharded {k} differs "
+                                     f"from optimize_pose_graph")
+        again = optimize_pose_graph(*pg_args, iters=iters)
+        spread = float((again["t"] - optimize_pose_graph(*pg_args, iters=iters)["t"]).abs().max())
+        node = optimize_pose_graph_node_sharded(mesh, *pg_args, iters=NODE_ITERS, halo=NODE_HALO)
+        c_ref = _centres(pg_1["R"].cpu().numpy(), pg_1["t"].cpu().numpy())
+        err = np.linalg.norm(_centres(node["R"].cpu().numpy(), node["t"].cpu().numpy())
+                             - c_ref, axis=-1).max()
+        drift = np.linalg.norm(_centres(prob["pg_R"], prob["pg_t"]) - c_ref, axis=-1).max()
+        ms_pg = _time_ms(lambda: optimize_pose_graph_sharded(mesh, *pg_args, iters=iters),
+                         reps=3, warmup=1)
+        ms_pg1 = _time_ms(lambda: optimize_pose_graph(*pg_args, iters=iters), reps=3, warmup=1)
+        ms_node = _time_ms(lambda: optimize_pose_graph_node_sharded(
+            mesh, *pg_args, iters=NODE_ITERS, halo=NODE_HALO), reps=3, warmup=1)
+        n, E = pg_args[0].shape[0], pg_args[2].shape[0]
+        print(f"phase 12d: optimize_pose_graph_sharded N={n} E={E}, {iters} iterations, "
+              f"bit-equal to optimize_pose_graph (both deterministic; two default runs differ "
+              f"by {spread:.3g} m: index_add_ atomics); cost {float(pg_1['costs'][0]):.4g} -> "
+              f"{float(pg_1['costs'][-1]):.4g}; wall {ms_pg:.3f} ms, unsharded {ms_pg1:.3f} ms"
+              f"  [{smi}]")
+        print(f"phase 12d: optimize_pose_graph_node_sharded N={n}, halo {NODE_HALO}, "
+              f"{NODE_ITERS} iterations: centres within {err:.4f} m of the replicated "
+              f"optimum (the start is {drift:.3f} m off); wall {ms_node:.3f} ms  [{smi}]")
+        if not (err < 0.05 and drift > 0.1):
+            raise AssertionError(f"phase 12d: node-sharded centres {err} m from the optimum "
+                                 f"(start {drift} m)")
+    finally:
+        dist.destroy_process_group()
+
+    # (e) two ranks on the one card over gloo: (c) and the edge-sharded (d).
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(DIST_DIR / "in.npz", **prob)
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-rank",
+                               str(r), port, dev.type], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 12e rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    outs = [dict(np.load(DIST_DIR / f"out{r}.npz")) for r in range(2)]
+    for k in outs[0]:
+        if not np.array_equal(outs[0][k], outs[1][k]):
+            raise AssertionError(f"phase 12e: the two ranks' {k} differ")
+    world1 = {**{f"ba_{k}": v.cpu().numpy() for k, v in ba_1.items()},
+              **{f"pg_{k}": v.cpu().numpy() for k, v in pg_1.items()}}
+    # tests/test_torch_parallel.py's tolerances: R 5e-4, t and X 5e-3.
+    worst = {}
+    for k, tol in (("ba_R", 5e-4), ("ba_t", 5e-3), ("ba_X", 5e-3), ("pg_R", 5e-4),
+                   ("pg_t", 5e-3)):
+        worst[k] = float(np.abs(outs[0][k] - world1[k]).max())
+        if not worst[k] <= tol:
+            raise AssertionError(f"phase 12e: {k} at world size 2 is {worst[k]} from world "
+                                 f"size 1 (> {tol})")
+    print(f"phase 12e: 2 ranks over gloo on the card, both ranks equal; max |diff| to world "
+          f"size 1 {worst}")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1814,6 +2143,9 @@ def main() -> None:
                                    1e3 * sum(chunk_s[1:]) / n_timed)
     _difference_pins(dev, smi)
 
+    # ---- 12. the distributed layer: mesh, frontend_dp, sharded BA and graphs --
+    dist_launches = _dist_phase(frames, dev, smi, timed)
+
     # ---- 7. kernel times -----------------------------------------------------
     # Last: once the profiler has run in a process, every later launch
     # costs more on the host, which would distort the tracked fps above.
@@ -1843,6 +2175,14 @@ def main() -> None:
           f"{e_ms:.4f} ms, plain {ms['K1 pyramid 752x480'][1]:.4f} ms; bound "
           f"{e_bound[0]:.5f} ms ({e_bound[1]}), kernel at {100 * e_bound[0] / e_ms:.1f}% "
           f"of it  [{smi}]")
+    b_label = f"K1 batch {N_DP_FRAMES}x480x640"
+    b_bound = _bound_ms(N_DP_FRAMES * k1_bytes - 4 * (N_DP_FRAMES - 1),
+                        N_DP_FRAMES * K1_FLOPS_PER_PIXEL * k1_pixels, FP32_FLOPS_PER_S)
+    print(f"K1 one launch over {N_DP_FRAMES} frames of 640x480 (phase 12b), device: kernel "
+          f"{ms[b_label][0]:.4f} ms ({1e3 * ms[b_label][0] / N_DP_FRAMES:.2f} us a frame), "
+          f"plain {ms[b_label][1]:.4f} ms; bound {b_bound[0]:.5f} ms ({b_bound[1]}), kernel "
+          f"at {100 * b_bound[0] / ms[b_label][0]:.1f}% of it; launches on phase 12's path "
+          f"{dist_launches['fast_score_map_fused']}  [{smi}]")
     k2_bound = {}
     for label, (case, r) in k2_shapes.items():
         n_, m_ = case["desc_a"].shape[0], case["desc_b"].shape[0]
@@ -1872,7 +2212,7 @@ def main() -> None:
          "replaces": "tinyslam_tpu/ops/fast_pallas.py:258",
          "launches": sum(x["fast_score_map_fused"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
-                                   data_launches, rec_launches)),
+                                   data_launches, rec_launches, dist_launches)),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "match_reduce_streaming", "route": "cuda",
@@ -1880,7 +2220,7 @@ def main() -> None:
          "replaces": "tinyslam_tpu/ops/match_pallas.py:140",
          "launches": sum(x["match_reduce_streaming"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
-                                   data_launches, rec_launches)),
+                                   data_launches, rec_launches, dist_launches)),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["K2 real guided r=20"][0],
          "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},
@@ -1892,5 +2232,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:
+        _dist_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()
     sys.exit(0)

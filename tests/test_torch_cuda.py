@@ -77,6 +77,55 @@ def test_fast_pyramid_kernel_bit_equal(dev, shape, levels):
                                        float((g - w).abs().max()))
 
 
+@pytest.mark.parametrize("shape,levels,batch", [((480, 640), 4, 8), ((480, 752), 4, 3),
+                                                ((97, 131), 3, 2), ((480, 640), 4, 1)])
+def test_fast_pyramid_kernel_batched_bit_equal(dev, shape, levels, batch):
+    """One launch over B frames x every level ((B, H_l, W_l) levels, the
+    frame the grid's second dimension): every map of every level of every
+    frame equals the plain version, and frame 0 equals the single-frame
+    (H, W) launch."""
+    from tinyslam_tpu_torch.ops.image import build_pyramid
+
+    rng = np.random.default_rng(sum(shape) + batch)
+    img = rng.random((batch, *shape)).astype(np.float32)
+    img[:, : shape[0] // 3] = np.round(img[:, : shape[0] // 3] * 4) / 4
+    pyr = build_pyramid(torch.from_numpy(img).to(dev), levels)
+    t = torch.tensor(0.06, dtype=torch.float32, device=dev)
+    before = fast_cuda.LAUNCHES
+    got = fast_cuda.fast_pyramid_maps(pyr, t, 20, 9, 2.0)
+    assert fast_cuda.LAUNCHES == before + 1
+    names = ("score_raw", "score_nms", "m10", "m01", "blurred")
+    for level, maps in zip(pyr, got):
+        for b in range(batch):
+            want = fast.fast_maps(level[b], t, 20, 9, 2.0)
+            for name, g, w in zip(names, maps, want):
+                assert torch.equal(g[b], w), (tuple(level.shape), b, name,
+                                              float((g[b] - w).abs().max()))
+    single = fast_cuda.fast_pyramid_maps([level[0] for level in pyr], t, 20, 9, 2.0)
+    for maps, one in zip(got, single):
+        for g, s in zip(maps, one):
+            assert torch.equal(g[0], s)
+
+
+def test_extract_batch_card_equals_per_frame(dev):
+    """The batched extraction on the card: one K1 launch for 3 frames, each
+    frame's features equal to ``extract_features`` on the card and on the
+    CPU plain path."""
+    from tinyslam_tpu_torch.frontend.orb import extract_batch
+
+    cfg = P.torch_config().frontend
+    frames = torch.from_numpy(np.stack(P.orbit(3)[0]))
+    before = fast_cuda.LAUNCHES
+    batch = extract_batch(frames.to(dev), cfg.threshold, cfg)
+    assert fast_cuda.LAUNCHES == before + 1
+    for i in range(3):
+        for ref in (extract_features(frames[i].to(dev), cfg.threshold, cfg),
+                    extract_features(frames[i], cfg.threshold, cfg)):
+            for f in dataclasses.fields(ref):
+                assert torch.equal(getattr(batch, f.name)[i].cpu(),
+                                   getattr(ref, f.name).cpu()), (i, f.name)
+
+
 def _match_case(seed, n, m, guided, dev):
     rng = np.random.default_rng(seed)
     da, db = P.rand_desc(rng, n), P.rand_desc(rng, m)

@@ -22,7 +22,10 @@ images, (N, 2) xy, (N, 8) packed descriptors).  This package imports
                 ``DeviceVO`` (bootstrap and submap reboots),
                 ``TwoViewEstimator``, ``VisualOdometry``, and ``Slam`` /
                 ``DeviceSlam`` (Sim(3) loop closure).
-- ``parallel``  the latest-wins back-end worker thread.
+- ``parallel``  the distributed layer on ``torch.distributed`` (the mesh,
+                frame-parallel ORB, landmark-sharded BA, edge- and
+                node-sharded pose graphs) and the latest-wins back-end
+                worker thread.
 - ``utils``     the RANSAC ``Sampler``, Umeyama alignment and ATE, the
                 metrics registry, profiling (``trace``, ``named_scope``,
                 ``dispatch_slope``), checkpoint and resume of every

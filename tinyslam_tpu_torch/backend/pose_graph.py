@@ -119,6 +119,32 @@ def edge_jacobians(node_i: tuple, node_j: tuple, meas: tuple):
     return r, J[..., :D], J[..., D:]
 
 
+def block_offsets(bi, bj, n: int, D: int):
+    """Flat offsets into an (nD, nD) matrix of the four D x D blocks (i, i),
+    (j, j), (i, j), (j, i) that each edge (bi, bj) adds, and into an (nD,)
+    vector of its two D-rows."""
+    a = torch.arange(D, device=bi.device)
+    rows, cols = torch.cat([bi, bj, bi, bj]), torch.cat([bi, bj, bj, bi])
+    h_at = (((rows[:, None, None] * D + a[:, None]) * (n * D)
+             + cols[:, None, None] * D + a[None, :]).reshape(-1))
+    g_at = (torch.cat([bi, bj])[:, None] * D + a).reshape(-1)
+    return h_at, g_at
+
+
+def normal_equations(h_at, g_at, m: int, r, Ji, Jj, w):
+    """H (m, m) and g (m,) of the edges' Gauss-Newton terms weighted by w,
+    scattered at ``block_offsets``: H += w J^T J, g -= w J^T r."""
+    we = w[:, None, None]
+    Hij = we * torch.einsum("eab,eac->ebc", Ji, Jj)
+    blocks = torch.cat([we * torch.einsum("eab,eac->ebc", Ji, Ji),
+                        we * torch.einsum("eab,eac->ebc", Jj, Jj),
+                        Hij, Hij.transpose(-1, -2)])
+    H = r.new_zeros(m * m).index_add_(0, h_at, blocks.reshape(-1)).view(m, m)
+    g_rows = torch.cat([-torch.einsum("eab,ea->eb", Ji * we, r),
+                        -torch.einsum("eab,ea->eb", Jj * we, r)])
+    return H, r.new_zeros(m).index_add_(0, g_at, g_rows.reshape(-1))
+
+
 def _gauss_newton(nodes: tuple, meas: tuple, edge_i, edge_j, edge_valid, edge_weight,
                   node_valid, exp_fn, compose_fn, D: int, iters: int,
                   damping: float, preduce, reduce_cost: bool):
@@ -137,28 +163,14 @@ def _gauss_newton(nodes: tuple, meas: tuple, edge_i, edge_j, edge_valid, edge_we
     free = node_valid & (torch.arange(n, device=dev) != 0)
     fr = free.to(dt).repeat_interleave(D)                  # (nD,)
     held = torch.diag(1.0 - fr) + damping * torch.eye(n * D, dtype=dt, device=dev)
-    a = torch.arange(D, device=dev)
-    # Flat offsets of the four D x D blocks an edge adds to the (nD, nD) H.
-    bi, bj = torch.cat([ei, ej, ei, ej]), torch.cat([ei, ej, ej, ei])
-    h_at = (((bi[:, None, None] * D + a[:, None]) * (n * D)
-             + bj[:, None, None] * D + a[None, :]).reshape(-1))
-    g_at = (torch.cat([ei, ej])[:, None] * D + a).reshape(-1)
-    we = w_e[:, None, None]
+    h_at, g_at = block_offsets(ei, ej, n, D)
 
     costs = []
     for _ in range(iters):
         ni = tuple(x[ei] for x in nodes)
         nj = tuple(x[ej] for x in nodes)
         r, Ji, Jj = edge_jacobians(ni, nj, meas)
-        Hij = we * torch.einsum("eab,eac->ebc", Ji, Jj)
-        blocks = torch.cat([we * torch.einsum("eab,eac->ebc", Ji, Ji),
-                            we * torch.einsum("eab,eac->ebc", Jj, Jj),
-                            Hij, Hij.transpose(-1, -2)])
-        H = torch.zeros(n * D * n * D, dtype=dt, device=dev).index_add_(
-            0, h_at, blocks.reshape(-1)).view(n * D, n * D)
-        g_rows = torch.cat([-torch.einsum("eab,ea->eb", Ji * we, r),
-                            -torch.einsum("eab,ea->eb", Jj * we, r)])
-        g = torch.zeros(n * D, dtype=dt, device=dev).index_add_(0, g_at, g_rows.reshape(-1))
+        H, g = normal_equations(h_at, g_at, n * D, r, Ji, Jj, w_e)
         # Cross-shard reduction point (identity on a single device).
         H, g = preduce(H), preduce(g)
         Hm = H * fr[:, None] * fr[None, :] + held

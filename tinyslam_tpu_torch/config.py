@@ -147,7 +147,7 @@ class PoseGraphConfig(_JsonMixin):
 
 @dataclass(frozen=True)
 class MeshConfig(_JsonMixin):
-    """Device-mesh layout of the JAX package (kept for config parity)."""
+    """(frame, landmark) device-mesh layout, read by ``parallel/mesh.py:make_mesh``."""
 
     frame_axis: int = 1
     landmark_axis: int = 1

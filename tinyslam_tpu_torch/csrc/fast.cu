@@ -16,11 +16,14 @@
 // What bounds it on the H100: bytes, then the stencil arithmetic.  A
 // 640x480 frame's four levels hold 408,000 pixels; each is read once and
 // written five times (9.8 MB, 2.9 us at 3.35 TB/s) against a few hundred
-// flops a pixel.  Design: ONE launch per frame.  The grid is flat over the
-// 32x32 tiles of every level (406 tiles at 640x480, about 3 blocks of 256
-// threads per SM, one wave); a block finds its level and origin in a small
-// table passed by value.  It stages its tile with an 8-pixel halo (moments
-// reach 7, the ring 3 plus 1 for NMS) in shared memory: rows of a tile
+// flops a pixel.  Design: ONE launch per batch of frames.  The grid's x is
+// flat over the 32x32 tiles of every level (406 tiles at 640x480, about 3
+// blocks of 256 threads per SM, one wave a frame), its y is the frame; a
+// block finds its level and origin in a small table passed by value, and
+// its frame's planes at frame * h * w past the level's first (levels come
+// as (B, H_l, W_l), frames contiguous; B = 1 is the single-frame launch).
+// It stages its tile with an 8-pixel halo (moments reach 7, the ring 3
+// plus 1 for NMS) in shared memory: rows of a tile
 // clear of the left and right edges arrive by 16-byte cp.async when the
 // level's rows are 16-byte aligned; tiles at an edge or of an odd width
 // (131) take a clamped scalar path inside the same kernel.  It then computes
@@ -117,7 +120,9 @@ fast_pyramid_kernel(const Pyramid pyr, const float* __restrict__ thresh,
   for (int k = 1; k < MAX_LEVELS; ++k)
     if (k < pyr.n && tile >= pyr.lv[k].tile0) L = pyr.lv[k];
   const int h = L.h, w = L.w;
-  const float* __restrict__ img = L.img;
+  // This block's frame: every plane of the level is B frames of h * w.
+  const size_t frame = (size_t)blockIdx.y * h * w;
+  const float* __restrict__ img = L.img + frame;
   const int x0 = ((tile - L.tile0) % L.tiles_x) * TW;
   const int y0 = ((tile - L.tile0) / L.tiles_x) * TH;
   const int tid = threadIdx.x;
@@ -291,7 +296,7 @@ fast_pyramid_kernel(const Pyramid pyr, const float* __restrict__ thresh,
       v[4][p] = ab[p];
     }
   }
-  const size_t o = (size_t)gy * w + gx0;
+  const size_t o = frame + (size_t)gy * w + gx0;
   if (L.aligned) {        // w % 4 == 0, so the quad lies wholly inside
 #pragma unroll
     for (int mp = 0; mp < 5; ++mp)
@@ -308,13 +313,15 @@ fast_pyramid_kernel(const Pyramid pyr, const float* __restrict__ thresh,
 
 }  // namespace
 
-// One launch over n_levels levels.  `ptrs` holds six device pointers a
-// level (the image, then score_raw, score_nms, m10, m01, blurred), `dims`
-// its (h, w), `taps` the seven blur taps; both arrays are on the host.
+// One launch over n_levels levels of `batch` frames.  `ptrs` holds six
+// device pointers a level (the image, then score_raw, score_nms, m10, m01,
+// blurred), each to `batch` contiguous (h, w) planes, `dims` its (h, w),
+// `taps` the seven blur taps; both arrays are on the host.
 extern "C" int tinyslam_fast_pyramid(const void* const* ptrs, const int* dims, int n_levels,
-                                     const float* thresh, int border, int streak,
+                                     int batch, const float* thresh, int border, int streak,
                                      const float* taps, cudaStream_t stream) {
-  if (n_levels < 1 || n_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  if (n_levels < 1 || n_levels > MAX_LEVELS || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   Pyramid pyr = {};
   pyr.n = n_levels;
   for (int q = 0; q < 2 * BR + 1; ++q) pyr.taps[q] = taps[q];
@@ -328,13 +335,13 @@ extern "C" int tinyslam_fast_pyramid(const void* const* ptrs, const int* dims, i
     if (L.h < 1 || L.w < 1) return (int)cudaErrorInvalidValue;
     L.tiles_x = (L.w + TW - 1) / TW;
     L.tile0 = tiles;
-    bool aligned = L.w % 4 == 0;
+    bool aligned = L.w % 4 == 0;   // then every frame's plane is 16-byte aligned too
     for (int mp = 0; mp < 6; ++mp)
       aligned = aligned && reinterpret_cast<size_t>(ptrs[6 * l + mp]) % 16 == 0;
     L.aligned = aligned;
     tiles += L.tiles_x * ((L.h + TH - 1) / TH);
   }
-  fast_pyramid_kernel<<<tiles, NT, 0, stream>>>(pyr, thresh, border, streak);
+  fast_pyramid_kernel<<<dim3(tiles, batch), NT, 0, stream>>>(pyr, thresh, border, streak);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 out (mirrors ``tinyslam_tpu/frontend/orb.py``).
 
 One launch of the fused FAST kernel over the whole pyramid
-(``ops/fast_cuda.py:fast_pyramid_maps``; its plain version on CPU tensors)
-gives every level's score maps, moments and blurred level; then, per
+(``ops/fast_cuda.py:fast_pyramid_maps``; its plain version on CPU tensors),
+or over the pyramids of a batch of frames (``extract_batch``), gives every
+level's score maps, moments and blurred level; then, per
 level and under the profiler label ``orb_level{n}``, exact top-k
 compaction and BRIEF: binned (``brief_bins`` > 0), or with the continuous
 angle, nearest or bilinear (``brief_bins`` 0 or ``interpolate_descriptors``).
@@ -24,18 +25,16 @@ from tinyslam_tpu_torch.types import Features
 from tinyslam_tpu_torch.utils.profiling import named_scope
 
 
-def extract_features(image: torch.Tensor, threshold, cfg: FrontendConfig) -> Features:
-    """(H, W[, 3]) image -> Features with capacity cfg.max_features.
-
-    ``threshold`` is a float or a 0-d float32 tensor on the image's device.
-    """
+def _gray(image: torch.Tensor, rgb: bool) -> torch.Tensor:
+    """Float32 luminance of an image or a batch: uint8 scaled to [0, 1]."""
     if image.dtype == torch.uint8:
         image = image.to(torch.float32) * (1.0 / 255.0)
-    gray = rgb_to_gray(image) if image.dim() == 3 else image.to(torch.float32)
-    t = torch.as_tensor(threshold, dtype=torch.float32, device=gray.device).reshape(())
+    return rgb_to_gray(image) if rgb else image.to(torch.float32)
 
-    maps = fast_pyramid_maps(build_pyramid(gray, cfg.num_levels), t, cfg.border,
-                             cfg.streak_length, cfg.blur_sigma)
+
+def _features(maps, cfg: FrontendConfig, device) -> Features:
+    """One frame's Features from its levels' five K1 maps: exact top-k and
+    BRIEF a level."""
     parts: list[Features] = []
     k = cfg.features_per_level
     for lvl, (score_raw, score_nms, m10, m01, blurred) in enumerate(maps):
@@ -50,13 +49,42 @@ def extract_features(image: torch.Tensor, threshold, cfg: FrontendConfig) -> Fea
                                          interpolate=cfg.interpolate_descriptors)
             parts.append(Features(
                 xy=sel["xy"] * float(1 << lvl),   # level-0 pixel coords
-                level=torch.full((k,), lvl, dtype=torch.int32, device=gray.device),
+                level=torch.full((k,), lvl, dtype=torch.int32, device=device),
                 angle=sel["angle"],
                 score=sel["score"],
                 desc=desc,
                 valid=sel["valid"],
             ))
     return Features.concatenate(parts)
+
+
+def extract_features(image: torch.Tensor, threshold, cfg: FrontendConfig) -> Features:
+    """(H, W[, 3]) image -> Features with capacity cfg.max_features.
+
+    ``threshold`` is a float or a 0-d float32 tensor on the image's device.
+    """
+    gray = _gray(image, image.dim() == 3)
+    t = torch.as_tensor(threshold, dtype=torch.float32, device=gray.device).reshape(())
+    maps = fast_pyramid_maps(build_pyramid(gray, cfg.num_levels), t, cfg.border,
+                             cfg.streak_length, cfg.blur_sigma)
+    return _features(maps, cfg, gray.device)
+
+
+def extract_batch(images: torch.Tensor, threshold, cfg: FrontendConfig) -> Features:
+    """(B, H, W[, 3]) frames -> Features with a leading B, each frame's equal
+    to ``extract_features`` of that frame (the counterpart of the JAX
+    package's vmapped ``parallel/frontend_dp.py:_extract_batch``).
+
+    One shared threshold (a float or a 0-d float32 tensor on the frames'
+    device); the grayscale and the pyramid run over the whole batch, K1
+    once for all B frames and their levels, top-k and BRIEF frame by frame.
+    """
+    gray = _gray(images, images.dim() == 4)
+    t = torch.as_tensor(threshold, dtype=torch.float32, device=gray.device).reshape(())
+    maps = fast_pyramid_maps(build_pyramid(gray, cfg.num_levels), t, cfg.border,
+                             cfg.streak_length, cfg.blur_sigma)
+    return Features.stack([_features([tuple(m[b] for m in lvl) for lvl in maps], cfg,
+                                     gray.device) for b in range(gray.shape[0])])
 
 
 def adapt_threshold(threshold: torch.Tensor, count: torch.Tensor,

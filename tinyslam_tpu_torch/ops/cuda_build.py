@@ -35,7 +35,7 @@ _F = ctypes.c_float
 # Argument types of every C entry point (see the headers of csrc/*.cu).
 _SIGNATURES = {
     "tinyslam_fast_pyramid": [
-        _P, _P, _I,                        # level pointers, level dims, n_levels
+        _P, _P, _I, _I,                    # level pointers, level dims, n_levels, batch
         _P, _I, _I, _P,                    # threshold, border, streak, blur taps
         _P,                                # stream
     ],

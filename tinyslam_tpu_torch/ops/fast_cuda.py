@@ -1,7 +1,8 @@
 """Fused FAST stage on Hopper: the wrapper of ``csrc/fast.cu``.
 
 Replaces the TPU kernel ``tinyslam_tpu/ops/fast_pallas.py:
-fast_score_map_fused``.  ONE launch covers every level of a pyramid and
+fast_score_map_fused``.  ONE launch covers every level of a pyramid, or
+of a batch of pyramids (the frame is the grid's second dimension), and
 computes, per pixel, the FAST-16 ring bitmasks and the rotate-AND streak
 test, the margin score zeroed outside the border, 3x3 NMS, the 15x15
 centroid moments and the 7-tap Gaussian blur that BRIEF samples: five
@@ -13,8 +14,9 @@ the edges) and writes four pixels a thread as ``float4``.  Edges clamp, as
 in the plain version ``ops/fast.py:fast_maps``, and every sum runs in the
 plain version's order, so the maps agree bit for bit.
 
-CPU tensors take the plain version, level by level; CUDA tensors launch the
-kernel or raise.  ``LAUNCHES`` counts kernel launches: one a pyramid.
+CPU tensors take the plain version, frame by frame and level by level;
+CUDA tensors launch the kernel or raise.  ``LAUNCHES`` counts kernel
+launches: one a pyramid or a batch of pyramids.
 """
 
 from __future__ import annotations
@@ -33,9 +35,10 @@ MAX_LEVELS = 8          # csrc/fast.cu:MAX_LEVELS
 
 def fast_pyramid_maps(levels, threshold: torch.Tensor, border: int = 20,
                       streak: int = 9, blur_sigma: float = 2.0):
-    """A list of (H_l, W_l) float32 levels + a 0-d float32 threshold on
-    their device -> one (score_raw, score_nms, m10, m01, blurred) 5-tuple of
-    (H_l, W_l) float32 maps a level, from one kernel launch.
+    """A list of (H_l, W_l) float32 levels, or of (B, H_l, W_l) levels of B
+    frames, + a 0-d float32 threshold on their device -> one (score_raw,
+    score_nms, m10, m01, blurred) 5-tuple of float32 maps of the level's
+    shape a level, from one kernel launch.
 
     On CUDA the threshold is read by the kernel through its device pointer,
     so an adaptive threshold never has to visit the host.
@@ -44,17 +47,30 @@ def fast_pyramid_maps(levels, threshold: torch.Tensor, border: int = 20,
     if not levels:
         raise ValueError("fast_pyramid_maps: no levels")
     dev = levels[0].device
+    batched = levels[0].dim() == 3
+    lead = levels[0].shape[:1] if batched else ()
+    if levels[0].dim() not in (2, 3) or any(
+            lvl.dim() != levels[0].dim() or lvl.shape[:-2] != lead for lvl in levels):
+        raise ValueError("fast_pyramid_maps: expects (H, W) levels or (B, H, W) levels "
+                         "of one B")
     if dev.type == "cpu":
-        return [fast_maps(lvl, threshold, border, streak, blur_sigma) for lvl in levels]
+        if not batched:
+            return [fast_maps(lvl, threshold, border, streak, blur_sigma) for lvl in levels]
+        return [tuple(torch.stack(frames) for frames in zip(*(
+            fast_maps(im, threshold, border, streak, blur_sigma) for im in lvl)))
+            for lvl in levels]
     if dev.type != "cuda":
         raise ValueError(f"fast_pyramid_maps: unsupported device {dev}")
     global LAUNCHES
     if len(levels) > MAX_LEVELS:
         raise ValueError(f"fast_pyramid_maps: {len(levels)} levels > {MAX_LEVELS}")
-    if any(lvl.device != dev or lvl.dim() != 2 or lvl.dtype != torch.float32
-           or lvl.numel() == 0 for lvl in levels):
-        raise ValueError("fast_pyramid_maps: expects non-empty (H, W) float32 "
-                         "levels on one device")
+    if any(lvl.device != dev or lvl.dtype != torch.float32 or lvl.numel() == 0
+           for lvl in levels):
+        raise ValueError("fast_pyramid_maps: expects non-empty float32 levels on "
+                         "one device")
+    batch = levels[0].shape[0] if batched else 1
+    if batch > 65535:
+        raise ValueError(f"fast_pyramid_maps: batch {batch} > 65535 (the grid's y)")
     if not 1 <= streak <= 16:
         raise ValueError(f"streak={streak} outside 1..16")
     if (not torch.is_tensor(threshold) or threshold.device != dev
@@ -63,7 +79,7 @@ def fast_pyramid_maps(levels, threshold: torch.Tensor, border: int = 20,
                          "float32 tensor on the levels' device")
     levels = [lvl.contiguous() for lvl in levels]
     threshold = threshold.contiguous()
-    # All maps of all levels in one allocation, map-major: (5, sum H_l W_l).
+    # All maps of all levels in one allocation, map-major: (5, B sum H_l W_l).
     sizes = [lvl.numel() for lvl in levels]
     buf = torch.empty((5, sum(sizes)), dtype=torch.float32, device=dev)
     out, ptrs, dims, off = [], [], [], 0
@@ -71,14 +87,14 @@ def fast_pyramid_maps(levels, threshold: torch.Tensor, border: int = 20,
         maps = tuple(buf[k, off:off + size].view(lvl.shape) for k in range(5))
         out.append(maps)
         ptrs += [lvl.data_ptr()] + [m.data_ptr() for m in maps]
-        dims += list(lvl.shape)
+        dims += list(lvl.shape[-2:])
         off += size
     taps = [float(v) for v in gaussian_kernel(blur_sigma)]
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
         err = lib.tinyslam_fast_pyramid(
             (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
-            len(levels), threshold.data_ptr(), border, streak,
+            len(levels), batch, threshold.data_ptr(), border, streak,
             (ctypes.c_float * len(taps))(*taps), torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "tinyslam_fast_pyramid")
     LAUNCHES += 1

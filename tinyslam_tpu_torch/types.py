@@ -66,6 +66,13 @@ class Features:
             for f in dataclasses.fields(Features)})
 
     @staticmethod
+    def stack(parts: list["Features"]) -> "Features":
+        """Stack feature sets of one capacity along a new leading axis."""
+        return Features(**{
+            f.name: torch.stack([getattr(p, f.name) for p in parts])
+            for f in dataclasses.fields(Features)})
+
+    @staticmethod
     def from_numpy(d: dict, device=None, prefix: str = "") -> "Features":
         """Build from a flat dict of numpy arrays keyed ``prefix + field``."""
         return Features(**{
