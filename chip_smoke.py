@@ -35,13 +35,16 @@ Phases, in order; any failure raises and the script exits nonzero:
      on the path, and a frame may synchronize with the host at most 3 times
      (4 on a keyframe);
   7. the kernels and their plain versions timed at the shapes of phases
-     3, 4 and 12 (device time from the profiler, wall time per call), K1
-     also one level a launch for the per-level split and one launch over
-     phase 12's 8 frames, K2's library yardstick
-     (torch._int_mm of the +-1 int8 unpacking, or a bf16 matmul, whichever
-     is faster: the distance matrix alone, never called by the port), each
-     kernel's bound from this run's shapes, and the device time of one
-     keyframe insertion and of one relocalization frame;
+     3, 4, 12 and 13 (device time from launches queued behind a sleep
+     kernel between CUDA events, the profiler's kernel time beside it, wall
+     time per call), K1 also one level a launch for the per-level split, one
+     launch over phase 12's 8 frames and one over phase 13's 4 at four
+     thresholds, K2 also over phase 13's 4 sequences, K2's library
+     yardstick (torch._int_mm of the +-1 int8 unpacking, or a bf16 matmul,
+     whichever is faster; a bf16 bmm for 4 sequences: the distance matrices
+     alone, never called by the port), each kernel's bound from this run's
+     shapes, and the device time (profiler) of one keyframe insertion, one
+     relocalization frame and one graph solve;
   8. DeviceVO from frame 0 under the default ``SlamConfig()``, no state
      handed over: (a) the host-phase two-view bootstrap must succeed within
      14 frames; (b) every later frame to 100 must track, the Sim(3)-aligned
@@ -136,7 +139,24 @@ Phases, in order; any failure raises and the script exits nonzero:
      centres within 0.05 m of it, ms each; (e) two processes on the one card
      over gloo with CUDA tensors (``chip_smoke.py --dist-rank``) running (c)
      and the edge-sharded (d) at world size 2: both ranks equal, within
-     ``tests/test_torch_parallel.py``'s tolerances of world size 1.
+     ``tests/test_torch_parallel.py``'s tolerances of world size 1;
+ 13. B camera streams as one batch (``track_chunk_batch``) under the default
+     ``SlamConfig()``: (a) 4 sequences seeded at orbit frames 0, 40, 80 and
+     120, 32 frames each, sequence 3 from a stale pose (it relocalizes in
+     the batch), sequence 2's last 8 frames inactive: every active frame
+     tracks, and each sequence against its own ``track_chunk`` on the card
+     has equal tracking and keyframe flags, inliers within 2%, centres
+     within 2 mm and rotations within 1e-3 rad; (b) per step one K1 launch,
+     one K2 launch per guided pass of the tracking sequences plus the
+     relocalization's and keyframes' own, at most 3 syncs plus one a
+     keyframe and one a relocalization; (c) K1 at four thresholds over four
+     frames bit-equal to its plain version, K2 at B=4 and B=1, guided and
+     unguided, exact; (d) aggregate tracked frames/s at B = 1, 2, 4 and 8
+     (orbit frames 0, 20, ..., 140, 24 frames each) batched against B
+     serial ``track_chunk`` runs; (e) ``entry()``'s step on the card: 256
+     landmarks, 0 matches, features within 1% of the JAX step's 1543; (f)
+     ``dryrun_multichip(1)`` on NCCL and ``dryrun_multichip(2)`` with two
+     gloo ranks sharing the card.  Phase 7 also times K1 and K2 at B=4.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -144,6 +164,8 @@ The second-to-last line is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -199,6 +221,16 @@ N_DP_FRAMES = 8        # phase 12b: frames of one batch through frontend_dp
 N_PG_LOOPS = 512       # phase 12d: loop edges beside the 255 odometry ones
 NODE_ITERS, NODE_HALO = 40, 8   # phase 12d: the node-sharded solver
 DIST_DIR = Path(__file__).resolve().parent / "build" / "tinyslam_tpu_torch" / "phase12"
+MS_STARTS = (0, 40, 80, 120)   # phase 13: the four sequences' seed frames
+MS_FRAMES = 32                 # ... and their frames (s0 + 1 .. s0 + 32)
+MS_STALE = 3                   # the sequence that starts from a stale pose,
+MS_STALE_YAW = 0.02            # ... this many rad off, marked lost
+MS_PADDED, MS_PAD = 2, 8       # the sequence whose last MS_PAD frames are inactive
+MS8_STARTS, MS8_FRAMES = tuple(range(0, 160, 20)), 24    # phase 13d at B=8
+MS_THRESHOLDS = (0.045, 0.06, 0.075, 0.09)               # phase 13c: K1's four thresholds
+# The JAX package's entry() step, jitted on the CPU: num_features, matches,
+# inliers, tracking, keyframe, landmarks, rmse, threshold.
+REF_ENTRY_SUMMARY = (1543, 0, 0, 0, 0, 256, 0, 0.06)
 # The prefixes phase 10 runs (the longest the JAX reference tracks without
 # a reboot, at most 150 and 60 frames), and the envelope of the JAX
 # reference's DeviceSlam there, as its command line runs it, over key
@@ -282,6 +314,32 @@ def _device_ms(fn, reps: int = 20) -> float:
     raise RuntimeError("the profiler recorded no device time in three traces")
 
 
+def _queued_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` (which must not synchronize), from
+    CUDA events around ``reps`` calls that the host queued while a sleep
+    kernel held the stream: the events then time the device alone, with no
+    gap for the host's launch overhead, and depend on no profiler."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # Twice the time the host took to queue the calls, at up to 2 GHz.
+    torch.cuda._sleep(int(2e9 * (2 * enqueue_s + 2e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _bound_ms(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
     operations over the peak rate of their type, whichever is larger."""
@@ -299,18 +357,21 @@ def _library_ms(desc_a, desc_b, smi) -> float | None:
     from tinyslam_tpu_torch.types import descriptor_signs
 
     sa, sb = descriptor_signs(desc_a).to(torch.int8), descriptor_signs(desc_b).to(torch.int8)
-    want = (sa.float() @ sb.float().T).to(torch.int32)
+    want = (sa.float() @ sb.float().transpose(-1, -2)).to(torch.int32)
     a16, b16 = sa.to(torch.bfloat16), sb.to(torch.bfloat16)
-    calls = {"int_mm": lambda: torch._int_mm(sa, sb.T), "bf16 matmul": lambda: a16 @ b16.T}
+    calls = {"bf16 matmul": lambda: a16 @ b16.transpose(-1, -2)}
+    if sa.dim() == 2:       # torch._int_mm takes no batch
+        calls["int_mm"] = lambda: torch._int_mm(sa, sb.T)
     out = {}
     for name, fn in calls.items():
         try:
             if not torch.equal(fn().to(torch.int32), want):
                 raise AssertionError("not the exact product")
-            out[name] = _device_ms(fn)
+            out[name] = _queued_ms(fn)
         except (RuntimeError, AssertionError) as exc:
             print(f"library yardstick {name}: not timed ({str(exc).splitlines()[0]})")
-    print(f"library yardstick ({sa.shape[0]}, 256) @ (256, {sb.shape[0]}), device ms: "
+    print(f"library yardstick {tuple(sa.shape)} @ {tuple(sb.transpose(-1, -2).shape)}, "
+          f"device ms: "
           f"{ {k: round(v, 5) for k, v in out.items()} }  [{smi}]")
     return min(out.values()) if out else None
 
@@ -1141,6 +1202,24 @@ def _init_worker(spec) -> None:
     _WORKER_SCENE = (room, cam, poses, dist, spec["width"], spec["height"])
 
 
+def _orbit():
+    """(room, camera, poses) of the bench orbit at full width."""
+    from tinyslam_tpu_torch.data.synthetic import TexturedRoom, orbit_trajectory
+    from tinyslam_tpu_torch.geometry.camera import PinholeCamera
+
+    cam = PinholeCamera.create(fx=520.0, fy=520.0, cx=WIDTH / 2 - 0.5, cy=HEIGHT / 2 - 0.5)
+    room = TexturedRoom(np.random.default_rng(3), tex_res=64, octaves=2)
+    poses = orbit_trajectory(N_KF_FRAMES, radius=2.0, step=0.02, start=-0.35,
+                             target=(0.0, 0.0, 2.0))
+    return room, cam, poses
+
+
+def _init_orbit_worker() -> None:
+    global _WORKER_SCENE
+    room, cam, poses = _orbit()
+    _WORKER_SCENE = (room, cam, poses, None, WIDTH, HEIGHT)
+
+
 def _render_one(i: int) -> np.ndarray:
     room, cam, poses, dist, w, h = _WORKER_SCENE
     return room.render(cam, *poses[i], w, h, dist=dist)
@@ -1165,8 +1244,6 @@ def dataset_sequence(spec, workers: int | None = None) -> tuple[Path, float]:
     of ``spec`` and of the renderer's sources; a sequence written already
     is reused.  Returns (its directory, seconds spent, 0 if reused)."""
     import hashlib
-    import multiprocessing
-    import os
     import shutil
 
     from tinyslam_tpu_torch.data import synthetic as syn
@@ -1922,14 +1999,255 @@ def _dist_phase(frames, dev, smi, timed):
     return launches
 
 
+def _multiseq_phase(cam, room, poses, frames, dev, smi, timed):
+    """Phase 13: B camera streams tracked as one batch
+    (``track_chunk_batch``), the entry points and the dry run.  Returns the
+    kernels' launch counts of its main path, (a), and appends the kernels'
+    B=4 launches to ``timed`` for phase 7."""
+    import torch
+
+    from tinyslam_tpu_torch import SlamConfig
+    from tinyslam_tpu_torch.entry import dryrun_multichip, entry
+    from tinyslam_tpu_torch.frontend.orb import extract_batch, extract_features
+    from tinyslam_tpu_torch.geometry.se3 import so3_exp
+    from tinyslam_tpu_torch.models import vo_device as vd
+    from tinyslam_tpu_torch.models.vo_device import (SUMMARY_FIELDS, VOState, track_chunk,
+                                                     track_chunk_batch, track_step_batch)
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops.fast import fast_maps
+    from tinyslam_tpu_torch.ops.hamming import match_reduce_plain
+    from tinyslam_tpu_torch.ops.image import build_pyramid
+    from tinyslam_tpu_torch.utils.draws import Sampler
+
+    t_phase = time.perf_counter()
+    cfg = SlamConfig()
+    fe = cfg.frontend
+    col = {name: i for i, name in enumerate(SUMMARY_FIELDS)}
+    thr = torch.tensor(fe.threshold, dtype=torch.float32, device=dev)
+    failures = []
+
+    def seeded(s0: int, stale: bool) -> "VOState":
+        state = _seeded(cfg, extract_features(torch.from_numpy(frames[s0]).to(dev), thr, fe),
+                        room, cam, poses[s0])
+        if not stale:
+            return state
+        dR = so3_exp(torch.tensor([0.0, MS_STALE_YAW, 0.0], device=dev))
+        return state.replace(R=dR @ state.R, t=dR @ state.t,
+                             last_tracking=torch.zeros((), dtype=torch.bool, device=dev))
+
+    def workload(starts, n, stale=None, padded=None):
+        seeds = [seeded(s0, b == stale) for b, s0 in enumerate(starts)]
+        images = torch.from_numpy(np.stack([np.stack(frames[s0 + 1:s0 + 1 + n])
+                                            for s0 in starts])).to(dev)
+        active = np.ones((len(starts), n), bool)
+        if padded is not None:
+            active[padded, -MS_PAD:] = False
+        return seeds, images, active
+
+    # (a) The main path: 4 sequences a step at a time, launches and syncs
+    # counted per step; each guided pass of the tracking sequences is one
+    # call of _track_rows, which must launch K2 once.
+    seeds, images, active = workload(MS_STARTS, MS_FRAMES, stale=MS_STALE, padded=MS_PADDED)
+    B = len(seeds)
+    real_rows, passes = vd._track_rows, []
+
+    def counted_rows(*a, **kw):
+        k2 = match_cuda.LAUNCHES
+        out = real_rows(*a, **kw)
+        passes.append(match_cuda.LAUNCHES - k2)
+        return out
+
+    samplers = [Sampler(b) for b in range(B)]
+    states = VOState.stack(seeds)
+    steps, outs = [], []
+    vd._track_rows = counted_rows
+    torch.cuda.synchronize()
+    fast_cuda.LAUNCHES = 0
+    match_cuda.LAUNCHES = 0
+    try:
+        for c in range(MS_FRAMES):
+            k1, k2, n_pass = fast_cuda.LAUNCHES, match_cuda.LAUNCHES, len(passes)
+
+            def step(states=states, c=c):
+                return track_step_batch(cam, cfg, states, images[:, c], active[:, c], samplers)
+
+            (states, ys), syncs = _with_sync_count(step)
+            outs.append(ys)
+            steps.append((fast_cuda.LAUNCHES - k1, match_cuda.LAUNCHES - k2,
+                          passes[n_pass:], syncs))
+        torch.cuda.synchronize()
+    finally:
+        vd._track_rows = real_rows
+    launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
+                "match_reduce_streaming": match_cuda.LAUNCHES}
+    summ = torch.stack([y["summary"] for y in outs], 1).cpu().numpy()     # (B, C, 8)
+    R_b = torch.stack([y["R"] for y in outs], 1).cpu().numpy()
+    t_b = torch.stack([y["t"] for y in outs], 1).cpu().numpy()
+    tracking = summ[..., col["tracking"]] > 0
+    is_kf = summ[..., col["is_keyframe"]] > 0
+    was_lost = np.concatenate([[[not bool(s.last_tracking)] for s in seeds], ~tracking[:, :-1]],
+                              1) & active
+    print(f"phase 13a: {B} sequences from orbit frames {list(MS_STARTS)}, {MS_FRAMES} frames "
+          f"each (sequence {MS_STALE} from a stale pose, sequence {MS_PADDED}'s last {MS_PAD} "
+          f"inactive): tracked {int(tracking.sum())}/{int(active.sum())}, keyframes per "
+          f"sequence {is_kf.sum(1).tolist()}, relocalizations at (sequence, frame) "
+          f"{[tuple(int(i) for i in x) for x in np.argwhere(was_lost)]}; launches {launches}")
+    if not tracking[active].all() or tracking[~active].any():
+        failures.append(f"13a: tracked {tracking.tolist()} of active {active.tolist()}")
+    if not was_lost[MS_STALE, 0]:
+        failures.append("13a: the stale sequence did not relocalize at its first frame")
+    # (b) per step: K1 once, K2 once a guided pass plus the rare branches'
+    # own launches (a relocalization 1-2, a keyframe 5), syncs at most 3 +
+    # one a keyframe and one a relocalization.
+    worst = []
+    for c, (k1, k2, pass_k2, syncs) in enumerate(steps):
+        n_kf, n_rel = int(is_kf[:, c].sum()), int(was_lost[:, c].sum())
+        rare = k2 - sum(pass_k2)
+        if (k1 != 1 or not 1 <= len(pass_k2) <= 2 or any(p != 1 for p in pass_k2)
+                or not n_rel + 5 * n_kf <= rare <= 2 * n_rel + 5 * n_kf
+                or syncs > 3 + n_kf + n_rel):
+            failures.append(f"13b: step {c}: K1 {k1}, K2 {k2} (guided passes {pass_k2}), "
+                            f"{syncs} syncs, {n_kf} keyframes, {n_rel} relocalizations")
+        worst.append(syncs - n_kf - n_rel)
+    print(f"phase 13b: per step K1 {sorted({s[0] for s in steps})}, guided passes (K2 each) "
+          f"{sorted({len(s[2]) for s in steps})}, K2 {[s[1] for s in steps]}, syncs "
+          f"{[s[3] for s in steps]} (at most {max(worst)} beyond keyframes and "
+          f"relocalizations)")
+
+    # (a) each sequence against its own track_chunk on the card, and (d)
+    # aggregate tracked frames/s, batched against B serial runs.
+    def run_batched(seeds, images, active):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ys = track_chunk_batch(cam, cfg, VOState.stack(seeds), images, active,
+                                  [Sampler(b) for b in range(len(seeds))])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, ys
+
+    def run_serial(seeds, images, active):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys = [track_chunk(cam, cfg, s, images[b], active[b], Sampler(b))[1]
+              for b, s in enumerate(seeds)]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, ys
+
+    fps = {}
+    serial4 = None
+    for nb, starts, n in ((1, MS_STARTS[:1], MS_FRAMES), (2, MS_STARTS[:2], MS_FRAMES),
+                          (4, MS_STARTS, MS_FRAMES), (8, MS8_STARTS, MS8_FRAMES)):
+        if nb == 4:
+            s_, im_, act_ = seeds, images, active
+        else:
+            s_, im_, act_ = workload(starts, n)
+        # Warm-up: the first call at a batch's shapes pays for cuBLAS and
+        # allocator set-up.
+        run_batched(s_, im_[:, :2], act_[:, :2])
+        run_serial(s_, im_[:, :2], act_[:, :2])
+        tb, _ = run_batched(s_, im_, act_)
+        ts_, ys_ = run_serial(s_, im_, act_)
+        if nb == 4:
+            serial4 = ys_
+        n_act = int(act_.sum())
+        fps[nb] = (n_act / tb, n_act / ts_)
+        print(f"phase 13d: B={nb} ({n_act} tracked frames): batched {fps[nb][0]:.2f} frames/s "
+              f"({1e3 * tb / act_.shape[1]:.1f} ms a step), {nb} serial track_chunk "
+              f"{fps[nb][1]:.2f} frames/s, batched/serial {fps[nb][0] / fps[nb][1]:.3f}  [{smi}]")
+    worst = {"centre_m": 0.0, "angle_rad": 0.0, "inliers_rel": 0.0}
+    for b, ys in enumerate(serial4):
+        s1 = ys["summary"].cpu().numpy()
+        for name in ("tracking", "is_keyframe"):
+            if not np.array_equal(s1[:, col[name]], summ[b, :, col[name]]):
+                failures.append(f"13a: sequence {b} {name} {s1[:, col[name]].tolist()} alone, "
+                                f"{summ[b, :, col[name]].tolist()} in the batch")
+        n1, nb_ = s1[:, col["num_inliers"]], summ[b, :, col["num_inliers"]]
+        rel = float(np.max(np.abs(n1 - nb_) / np.maximum(n1, 1)))
+        R1, t1 = ys["R"].cpu().numpy(), ys["t"].cpu().numpy()
+        dc = float(np.abs(_centres(R1, t1) - _centres(R_b[b], t_b[b])).max())
+        # The angle between two rotations, ||R1 - R2||_F = 2 sqrt(2) sin(angle / 2),
+        # in float64: arccos of the trace loses ~1e-3 rad to float32 near 0.
+        fro = np.linalg.norm((R1.astype(np.float64) - R_b[b]).reshape(len(R1), -1), axis=1)
+        ang = float((2 * np.arcsin(np.minimum(fro / np.sqrt(8.0), 1.0))).max())
+        for k, v in (("centre_m", dc), ("angle_rad", ang), ("inliers_rel", rel)):
+            worst[k] = max(worst[k], v)
+    print(f"phase 13a: batch against each sequence's own track_chunk on the card: flags equal "
+          f"where no failure is listed; worst {worst}")
+    if not (worst["centre_m"] < 2e-3 and worst["angle_rad"] < 1e-3
+            and worst["inliers_rel"] <= 0.02):
+        failures.append(f"13a: batch against serial {worst}")
+
+    # (c) the kernels against their plain versions at B=4: K1 with four
+    # thresholds, K2 guided and unguided at B=1 and B=4.
+    levels4 = build_pyramid(images[:, 0], fe.num_levels)
+    thr4 = torch.tensor(MS_THRESHOLDS, dtype=torch.float32, device=dev)
+    k1_args = (fe.border, fe.streak_length, fe.blur_sigma)
+    got = fast_cuda.fast_pyramid_maps(levels4, thr4, *k1_args)
+    k1_err = 0.0
+    for lvl, maps in zip(levels4, got):
+        for b in range(B):
+            for g, w in zip(maps, fast_maps(lvl[b], thr4[b], *k1_args)):
+                k1_err = max(k1_err, float((g[b] - w).abs().max()))
+                if not torch.equal(g[b], w):
+                    failures.append(f"13c: K1 frame {b} level {tuple(lvl.shape[1:])} differs")
+    feats4 = extract_batch(images[:, 0], thr4, fe)
+    st4 = VOState.stack(seeds)
+    pc = st4.map.X @ st4.R.transpose(-1, -2) + st4.t[:, None]
+    proj4 = torch.stack([cam.fx * pc[..., 0] / pc[..., 2] + cam.cx,
+                         cam.fy * pc[..., 1] / pc[..., 2] + cam.cy], -1)
+    case4 = dict(desc_a=feats4.desc, valid_a=feats4.valid, desc_b=st4.map.desc,
+                 valid_b=st4.map.valid, xy_a=feats4.xy, proj_b=proj4)
+    unguided = lambda c: {k: v for k, v in c.items() if k not in ("xy_a", "proj_b")}  # noqa: E731
+    for name, case in (("B=4 guided r=20", case4), ("B=4 unguided", unguided(case4)),
+                       ("B=1 guided r=20", {k: v[:1] for k, v in case4.items()}),
+                       ("B=1 unguided", {k: v[:1] for k, v in unguided(case4).items()})):
+        got = match_cuda.match_reduce(**case, radius_px=20.0)
+        want = match_reduce_plain(**case, radius_px=20.0)
+        same = all(torch.equal(g, w.to(g.dtype)) for g, w in zip(got, want))
+        print(f"phase 13c: K2 {name} {tuple(case['desc_a'].shape)} x "
+              f"{tuple(case['desc_b'].shape)}: {'exact' if same else 'DIFFERS'}")
+        if not same:
+            failures.append(f"13c: K2 {name} differs from its plain version")
+    print(f"phase 13c: K1 one launch over 4 frames at thresholds {list(MS_THRESHOLDS)}: max "
+          f"|diff| {k1_err}")
+    timed.append(("K1 batch 4x480x640 thresholds a frame",
+                  lambda: fast_cuda.fast_pyramid_maps(levels4, thr4, *k1_args),
+                  lambda: [[fast_maps(lvl[b], thr4[b], *k1_args) for b in range(B)]
+                           for lvl in levels4]))
+    timed.append(("K2 batch 4x2048x8192 guided r=20",
+                  lambda: match_cuda.match_reduce(**case4, radius_px=20.0),
+                  lambda: match_reduce_plain(**case4, radius_px=20.0)))
+
+    # (e) entry() on the card.
+    fn, args = entry()
+    _, ys = fn(*args)
+    s = ys["summary"].cpu().numpy()
+    print(f"phase 13e: entry() on the card: summary {s.tolist()} (the JAX step: "
+          f"{REF_ENTRY_SUMMARY})")
+    if not (s[col["num_landmarks"]] == 256 and s[col["num_matches"]] == 0
+            and abs(s[col["num_features"]] - REF_ENTRY_SUMMARY[0]) <= 0.01 * REF_ENTRY_SUMMARY[0]):
+        failures.append(f"13e: entry() summary {s.tolist()}")
+
+    # (f) the dry run: NCCL at one rank, two gloo ranks sharing the card.
+    for n, shape, backend in ((1, "(1, 2, 8)", "nccl"), (2, "(2, 2, 8)",
+                                                        "gloo-cuda-2-ranks-on-1-card")):
+        t0 = time.perf_counter()
+        line = dryrun_multichip(n)
+        print(f"phase 13f: dryrun_multichip({n}) in {time.perf_counter() - t0:.1f} s  [{smi}]")
+        if f"tracked_summary_shape={shape} backend={backend} device=cuda" not in line:
+            failures.append(f"13f: {line}")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    if failures:
+        raise AssertionError("multi-sequence phase: " + "; ".join(failures))
+    return launches, fps, case4
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from tinyslam_tpu_torch import slice_config
-    from tinyslam_tpu_torch.data.synthetic import (TexturedRoom, apply_photometrics,
-                                                   orbit_trajectory)
+    from tinyslam_tpu_torch.data.synthetic import apply_photometrics
     from tinyslam_tpu_torch.frontend.orb import extract_features
     from tinyslam_tpu_torch.geometry.camera import PinholeCamera
     from tinyslam_tpu_torch.models.vo_device import DeviceVO, VOState, track_chunk
@@ -1962,13 +2280,11 @@ def main() -> None:
 
     cfg = slice_config()
     fe = cfg.frontend
-    cam = PinholeCamera.create(fx=520.0, fy=520.0, cx=WIDTH / 2 - 0.5,
-                               cy=HEIGHT / 2 - 0.5)
-    room = TexturedRoom(np.random.default_rng(3), tex_res=64, octaves=2)
-    poses = orbit_trajectory(N_KF_FRAMES, radius=2.0, step=0.02, start=-0.35,
-                             target=(0.0, 0.0, 2.0))
+    room, cam, poses = _orbit()
     t0 = time.perf_counter()
-    frames = [room.render(cam, R, t, WIDTH, HEIGHT) for R, t in poses]
+    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1),
+                                                   _init_orbit_worker) as pool:
+        frames = pool.map(_render_one, range(len(poses)))
     print(f"rendered {len(frames)} frames in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. K1 against plain ---------------------------------------------
@@ -2146,6 +2462,9 @@ def main() -> None:
     # ---- 12. the distributed layer: mesh, frontend_dp, sharded BA and graphs --
     dist_launches = _dist_phase(frames, dev, smi, timed)
 
+    # ---- 13. B sequences as one batch, entry() and the dry run ---------------
+    ms_launches, _, case4 = _multiseq_phase(cam, room, poses, frames, dev, smi, timed)
+
     # ---- 7. kernel times -----------------------------------------------------
     # Last: once the profiler has run in a process, every later launch
     # costs more on the host, which would distort the tracked fps above.
@@ -2155,10 +2474,14 @@ def main() -> None:
           f"device {ins_dev:.3f} ms, card busy {100 * ins_dev / ins_wall:.1f}%  [{smi}]")
     ms = {}
     for label, run_k, run_p in timed:
-        ms[label] = (_device_ms(run_k), _device_ms(run_p))
-        print(f"{label}: device kernel {ms[label][0]:.4f} ms, plain "
-              f"{ms[label][1]:.4f} ms; wall per call kernel {_time_ms(run_k):.4f} "
-              f"ms, plain {_time_ms(run_p, reps=20):.4f} ms  [{smi}]")
+        # Device time from queued launches between CUDA events; the
+        # profiler's sum beside it (its traces have shortened kernels: K2
+        # over four sequences once read below its operations bound).
+        ms[label] = (_queued_ms(run_k), _queued_ms(run_p, reps=3))
+        print(f"{label}: device kernel {ms[label][0]:.4f} ms (profiler "
+              f"{_device_ms(run_k):.4f}), plain {ms[label][1]:.4f} ms; wall per call kernel "
+              f"{_time_ms(run_k):.4f} ms, plain {_time_ms(run_p, reps=5, warmup=1):.4f} ms  "
+              f"[{smi}]")
     k1_ms, k1_plain_ms = ms["K1 pyramid"]
     # K1 bound: each level read once and five maps written, or its flops.
     k1_bytes = 4 * k1_pixels * 6 + 4
@@ -2193,7 +2516,26 @@ def main() -> None:
               f"{ms[label][0]:.4f} ms at {100 * k2_bound[label][0] / ms[label][0]:.1f}% "
               f"of it  [{smi}]")
     lib_ms = {name: _library_ms(case["desc_a"], case["desc_b"], smi)
-              for name, case in (("2048x8192", real), ("2048x2048", kf_pair))}
+              for name, case in (("2048x8192", real), ("2048x2048", kf_pair),
+                                 ("4x2048x8192", case4))}
+    # Phase 13's launches over four sequences: K1 at four thresholds, K2 at
+    # four (features, map) pairs, each gated by its own projections.
+    label = "K1 batch 4x480x640 thresholds a frame"
+    k1_b4 = _bound_ms(4 * (k1_bytes - 4) + 16, 4 * K1_FLOPS_PER_PIXEL * k1_pixels,
+                      FP32_FLOPS_PER_S)
+    print(f"{label} (phase 13), device: kernel {ms[label][0]:.4f} ms "
+          f"({1e3 * ms[label][0] / 4:.2f} us a frame), plain {ms[label][1]:.4f} ms; bound "
+          f"{k1_b4[0]:.5f} ms ({k1_b4[1]}), kernel at {100 * k1_b4[0] / ms[label][0]:.1f}% of "
+          f"it; launches on phase 13's path {ms_launches['fast_score_map_fused']}  [{smi}]")
+    label = "K2 batch 4x2048x8192 guided r=20"
+    b_, n_, m_ = case4["desc_b"].shape[0], case4["desc_a"].shape[1], case4["desc_b"].shape[1]
+    io = sum(v.numel() * v.element_size() for v in case4.values()) + 4 * b_ * (3 * n_ + m_)
+    k2_b4 = _bound_ms(io, b_ * 2 * n_ * m_ * 256, INT8_OPS_PER_S)
+    print(f"{label} (phase 13), device: kernel {ms[label][0]:.4f} ms, plain "
+          f"{ms[label][1]:.4f} ms; bound {k2_b4[0]:.5f} ms ({k2_b4[1]}), kernel at "
+          f"{100 * k2_b4[0] / ms[label][0]:.1f}% of it; library (bf16 bmm of the four "
+          f"distance matrices) {lib_ms['4x2048x8192']} ms; launches on phase 13's path "
+          f"{ms_launches['match_reduce_streaming']}  [{smi}]")
     k2_ms, k2_plain_ms = ms["K2 real guided r=20"]
     # A relocalization frame's trace is the largest; it goes last.
     rel_wall = _time_ms(reloc_frame, reps=5, warmup=1)
@@ -2212,7 +2554,7 @@ def main() -> None:
          "replaces": "tinyslam_tpu/ops/fast_pallas.py:258",
          "launches": sum(x["fast_score_map_fused"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
-                                   data_launches, rec_launches, dist_launches)),
+                                   data_launches, rec_launches, dist_launches, ms_launches)),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "match_reduce_streaming", "route": "cuda",
@@ -2220,7 +2562,7 @@ def main() -> None:
          "replaces": "tinyslam_tpu/ops/match_pallas.py:140",
          "launches": sum(x["match_reduce_streaming"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
-                                   data_launches, rec_launches, dist_launches)),
+                                   data_launches, rec_launches, dist_launches, ms_launches)),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["K2 real guided r=20"][0],
          "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},

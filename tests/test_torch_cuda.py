@@ -107,6 +107,30 @@ def test_fast_pyramid_kernel_batched_bit_equal(dev, shape, levels, batch):
             assert torch.equal(g[0], s)
 
 
+@pytest.mark.parametrize("shape,levels,thresholds", [((480, 640), 4, (0.03, 0.06, 0.09, 0.12)),
+                                                     ((97, 131), 3, (0.02, 0.1))])
+def test_fast_pyramid_kernel_threshold_a_frame(dev, shape, levels, thresholds):
+    """A (B,) threshold: one launch, each frame's maps equal to the plain
+    version's at that frame's threshold."""
+    from tinyslam_tpu_torch.ops.image import build_pyramid
+
+    batch = len(thresholds)
+    rng = np.random.default_rng(sum(shape) + 3 * batch)
+    img = rng.random((batch, *shape)).astype(np.float32)
+    pyr = build_pyramid(torch.from_numpy(img).to(dev), levels)
+    t = torch.tensor(thresholds, dtype=torch.float32, device=dev)
+    before = fast_cuda.LAUNCHES
+    got = fast_cuda.fast_pyramid_maps(pyr, t, 20, 9, 2.0)
+    assert fast_cuda.LAUNCHES == before + 1
+    for level, maps in zip(pyr, got):
+        for b in range(batch):
+            want = fast.fast_maps(level[b], t[b], 20, 9, 2.0)
+            for g, w in zip(maps, want):
+                assert torch.equal(g[b], w), (tuple(level.shape), b)
+    corners = [int((got[0][1][b] > 0).sum()) for b in range(batch)]
+    assert corners == sorted(corners, reverse=True) and corners[0] > corners[-1]
+
+
 def test_extract_batch_card_equals_per_frame(dev):
     """The batched extraction on the card: one K1 launch for 3 frames, each
     frame's features equal to ``extract_features`` on the card and on the
@@ -172,6 +196,57 @@ def test_match_kernel_equal_at_main_path_shapes(dev, n, m, guided, radius):
     want = hamming.match_reduce_plain(**case, radius_px=radius)
     for name, g, w in zip(("best", "second", "idx_b", "col_idx"), got, want):
         assert torch.equal(g, w.to(g.dtype)), name
+
+
+@pytest.mark.parametrize("batch", [1, 3, 5])
+@pytest.mark.parametrize("n,m", [(2048, 8192), (130, 70), (7, 333)])
+@pytest.mark.parametrize("guided", [False, True])
+def test_match_kernel_batched_equal(dev, batch, n, m, guided):
+    """B sequences in one launch (the grid's z), each with its own rows,
+    columns and gate: every sequence exact against the plain version; M is
+    padded to a multiple of 16 with invalid columns when B > 1."""
+    cases = [_match_case(n + m + 17 * b, n, m, guided, dev) for b in range(batch)]
+    stacked = {k: torch.stack([c[k] for c in cases]) for k in cases[0]}
+    before = match_cuda.LAUNCHES
+    got = match_cuda.match_reduce(**stacked, radius_px=20.0)
+    assert match_cuda.LAUNCHES == before + 1
+    want = hamming.match_reduce_plain(**stacked, radius_px=20.0)
+    for name, g, w in zip(("best", "second", "idx_b", "col_idx"), got, want):
+        assert g.shape[0] == batch and torch.equal(g, w.to(g.dtype)), name
+    for b, case in enumerate(cases[:2]):            # the same as its own launch
+        for g, one in zip(got, match_cuda.match_reduce(**case, radius_px=20.0)):
+            assert torch.equal(g[b], one)
+
+
+def test_track_chunk_batch_card_matches_cpu(dev):
+    """The multi-sequence set-up of ``tests/test_torch_multiseq.py`` (the
+    port's features seed it here) tracked as one batch on the card and on
+    the CPU: equal tracking and keyframe flags and feature counts, matches
+    and inliers within 2%; K1 once a step."""
+    from tinyslam_tpu_torch.models.vo_device import track_chunk_batch
+
+    tcfg = P.torch_config(keyframes=True)
+    frames, poses, room = P.orbit(max(P.MULTI_STARTS) + P.MULTI_FRAMES + 1)
+
+    def features_of(frame):
+        f = extract_features(torch.from_numpy(frame), tcfg.frontend.threshold, tcfg.frontend)
+        return f.to_numpy()
+
+    seeds, images, active = P.multi_sequences(frames, poses, room, features_of, tcfg)
+    cam = PinholeCamera.create(**P.CAMERA)
+    B = len(seeds)
+    _, cpu = track_chunk_batch(cam, tcfg, VOState.stack([VOState.from_numpy(s) for s in seeds]),
+                               torch.from_numpy(images), active, [Sampler(b) for b in range(B)])
+    before = fast_cuda.LAUNCHES
+    _, gpu = track_chunk_batch(cam, tcfg, VOState.stack([VOState.from_numpy(s, dev)
+                                                         for s in seeds]),
+                               torch.from_numpy(images).to(dev), active,
+                               [Sampler(b) for b in range(B)])
+    assert fast_cuda.LAUNCHES == before + images.shape[1]
+    sg, sc = gpu["summary"].cpu().numpy(), cpu["summary"].numpy()
+    np.testing.assert_array_equal(sg[..., [0, 3, 4]], sc[..., [0, 3, 4]])
+    np.testing.assert_allclose(sg[..., 1:3], sc[..., 1:3], rtol=0.02)
+    assert sc[..., 3][active].all()
 
 
 def test_explicit_pair_mask_raises_on_cuda(dev):

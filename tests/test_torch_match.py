@@ -233,7 +233,9 @@ def test_kernel_epilogue_arithmetic_equals_plain(name, tps):
     (1, 6, (6, 1)),         # 100 x 333
     (3, 79, (79, 1)),       # 300 x 5000
     (17, 128, (22, 6)),     # 2049 x 8192: 3 an SM beat 2 of 8 tiles
-    (16, 1600, (1600, 1)),  # no split fits one wave: the most even one
+    (16, 1600, (100, 16)),  # no split fits one wave: the longest slices
+    (64, 128, (8, 16)),     # 4 sequences of 2048 x 8192: none fits either
+    (128, 128, (8, 16)),    # 8 sequences
 ])
 def test_grid_split(row_tiles, col_tiles, want):
     """The K2 grid on 132 SMs holding 3 CTAs each: every column tile in

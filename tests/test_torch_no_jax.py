@@ -4,7 +4,8 @@ fails, every module of tinyslam_tpu_torch imports, ``DeviceVO`` and
 track it on the CPU, a checkpoint of the tracker restores into a fresh
 one without Orbax, and the command line runs 6 synthetic frames there
 and a TUM sequence written by the port's writer, read through the native
-loader it builds, launching no CUDA kernel."""
+loader it builds, and ``entry(device="cpu")``'s tracked step runs,
+launching no CUDA kernel."""
 
 from __future__ import annotations
 
@@ -73,7 +74,10 @@ with contextlib.redirect_stdout(tum_out):
     tum_rc = run.main(["--dataset", "tum", "--root", str(tmp / "seq"), "--config",
                        str(tmp / "cfg.json"), "--fx", "130", "--fy", "130", "--cx", "79.5",
                        "--cy", "59.5", "--chunk", "4", "--device", "cpu"])
-print(json.dumps({"ckpt": ckpt, "tum": [tum_rc, tum_out.getvalue().splitlines()[0], str(lib.parent)],"modules": len(mods), "count": stats[0].num_features,
+from tinyslam_tpu_torch.entry import entry
+fn, args = entry(device="cpu")
+_, entry_ys = fn(*args)
+print(json.dumps({"entry": entry_ys["summary"].tolist(), "ckpt": ckpt, "tum": [tum_rc, tum_out.getvalue().splitlines()[0], str(lib.parent)],"modules": len(mods), "count": stats[0].num_features,
                   "slam": [slam.vo.initialized, len(slam.kf_R), slam.vo.num_keyframes,
                            len(slam.positions)],
                   "cli": [rc, out.getvalue().splitlines()[0]],
@@ -108,6 +112,8 @@ def test_port_imports_and_tracks_without_jax(result):
     rc, line, lib_dir = result["tum"]
     assert rc == 0 and line.startswith("frames=10 ") and "loop_closures=" in line
     assert Path(lib_dir) == REPO / "build" / "tinyslam_tpu_torch"
+    # entry()'s tracked step: 256 seeded landmarks, nothing matched.
+    assert result["entry"][5] == 256 and result["entry"][1] == 0 and result["entry"][0] > 1000
 
 
 def test_cpu_tensors_launch_no_kernel(result):

@@ -43,3 +43,15 @@ def test_trace_names_the_orb_levels(tmp_path):
     text = (log_dir / "trace.json").read_text()
     names = {e.get("name") for e in json.loads(text)["traceEvents"]}
     assert {"extract", "orb_level0", "orb_level1"} <= names
+
+
+def test_trace_without_a_device_needs_the_card(tmp_path, monkeypatch):
+    """``trace()`` with no device traces the card; where there is none it
+    raises instead of tracing the CPU, and writes nothing."""
+    import pytest
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with trace(tmp_path / "tr"):
+            pass
+    assert not (tmp_path / "tr").exists()

@@ -197,3 +197,45 @@ def jax_native_library(directory):
                    check=True, capture_output=True)
     return out
 
+
+
+# The multi-sequence set-up (tests/test_torch_multiseq.py, the card test of
+# tests/test_torch_cuda.py): three sequences seeded at these orbit frames,
+# MULTI_FRAMES frames each; sequence LOST_SEQ starts lost, MULTI_INACTIVE
+# frames at the end of sequence 2 are padding.
+MULTI_STARTS = (0, 3, 6)
+MULTI_FRAMES = 8
+LOST_SEQ = 1
+MULTI_INACTIVE = 2
+
+
+def lost_state(seed: dict, yaw: float) -> dict:
+    """The seeded state marked lost, its stale pose turned by ``yaw`` rad
+    about the camera's vertical axis (``test_torch_reloc.py``'s
+    construction)."""
+    from tinyslam_tpu_torch.geometry.se3 import so3_exp
+
+    d = dict(seed)
+    dR = so3_exp(torch.tensor([0.0, yaw, 0.0])).numpy()
+    d["R"] = (dR @ seed["R"]).astype(np.float32)
+    d["t"] = (dR @ seed["t"]).astype(np.float32)
+    d["last_tracking"] = np.asarray(False)
+    d["frame_idx"] = np.asarray(9, np.int32)
+    return d
+
+
+def multi_sequences(frames, poses, room, features_of, tcfg):
+    """(seeds, images (B, C, H, W), active (B, C)) of the multi-sequence
+    set-up: ``seeds`` are flat numpy states from ``features_of(frame)`` (a
+    features dict: the JAX package's or the port's).  The lost sequence
+    tracks from its own seed frame (0.6 rad off, the global fallback
+    re-acquires), the others from the frame after theirs."""
+    seeds, images = [], []
+    for b, s0 in enumerate(MULTI_STARTS):
+        seed = seeded_state(tcfg, features_of(frames[s0]), room, poses[s0])
+        first = s0 if b == LOST_SEQ else s0 + 1
+        seeds.append(lost_state(seed, 0.6) if b == LOST_SEQ else seed)
+        images.append(np.stack(frames[first:first + MULTI_FRAMES]))
+    active = np.ones((len(MULTI_STARTS), MULTI_FRAMES), bool)
+    active[2, -MULTI_INACTIVE:] = False
+    return seeds, np.stack(images), active

@@ -21,7 +21,9 @@
 // blocks of 256 threads per SM, one wave a frame), its y is the frame; a
 // block finds its level and origin in a small table passed by value, and
 // its frame's planes at frame * h * w past the level's first (levels come
-// as (B, H_l, W_l), frames contiguous; B = 1 is the single-frame launch).
+// as (B, H_l, W_l), frames contiguous; B = 1 is the single-frame launch)
+// and its threshold (one shared by the batch, or one a frame: B camera
+// streams, each with its own adaptive threshold).
 // It stages its tile with an 8-pixel halo (moments reach 7, the ring 3
 // plus 1 for NMS) in shared memory: rows of a tile
 // clear of the left and right edges arrive by 16-byte cp.async when the
@@ -105,7 +107,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __global__ void __launch_bounds__(NT)
 fast_pyramid_kernel(const Pyramid pyr, const float* __restrict__ thresh,
-                    int border, int streak) {
+                    int thresh_stride, int border, int streak) {
   __shared__ __align__(16) float s_img[SH][SW];
   __shared__ float s_score[TH + 2][TW + 2];     // tile plus a 1-px ring
   __shared__ float s_boxy[TH][TW + 2 * MR];     // column sums of 15 rows
@@ -126,7 +128,7 @@ fast_pyramid_kernel(const Pyramid pyr, const float* __restrict__ thresh,
   const int x0 = ((tile - L.tile0) % L.tiles_x) * TW;
   const int y0 = ((tile - L.tile0) / L.tiles_x) * TH;
   const int tid = threadIdx.x;
-  const float t = *thresh;
+  const float t = thresh[blockIdx.y * thresh_stride];   // stride 0: one shared threshold
 
   // 1. Stage the tile and its halo, clamping to the edge.  Clear of the
   // left and right edges each staged row is 12 aligned 16-byte chunks.
@@ -316,11 +318,15 @@ fast_pyramid_kernel(const Pyramid pyr, const float* __restrict__ thresh,
 // One launch over n_levels levels of `batch` frames.  `ptrs` holds six
 // device pointers a level (the image, then score_raw, score_nms, m10, m01,
 // blurred), each to `batch` contiguous (h, w) planes, `dims` its (h, w),
-// `taps` the seven blur taps; both arrays are on the host.
+// `taps` the seven blur taps; both arrays are on the host.  Frame b's
+// threshold is thresh[b * thresh_stride] on the device: stride 0 shares
+// one, stride 1 gives each frame its own.
 extern "C" int tinyslam_fast_pyramid(const void* const* ptrs, const int* dims, int n_levels,
-                                     int batch, const float* thresh, int border, int streak,
-                                     const float* taps, cudaStream_t stream) {
-  if (n_levels < 1 || n_levels > MAX_LEVELS || batch < 1 || batch > 65535)
+                                     int batch, const float* thresh, int thresh_stride,
+                                     int border, int streak, const float* taps,
+                                     cudaStream_t stream) {
+  if (n_levels < 1 || n_levels > MAX_LEVELS || batch < 1 || batch > 65535 ||
+      thresh_stride < 0 || thresh_stride > 1)
     return (int)cudaErrorInvalidValue;
   Pyramid pyr = {};
   pyr.n = n_levels;
@@ -341,7 +347,8 @@ extern "C" int tinyslam_fast_pyramid(const void* const* ptrs, const int* dims, i
     L.aligned = aligned;
     tiles += L.tiles_x * ((L.h + TH - 1) / TH);
   }
-  fast_pyramid_kernel<<<dim3(tiles, batch), NT, 0, stream>>>(pyr, thresh, border, streak);
+  fast_pyramid_kernel<<<dim3(tiles, batch), NT, 0, stream>>>(pyr, thresh, thresh_stride, border,
+                                                                streak);
   return (int)cudaGetLastError();
 }
 

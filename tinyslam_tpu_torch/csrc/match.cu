@@ -58,6 +58,11 @@
 //     the outputs, then returns its counter (its columns' codes) to 0
 //     (INT_MAX).  Nothing needs a fill before the launch, and min does not
 //     depend on order, so the result is deterministic.
+//   * Sequences: B independent matchings (B camera streams, each its own
+//     features, map and gate) run as one launch, the sequence the grid's
+//     z.  A CTA offsets every array by its sequence (rows by z * n,
+//     columns by z * m, its partials, counters and column codes by the
+//     sequence's share of each); B = 1 is the single launch.
 // The guided gate rounds like the reference: __fmul_rn/__fadd_rn keep nvcc
 // from contracting it into an FMA, and r2 arrives rounded to float32.
 //
@@ -296,7 +301,27 @@ __device__ __forceinline__ void reduce_scatter(unsigned (&v)[BN / 8], int lane, 
 }
 
 template <bool GUIDED>
-__global__ void __launch_bounds__(NT, MIN_CTAS) match_reduce_kernel(const Args a) {
+__global__ void __launch_bounds__(NT, MIN_CTAS) match_reduce_kernel(const Args args) {
+  // This CTA's sequence, blockIdx.z: every array at the sequence's offset.
+  Args a = args;
+  {
+    const size_t z = blockIdx.z, zn = z * (size_t)args.n, zm = z * (size_t)args.m;
+    a.desc_a += zn * 8;
+    a.valid_a += zn;
+    a.desc_b += zm * 8;
+    a.valid_b += zm;
+    if (GUIDED) {
+      a.xy_a += zn;
+      a.proj_b += zm;
+    }
+    a.best += zn;
+    a.second += zn;
+    a.idx += zn;
+    a.col_idx += zm;
+    a.colcode += zm;
+    a.row_part += zn * gridDim.x;
+    a.counters += z * (gridDim.x + gridDim.y);
+  }
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
@@ -533,10 +558,10 @@ cudaError_t set_attributes() {
 }
 
 template <bool GUIDED>
-int launch(const Args& a, int slices, int row_tiles, cudaStream_t stream) {
+int launch(const Args& a, int slices, int row_tiles, int batch, cudaStream_t stream) {
   const cudaError_t e = set_attributes<GUIDED>();
   if (e != cudaSuccess) return (int)e;
-  match_reduce_kernel<GUIDED><<<dim3(slices, row_tiles), NT, SMEM_BYTES, stream>>>(a);
+  match_reduce_kernel<GUIDED><<<dim3(slices, row_tiles, batch), NT, SMEM_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -555,16 +580,20 @@ extern "C" int tinyslam_match_ctas_per_sm(int guided) {
   return ctas;
 }
 
-// n rows against m columns; the grid is `slices` column slices of `tps`
-// (at most MAX_TPS) tiles of 64 by ceil(n / 128) row tiles.  row_part holds
-// slices * n int2; colcode m ints, INT_MAX before the first launch, and
-// counters ceil(n / 128) + slices ints, 0 before the first launch (each
-// launch leaves both so).
+// `batch` sequences of n rows against m columns each, every array the
+// sequences' slices back to back (rows of a sequence n apart, columns m
+// apart; m a multiple of 16 when batch > 1, so each sequence's valid bytes
+// and projections stay 16-byte aligned); the grid is `slices` column
+// slices of `tps` (at most MAX_TPS) tiles of 64 by ceil(n / 128) row tiles
+// by `batch`.  row_part holds batch * slices * n int2; colcode batch * m
+// ints, INT_MAX before the first launch, and counters batch * (ceil(n /
+// 128) + slices) ints, 0 before the first launch (each launch leaves both
+// so).
 extern "C" int tinyslam_match_reduce(const void* desc_a, const void* valid_a,
                                      const void* xy_a, const void* desc_b,
                                      const void* valid_b, const void* proj_b,
-                                     int n, int m, int guided, float r2, int nshift,
-                                     int cbits, int slices, int tps, int* best,
+                                     int batch, int n, int m, int guided, float r2,
+                                     int nshift, int cbits, int slices, int tps, int* best,
                                      int* second, int* idx, int* col_idx, void* row_part,
                                      int* colcode, int* counters, cudaStream_t stream) {
   Args a;
@@ -588,6 +617,8 @@ extern "C" int tinyslam_match_reduce(const void* desc_a, const void* valid_a,
   a.colcode = colcode;
   a.counters = counters;
   const int row_tiles = (n + BM - 1) / BM;
-  return guided ? launch<true>(a, slices, row_tiles, stream)
-                : launch<false>(a, slices, row_tiles, stream);
+  if (batch < 1 || batch > 65535 || (batch > 1 && m % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  return guided ? launch<true>(a, slices, row_tiles, batch, stream)
+                : launch<false>(a, slices, row_tiles, batch, stream);
 }

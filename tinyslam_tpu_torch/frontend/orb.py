@@ -3,13 +3,14 @@ out (mirrors ``tinyslam_tpu/frontend/orb.py``).
 
 One launch of the fused FAST kernel over the whole pyramid
 (``ops/fast_cuda.py:fast_pyramid_maps``; its plain version on CPU tensors),
-or over the pyramids of a batch of frames (``extract_batch``), gives every
-level's score maps, moments and blurred level; then, per
-level and under the profiler label ``orb_level{n}``, exact top-k
-compaction and BRIEF: binned (``brief_bins`` > 0), or with the continuous
-angle, nearest or bilinear (``brief_bins`` 0 or ``interpolate_descriptors``).
-The adaptive threshold stays a 0-d tensor on the image's device, so
-extraction reads nothing back.
+or over the pyramids of a batch of frames (``extract_batch``, with one
+threshold or one a frame), gives every level's score maps, moments and
+blurred level; then, per level and under the profiler label
+``orb_level{n}``, exact top-k compaction and BRIEF over the whole batch at
+once: binned (``brief_bins`` > 0), or with the continuous angle, nearest or
+bilinear (``brief_bins`` 0 or ``interpolate_descriptors``).  The adaptive
+threshold stays a tensor on the image's device, so extraction reads
+nothing back.
 """
 
 from __future__ import annotations
@@ -33,10 +34,11 @@ def _gray(image: torch.Tensor, rgb: bool) -> torch.Tensor:
 
 
 def _features(maps, cfg: FrontendConfig, device) -> Features:
-    """One frame's Features from its levels' five K1 maps: exact top-k and
-    BRIEF a level."""
+    """Features from the levels' five K1 maps, (H_l, W_l) for one frame or
+    (B, H_l, W_l) for B: exact top-k and BRIEF a level, over the batch."""
     parts: list[Features] = []
     k = cfg.features_per_level
+    lead = maps[0][0].shape[:-2]
     for lvl, (score_raw, score_nms, m10, m01, blurred) in enumerate(maps):
         with named_scope(f"orb_level{lvl}"):
             score = score_nms if cfg.nms else score_raw
@@ -49,13 +51,13 @@ def _features(maps, cfg: FrontendConfig, device) -> Features:
                                          interpolate=cfg.interpolate_descriptors)
             parts.append(Features(
                 xy=sel["xy"] * float(1 << lvl),   # level-0 pixel coords
-                level=torch.full((k,), lvl, dtype=torch.int32, device=device),
+                level=torch.full((*lead, k), lvl, dtype=torch.int32, device=device),
                 angle=sel["angle"],
                 score=sel["score"],
                 desc=desc,
                 valid=sel["valid"],
             ))
-    return Features.concatenate(parts)
+    return Features.concatenate(parts, dim=len(lead))
 
 
 def extract_features(image: torch.Tensor, threshold, cfg: FrontendConfig) -> Features:
@@ -72,19 +74,24 @@ def extract_features(image: torch.Tensor, threshold, cfg: FrontendConfig) -> Fea
 
 def extract_batch(images: torch.Tensor, threshold, cfg: FrontendConfig) -> Features:
     """(B, H, W[, 3]) frames -> Features with a leading B, each frame's equal
-    to ``extract_features`` of that frame (the counterpart of the JAX
-    package's vmapped ``parallel/frontend_dp.py:_extract_batch``).
+    to ``extract_features`` of that frame at its threshold (the counterpart
+    of the JAX package's vmapped ``parallel/frontend_dp.py:_extract_batch``
+    and of the front-end of its vmapped ``track_chunk``).
 
-    One shared threshold (a float or a 0-d float32 tensor on the frames'
-    device); the grayscale and the pyramid run over the whole batch, K1
-    once for all B frames and their levels, top-k and BRIEF frame by frame.
+    ``threshold`` is one for all frames (a float or a 0-d float32 tensor on
+    the frames' device) or one a frame (a (B,) float32 tensor: B camera
+    streams, each with its adaptive threshold).  The grayscale and the
+    pyramid run over the whole batch, K1 once for all B frames and their
+    levels, top-k and BRIEF a level over all B frames at once.
     """
     gray = _gray(images, images.dim() == 4)
-    t = torch.as_tensor(threshold, dtype=torch.float32, device=gray.device).reshape(())
-    maps = fast_pyramid_maps(build_pyramid(gray, cfg.num_levels), t, cfg.border,
-                             cfg.streak_length, cfg.blur_sigma)
-    return Features.stack([_features([tuple(m[b] for m in lvl) for lvl in maps], cfg,
-                                     gray.device) for b in range(gray.shape[0])])
+    t = torch.as_tensor(threshold, dtype=torch.float32, device=gray.device)
+    if t.dim() > 0 and t.shape != gray.shape[:1]:
+        raise ValueError(f"extract_batch: {tuple(t.shape)} thresholds for "
+                         f"{gray.shape[0]} frames")
+    maps = fast_pyramid_maps(build_pyramid(gray, cfg.num_levels), t.reshape(t.shape or (1,)),
+                             cfg.border, cfg.streak_length, cfg.blur_sigma)
+    return _features(maps, cfg, gray.device)
 
 
 def adapt_threshold(threshold: torch.Tensor, count: torch.Tensor,

@@ -6,7 +6,8 @@ Fixed iteration counts, Huber IRLS weights and analytic 2x6 Jacobians; the
 6x6 solve is ``torch.linalg.solve_ex``, which (unlike ``solve``) does not
 read an error flag back to the host.  ``pnp_refine`` takes any leading
 batch of poses and masks, so the relocalization polishes its 16 best
-hypotheses as one batch; nothing in this module reads the device.
+hypotheses as one batch, and of points and pixels too, so B camera
+streams track as one; nothing in this module reads the device.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from tinyslam_tpu_torch.types import row
 
 def _residual_jacobian(cam: PinholeCamera, R, t, X, uv):
     """Residuals r = project(R X + t) - uv and Jacobians wrt a LEFT update
-    T <- exp(xi) T.  R (..., 3, 3), t (..., 3), X (N, 3).  Returns
+    T <- exp(xi) T.  R (..., 3, 3), t (..., 3), X (..., N, 3) and uv
+    (..., N, 2), each batch broadcasting against the poses'.  Returns
     r (..., N, 2), J (..., N, 2, 6), front (..., N) mask."""
     pc = se3_apply(R[..., None, :, :], t[..., None, :], X)
     z = pc[..., 2]
@@ -54,10 +56,12 @@ def pnp_refine(cam: PinholeCamera, X, uv, valid, R0, t0, iters: int = 8,
     Stage 2: hard-reject residuals above ``inlier_px`` (unless fewer than 6
     survive) and run ``final_iters`` clean iterations on the survivors.
 
-    X (N, 3) world points; uv (N, 2) pixels; valid (..., N); R0 (..., 3, 3),
-    t0 (..., 3) the initial world->camera poses (a leading batch refines
-    several poses at once).  Returns dict with R, t, inliers (..., N),
-    rmse (...), num_inliers (...) int32 -- all tensors, nothing read back.
+    X (..., N, 3) world points; uv (..., N, 2) pixels; valid (..., N); R0
+    (..., 3, 3), t0 (..., 3) the initial world->camera poses.  A leading
+    batch refines several poses at once: the relocalization's hypotheses
+    over one shared X and uv, or B sequences, each with its own points,
+    pixels and pose.  Returns dict with R, t, inliers (..., N), rmse (...),
+    num_inliers (...) int32 -- all tensors, nothing read back.
     """
     eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
 

@@ -93,10 +93,13 @@ def _match_to_map(feats: Features, map_state: MapState, max_distance: int,
                   radius_px: float = 20.0):
     """Match features to the map.  With a predicted pose (cam, R, t) the
     matching is GUIDED: a map point is only eligible within ``radius_px`` of
-    its predicted projection.  Returns (idx (N,) int32, valid (N,) bool)."""
+    its predicted projection.  Returns (idx (N,) int32, valid (N,) bool).
+
+    A leading B on the features, the map and the pose matches B sequences
+    at once (one K2 launch), each guided by its own pose."""
     xy_a = proj = None
     if R is not None:
-        pc = map_state.X @ R.T + t
+        pc = map_state.X @ R.transpose(-1, -2) + t[..., None, :]
         z = torch.clamp_min(pc[..., 2], 1e-6)
         u = cam.fx * pc[..., 0] / z + cam.cx
         v = cam.fy * pc[..., 1] / z + cam.cy
@@ -117,7 +120,9 @@ def _track_pnp(cam: PinholeCamera, feats: Features, map_state: MapState,
                map_idx: torch.Tensor, match_valid: torch.Tensor,
                R0: torch.Tensor, t0: torch.Tensor, iters: int,
                inlier_px: float) -> dict:
-    X = map_state.X[map_idx.long()]
+    """``pnp_refine`` of the matched map points; with a leading B, each
+    sequence's features against its own map, from its own pose."""
+    X = torch.take_along_dim(map_state.X, map_idx.long()[..., None], dim=-2)
     return pnp_refine(cam, X, feats.xy, match_valid, R0, t0,
                       iters=iters, inlier_px=inlier_px)
 
@@ -312,12 +317,13 @@ def _cull_map(map_state: MapState, kf_id, max_age: int = 10,
 
 def _select(pred: torch.Tensor, a, b):
     """Elementwise ``pred ? a : b`` over matching (nested) tuples/dicts of
-    tensors, with a 0-d bool ``pred`` that stays on the device."""
+    tensors, with a bool ``pred`` that stays on the device: 0-d, or (B,)
+    choosing per sequence between tensors with a leading B."""
     if isinstance(a, dict):
         return {k: _select(pred, a[k], b[k]) for k in a}
     if isinstance(a, tuple):
         return tuple(_select(pred, x, y) for x, y in zip(a, b))
-    return torch.where(pred, a, b)
+    return torch.where(pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim())), a, b)
 
 
 def _reloc_attempt(cam: PinholeCamera, cfg: SlamConfig, map_state: MapState,

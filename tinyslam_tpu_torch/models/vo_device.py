@@ -19,6 +19,12 @@ Before the first state exists, ``DeviceVO`` runs the host-stepped
 bootstrap of ``models/vo.py:VisualOdometry`` frame by frame and lifts its
 result into a ``VOState``; after ``reloc_max_frames`` lost frames it drops
 the state and bootstraps a fresh submap anchored at the last pose.
+
+``track_step_batch`` / ``track_chunk_batch`` track B independent sequences
+(a ``VOState`` with a leading B, ``VOState.stack``) as one program, the
+counterpart of the JAX package's ``vmap(track_chunk)``: the common path
+batched, each decision read back once for all B, the rare branches per
+sequence on its row.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 
 from tinyslam_tpu_torch.backend.ba import bundle_adjust
 from tinyslam_tpu_torch.config import SlamConfig
-from tinyslam_tpu_torch.frontend.orb import adapt_threshold, extract_features
+from tinyslam_tpu_torch.frontend.orb import adapt_threshold, extract_batch, extract_features
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
 from tinyslam_tpu_torch.geometry.se3 import (
     se3_compose,
@@ -64,6 +70,16 @@ _FEATURE_FIELDS = tuple(f.name for f in dataclasses.fields(Features))
 _TENSOR_FIELDS = ("win_R", "win_t", "win_obs", "win_mask", "win_valid",
                   "win_kf_id", "R", "t", "vel_R", "vel_t", "num_keyframes",
                   "frames_since_kf", "frame_idx", "last_tracking", "threshold")
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of dataclasses of one structure (a
+    ``VOState`` with its nested map and features, or one of those)."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    return type(first)(**{f.name: _tree_map(fn, *(getattr(t, f.name) for t in trees))
+                          for f in dataclasses.fields(first)})
 
 
 @dataclass
@@ -165,6 +181,30 @@ class VOState:
         out.update(self.win_feats.to_numpy("win_feats."))
         out.update(self.kf_ring.to_numpy("kf_ring."))
         return out
+
+    # A batch of B sequences is one VOState whose every tensor (the map,
+    # window features and keyframe ring included) has a leading B, as the
+    # JAX package's vmapped state has.
+    @staticmethod
+    def stack(states: list["VOState"]) -> "VOState":
+        """B states of one config on one device -> the batched state."""
+        return _tree_map(lambda *xs: torch.stack(xs), *states)
+
+    def unstack(self) -> list["VOState"]:
+        """The batched state's B sequences, as views."""
+        return [self.row(b) for b in range(self.R.shape[0])]
+
+    def row(self, b: int) -> "VOState":
+        """Sequence ``b`` (a host int) of the batched state, as views."""
+        return _tree_map(lambda x: x[b], self)
+
+    def set_row(self, b: int, state: "VOState") -> "VOState":
+        """A new batched state with sequence ``b`` replaced by ``state``."""
+        def put(x, v):
+            y = x.clone()
+            y[b] = v
+            return y
+        return _tree_map(put, self, state)
 
 
 # Packed per-frame summary layout (float32).
@@ -415,6 +455,200 @@ def track_chunk(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
         summaries.append(ys["summary"])
     return state, {"R": torch.stack(Rs), "t": torch.stack(ts),
                    "summary": torch.stack(summaries)}
+
+
+def _device_rows(rows: list[int], device: torch.device, dtype=torch.long) -> torch.Tensor:
+    """A host list as a tensor on ``device``: from pinned memory without
+    blocking on the card (a copy from pageable memory synchronizes)."""
+    x = torch.tensor(rows, dtype=dtype)
+    return x.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else x
+
+
+def _take(tree, rows: torch.Tensor | None):
+    """The sequences ``rows`` of a batched tensor or dataclass; all of them
+    (the tree itself) when ``rows`` is None."""
+    return tree if rows is None else _tree_map(lambda x: x.index_select(0, rows), tree)
+
+
+def _track_rows(cam: PinholeCamera, cfg: SlamConfig, feats: Features, map_state: MapState,
+                rows, R0, t0, radius_px: float) -> dict:
+    """Guided matching and PnP of the sequences ``rows`` from the poses
+    (R0, t0) of those sequences: one K2 launch and one batched
+    ``pnp_refine`` for all of them.  Returns {"idx", "mvalid", "R", "t",
+    "inliers", "num_inliers", "rmse"} over those rows."""
+    f, m = _take(feats, rows), _take(map_state, rows)
+    idx, mvalid = _match_to_map(f, m, cfg.matcher.max_distance, cfg.matcher.ratio,
+                                cam=cam, R=R0, t=t0, radius_px=radius_px)
+    out = _track_pnp(cam, f, m, idx, mvalid, R0, t0, iters=cfg.vo.pnp_iters,
+                     inlier_px=cfg.vo.pnp_inlier_px)
+    return {"idx": idx, "mvalid": mvalid, **out}
+
+
+def _assign(res: dict, rows, part: dict) -> None:
+    """Write ``part`` into the rows ``rows`` (a tensor, None for all, or a
+    host int) of the batch ``res``, whose tensors are the step's own."""
+    for k in res:
+        if rows is None:
+            res[k] = part[k]
+        elif isinstance(rows, int):
+            res[k][rows] = part[k]
+        else:
+            res[k].index_copy_(0, rows, part[k])
+
+
+def track_step_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
+                     images: torch.Tensor, active, samplers: list[Sampler]
+                     ) -> tuple[VOState, dict]:
+    """One tracked frame of each of B independent sequences: the counterpart
+    of the JAX package's ``vmap(track_step)``, decision for decision each
+    sequence's own ``track_step``.
+
+    ``states`` is a batched ``VOState`` (``VOState.stack``), ``images`` (B,
+    H, W) on its device, ``active`` (B,) bool (host list or tensor): an
+    inactive sequence keeps its state and records a zero summary.
+    ``samplers[b]`` draws sequence b's relocalization samples, under its own
+    key ``("reloc", frame_idx)``, so b draws what its ``track_step`` would.
+
+    The common path runs batched: extraction at each sequence's adaptive
+    threshold (one K1 launch), guided matching of the sequences that
+    tracked their last frame (one K2 launch), PnP, the second pass, the pose
+    and velocity update and the summary.  Each of ``track_step``'s three
+    decisions reads the flags of all B sequences in one readback.  The rare
+    branches run per sequence on its row: the relocalization of a lost
+    sequence (one more readback) and the keyframe insertion with its window
+    BA (one more), each written back with ``VOState.set_row``.  Returns the
+    batched state and {"R" (B, 3, 3), "t" (B, 3), "summary" (B,
+    len(SUMMARY_FIELDS))}.
+    """
+    B = states.R.shape[0]
+    dev = states.device
+    active = [bool(a) for a in torch.as_tensor(active).tolist()]
+    if len(active) != B or len(samplers) != B or images.shape[0] != B:
+        raise ValueError(f"track_step_batch: {B} states, {images.shape[0]} images, "
+                         f"{len(active)} flags and {len(samplers)} samplers")
+    if not any(active):
+        return states, {"R": states.R, "t": states.t,
+                        "summary": torch.zeros((B, len(SUMMARY_FIELDS)), dtype=torch.float32,
+                                               device=dev)}
+    if images.dtype == torch.uint8:
+        images = images.to(torch.float32) * (1.0 / 255.0)
+    vo = cfg.vo
+    feats = extract_batch(images, states.threshold, cfg.frontend)
+    threshold = states.threshold
+    if cfg.frontend.adaptive_threshold:
+        threshold = adapt_threshold(threshold, feats.count, feats.capacity,
+                                    cfg.frontend.target_fill)
+    R_pred, t_pred = se3_compose(states.vel_R, states.vel_t, states.R, states.t)
+
+    # The step's per-sequence results; an inactive row keeps these values,
+    # which track nothing.
+    n = feats.capacity
+    res = {"idx": torch.zeros((B, n), dtype=torch.int32, device=dev),
+           "mvalid": torch.zeros((B, n), dtype=torch.bool, device=dev),
+           "R": states.R.clone(), "t": states.t.clone(),
+           "inliers": torch.zeros((B, n), dtype=torch.bool, device=dev),
+           "rmse": torch.zeros(B, dtype=torch.float32, device=dev),
+           "num_inliers": torch.zeros(B, dtype=torch.int32, device=dev)}
+    last = states.last_tracking.tolist()                        # sync 1
+    tracked = [b for b in range(B) if active[b] and last[b]]
+    if tracked:
+        rows = None if len(tracked) == B else _device_rows(tracked, dev)
+        _assign(res, rows, _track_rows(cam, cfg, feats, states.map, rows, _take(R_pred, rows),
+                                       _take(t_pred, rows), vo.track_radius_px))
+    for b in range(B):
+        if active[b] and not last[b]:
+            # Lost last frame: sequence b relocalizes on its own (+1 sync).
+            idx, mvalid, out = _relocalize(
+                cam, cfg, _tree_map(lambda x: x[b], states.map), feats.map(lambda x: x[b]),
+                R_pred[b], t_pred[b], samplers[b], ("reloc", states.frame_idx[b]))
+            _assign(res, b, {"idx": idx, "mvalid": mvalid, **out})
+
+    if vo.track_two_pass:
+        n1 = res["num_inliers"]
+        second = ((n1 >= 15) & (n1 < vo.second_pass_below)).tolist()   # sync 2
+        again = [b for b in range(B) if active[b] and second[b]]
+        if again:
+            rows = None if len(again) == B else _device_rows(again, dev)
+            cur = {k: _take(v, rows) for k, v in res.items()}
+            new = _track_rows(cam, cfg, feats, states.map, rows, cur["R"], cur["t"], 8.0)
+            better = (new["mvalid"].sum(-1) >= cur["mvalid"].sum(-1)) & (
+                new["num_inliers"] >= cur["num_inliers"])
+            _assign(res, rows, _select(better, new, cur))
+
+    n_in = res["num_inliers"]
+    pose_finite = torch.isfinite(res["R"]).all((-2, -1)) & torch.isfinite(res["t"]).all(-1)
+    tracking = (n_in >= 20) & pose_finite & (res["rmse"] < 3.0 * vo.pnp_inlier_px)
+    Ri, ti = se3_inverse(states.R, states.t)
+    Rv_new, tv_new = se3_compose(res["R"], res["t"], Ri, ti)
+    xi = 0.6 * se3_log(Rv_new, tv_new) + 0.4 * se3_log(states.vel_R, states.vel_t)
+    vel_R_acc, vel_t_acc = se3_exp(xi)
+    vel_id_R, vel_id_t = se3_identity(device=dev)
+    use_vel = tracking & states.last_tracking
+    frames_since_kf = states.frames_since_kf + 1
+    new_states = states.replace(
+        R=torch.where(tracking[:, None, None], res["R"], states.R),
+        t=torch.where(tracking[:, None], res["t"], states.t),
+        vel_R=torch.where(use_vel[:, None, None], vel_R_acc, vel_id_R),
+        vel_t=torch.where(use_vel[:, None], vel_t_acc, vel_id_t),
+        last_tracking=tracking,
+        frames_since_kf=frames_since_kf,
+        frame_idx=states.frame_idx + 1,
+        threshold=threshold,
+    )
+    need_kf = tracking & (
+        (frames_since_kf >= vo.keyframe_max_interval)
+        | ((n_in < vo.keyframe_min_inliers)
+           & (frames_since_kf >= vo.keyframe_min_interval))
+        | (n_in < vo.keyframe_critical_inliers))
+    kf = need_kf.tolist()                                       # sync 3
+    for b in range(B):
+        if active[b] and kf[b]:
+            # Sequence b's keyframe and window BA, on its row (+1 sync).
+            new_states = new_states.set_row(b, _insert_keyframe(
+                cam, cfg, new_states.row(b), feats.map(lambda x: x[b]), res["mvalid"][b],
+                res["inliers"][b]))
+
+    summary = torch.stack([
+        feats.count.to(torch.float32),
+        res["mvalid"].sum(-1).to(torch.float32),
+        n_in.to(torch.float32),
+        tracking.to(torch.float32),
+        need_kf.to(torch.float32),
+        new_states.map.valid.sum(-1).to(torch.float32),
+        res["rmse"],
+        threshold,
+    ], dim=-1)
+    if not all(active):
+        act = _device_rows(active, dev, torch.bool)
+        new_states = _tree_map(
+            lambda x, y: torch.where(act.view(B, *([1] * (x.dim() - 1))), x, y),
+            new_states, states)
+        summary = torch.where(act[:, None], summary, torch.zeros_like(summary))
+    return new_states, {"R": new_states.R, "t": new_states.t, "summary": summary}
+
+
+def track_chunk_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
+                      images: torch.Tensor, active, samplers: list[Sampler]
+                      ) -> tuple[VOState, dict]:
+    """Track B independent sequences a chunk of C frames each: the
+    counterpart of the JAX package's ``vmap(track_chunk)``, each sequence
+    as its own ``track_chunk`` would track it.
+
+    ``images`` (B, C, H, W), ``active`` (B, C) bool (host lists or
+    tensors), ``samplers`` one a sequence; see ``track_step_batch``.
+    Returns the batched state and {"R" (B, C, 3, 3), "t" (B, C, 3),
+    "summary" (B, C, len(SUMMARY_FIELDS))}.
+    """
+    active = torch.as_tensor(active).tolist()
+    Rs, ts, summaries = [], [], []
+    for c in range(images.shape[1]):
+        states, ys = track_step_batch(cam, cfg, states, images[:, c],
+                                      [a[c] for a in active], samplers)
+        Rs.append(ys["R"])
+        ts.append(ys["t"])
+        summaries.append(ys["summary"])
+    return states, {"R": torch.stack(Rs, 1), "t": torch.stack(ts, 1),
+                    "summary": torch.stack(summaries, 1)}
 
 
 @dataclass

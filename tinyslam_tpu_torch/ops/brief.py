@@ -91,17 +91,29 @@ def _pattern_on(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(BRIEF_PATTERN.astype(np.float32)).to(device)
 
 
+def _take(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``flat[idx]`` for a flat image (P,), or per image of a (..., P)
+    batch with idx (..., *rest) indexing its own image.  A negative index
+    counts from the end, as in ``flat[idx]`` (and the JAX package's
+    indexing): a level lower than the binned patch clamps its origin
+    below 0."""
+    lead = flat.shape[:-1]
+    idx = torch.remainder(idx, flat.shape[-1])
+    return flat.gather(-1, idx.reshape(*lead, -1)).reshape(idx.shape)
+
+
 def brief_samples(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
                   interpolate: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """The two intensities (N, 256) that each bit of ``brief_descriptors``
-    compares: the pattern's points a and b rotated by each feature's angle
-    about its position, sampled from ``blurred``."""
-    h, w = blurred.shape
-    flat = blurred.reshape(-1)
+    """The two intensities (..., N, 256) that each bit of
+    ``brief_descriptors`` compares: the pattern's points a and b rotated by
+    each feature's angle about its position, sampled from ``blurred``
+    (..., H, W), a leading batch dimension per image."""
+    h, w = blurred.shape[-2:]
+    flat = blurred.reshape(*blurred.shape[:-2], -1)
     pat = _pattern_on(blurred.device)
     s, c = sincosf(angle)
-    s, c = s[:, None], c[:, None]
-    x0, y0 = xy[:, 0:1], xy[:, 1:2]
+    s, c = s[..., None], c[..., None]
+    x0, y0 = xy[..., 0:1], xy[..., 1:2]
 
     def rotated(px, py):
         # XLA's contraction: rx = fma(c, px, -(s py)) + x0,
@@ -116,10 +128,10 @@ def brief_samples(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
             y1 = torch.floor(fy).to(torch.int64)
             ax = fx - x1.to(torch.float32)
             ay = fy - y1.to(torch.float32)
-            i00 = flat[y1 * w + x1]
-            i01 = flat[y1 * w + x1 + 1]
-            i10 = flat[(y1 + 1) * w + x1]
-            i11 = flat[(y1 + 1) * w + x1 + 1]
+            i00 = _take(flat, y1 * w + x1)
+            i01 = _take(flat, y1 * w + x1 + 1)
+            i10 = _take(flat, (y1 + 1) * w + x1)
+            i11 = _take(flat, (y1 + 1) * w + x1 + 1)
             # (i00 (1 - ax) + i01 ax) (1 - ay) + (i10 (1 - ax) + i11 ax) ay,
             # fused as XLA fuses it.
             top = fma(i01, ax, i00 * (1.0 - ax))
@@ -127,7 +139,7 @@ def brief_samples(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
             return fma(top, 1.0 - ay, bottom * ay)
         tx = torch.clamp(torch.round(rx).to(torch.int64), 0, w - 1)
         ty = torch.clamp(torch.round(ry).to(torch.int64), 0, h - 1)
-        return flat[ty * w + tx]
+        return _take(flat, ty * w + tx)
 
     va = sample(*rotated(pat[None, :, 0, 0], pat[None, :, 0, 1]))
     vb = sample(*rotated(pat[None, :, 1, 0], pat[None, :, 1, 1]))
@@ -136,8 +148,10 @@ def brief_samples(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
 
 def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
                       valid: torch.Tensor, interpolate: bool = False) -> torch.Tensor:
-    """Steered BRIEF-256 for the features of ONE blurred pyramid level,
-    with the pattern rotated by each feature's continuous angle.
+    """Steered BRIEF-256 for the features of ONE blurred pyramid level (or
+    of one level of each image of a batch: every argument then carries the
+    same leading dimensions), with the pattern rotated by each feature's
+    continuous angle.
 
     blurred (H, W) float32; xy (N, 2) positions in this level's pixels;
     angle (N,) radians; valid (N,).  Nearest sampling rounds half to even
@@ -147,7 +161,7 @@ def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tens
     """
     va, vb = brief_samples(blurred, xy, angle, interpolate)
     desc = pack_descriptor_bits(va > vb)
-    return torch.where(valid[:, None], desc, torch.zeros_like(desc))
+    return torch.where(valid[..., None], desc, torch.zeros_like(desc))
 
 
 @functools.lru_cache(maxsize=8)
@@ -165,21 +179,22 @@ def brief_descriptors_binned(blurred: torch.Tensor, xy: torch.Tensor,
     blurred (H, W) is the blurred level; xy (N, 2) feature positions in this
     level's pixels; angle (N,) radians; valid (N,).  The 40x40 patch origin
     is clamped into the image, as in the JAX package.  Returns (N, 8) int32
-    packed descriptors, zero for invalid slots.
+    packed descriptors, zero for invalid slots.  A leading batch dimension
+    on every argument describes one level of each image of a batch.
     """
-    h, w = blurred.shape
+    h, w = blurred.shape[-2:]
     dev = blurred.device
     ps = PATCH_SIDE
     center = torch.round(xy).to(torch.int64)
-    bx = torch.clamp(center[:, 0] - PATCH_REACH, 0, w - ps)
-    by = torch.clamp(center[:, 1] - PATCH_REACH, 0, h - ps)
+    bx = torch.clamp(center[..., 0] - PATCH_REACH, 0, w - ps)
+    by = torch.clamp(center[..., 1] - PATCH_REACH, 0, h - ps)
 
     bin_idx = torch.remainder(
         torch.round(angle / (2.0 * np.pi / bins)).to(torch.int64), bins)
-    off = _offsets_on(bins, dev)[bin_idx]                             # (N,256,2,2)
-    px = bx[:, None, None] + PATCH_REACH + off[..., 0]
-    py = by[:, None, None] + PATCH_REACH + off[..., 1]
-    v = blurred.reshape(-1)[py * w + px]                              # (N,256,2)
+    off = _offsets_on(bins, dev)[bin_idx]                             # (..., N,256,2,2)
+    px = bx[..., None, None] + PATCH_REACH + off[..., 0]
+    py = by[..., None, None] + PATCH_REACH + off[..., 1]
+    v = _take(blurred.reshape(*blurred.shape[:-2], -1), py * w + px)  # (..., N,256,2)
     bits = (v[..., 0] - v[..., 1]) > 0
     desc = pack_descriptor_bits(bits)
-    return torch.where(valid[:, None], desc, torch.zeros_like(desc))
+    return torch.where(valid[..., None], desc, torch.zeros_like(desc))

@@ -36,12 +36,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "tinyslam_fast_pyramid": [
         _P, _P, _I, _I,                    # level pointers, level dims, n_levels, batch
-        _P, _I, _I, _P,                    # threshold, border, streak, blur taps
+        _P, _I, _I, _I, _P,                # threshold, its stride, border, streak, blur taps
         _P,                                # stream
     ],
     "tinyslam_match_reduce": [
         _P, _P, _P, _P, _P, _P,            # desc_a, valid_a, xy_a, desc_b, valid_b, proj_b
-        _I, _I, _I, _F, _I, _I, _I, _I,    # n, m, guided, r2, nshift, cbits, slices, tps
+        _I, _I, _I, _I, _F, _I, _I, _I, _I,  # batch, n, m, guided, r2, nshift, cbits,
+                                             # slices, tps
         _P, _P, _P, _P,                    # best, second, idx, col_idx
         _P, _P, _P,                        # row_part, colcode, counters
         _P,                                # stream

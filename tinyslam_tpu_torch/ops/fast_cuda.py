@@ -14,6 +14,10 @@ the edges) and writes four pixels a thread as ``float4``.  Edges clamp, as
 in the plain version ``ops/fast.py:fast_maps``, and every sum runs in the
 plain version's order, so the maps agree bit for bit.
 
+A batch of frames shares one threshold or gives each frame its own (B
+camera streams, each with its adaptive threshold): the kernel reads frame
+b's at ``b * stride`` of the threshold tensor, stride 0 or 1.
+
 CPU tensors take the plain version, frame by frame and level by level;
 CUDA tensors launch the kernel or raise.  ``LAUNCHES`` counts kernel
 launches: one a pyramid or a batch of pyramids.
@@ -36,12 +40,14 @@ MAX_LEVELS = 8          # csrc/fast.cu:MAX_LEVELS
 def fast_pyramid_maps(levels, threshold: torch.Tensor, border: int = 20,
                       streak: int = 9, blur_sigma: float = 2.0):
     """A list of (H_l, W_l) float32 levels, or of (B, H_l, W_l) levels of B
-    frames, + a 0-d float32 threshold on their device -> one (score_raw,
+    frames, + a float32 threshold on their device -> one (score_raw,
     score_nms, m10, m01, blurred) 5-tuple of float32 maps of the level's
     shape a level, from one kernel launch.
 
-    On CUDA the threshold is read by the kernel through its device pointer,
-    so an adaptive threshold never has to visit the host.
+    The threshold is a 1-element tensor shared by every frame, or, for B
+    frames, a (B,) tensor: one a frame.  On CUDA the kernel reads it
+    through its device pointer, so an adaptive threshold never has to
+    visit the host.
     """
     levels = list(levels)
     if not levels:
@@ -53,11 +59,18 @@ def fast_pyramid_maps(levels, threshold: torch.Tensor, border: int = 20,
             lvl.dim() != levels[0].dim() or lvl.shape[:-2] != lead for lvl in levels):
         raise ValueError("fast_pyramid_maps: expects (H, W) levels or (B, H, W) levels "
                          "of one B")
+    batch = levels[0].shape[0] if batched else 1
+    if (not torch.is_tensor(threshold) or threshold.device != dev
+            or threshold.dtype != torch.float32 or threshold.numel() not in (1, batch)
+            or (threshold.numel() > 1 and threshold.shape != (batch,))):
+        raise ValueError("fast_pyramid_maps: threshold must be a 1-element float32 "
+                         "tensor, or one (B,) for B frames, on the levels' device")
     if dev.type == "cpu":
         if not batched:
             return [fast_maps(lvl, threshold, border, streak, blur_sigma) for lvl in levels]
+        per_frame = threshold.reshape(-1).expand(batch)
         return [tuple(torch.stack(frames) for frames in zip(*(
-            fast_maps(im, threshold, border, streak, blur_sigma) for im in lvl)))
+            fast_maps(im, t, border, streak, blur_sigma) for im, t in zip(lvl, per_frame))))
             for lvl in levels]
     if dev.type != "cuda":
         raise ValueError(f"fast_pyramid_maps: unsupported device {dev}")
@@ -68,15 +81,10 @@ def fast_pyramid_maps(levels, threshold: torch.Tensor, border: int = 20,
            for lvl in levels):
         raise ValueError("fast_pyramid_maps: expects non-empty float32 levels on "
                          "one device")
-    batch = levels[0].shape[0] if batched else 1
     if batch > 65535:
         raise ValueError(f"fast_pyramid_maps: batch {batch} > 65535 (the grid's y)")
     if not 1 <= streak <= 16:
         raise ValueError(f"streak={streak} outside 1..16")
-    if (not torch.is_tensor(threshold) or threshold.device != dev
-            or threshold.dtype != torch.float32 or threshold.numel() != 1):
-        raise ValueError("fast_pyramid_maps: threshold must be a 1-element "
-                         "float32 tensor on the levels' device")
     levels = [lvl.contiguous() for lvl in levels]
     threshold = threshold.contiguous()
     # All maps of all levels in one allocation, map-major: (5, B sum H_l W_l).
@@ -94,7 +102,8 @@ def fast_pyramid_maps(levels, threshold: torch.Tensor, border: int = 20,
     with torch.cuda.device(dev):
         err = lib.tinyslam_fast_pyramid(
             (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
-            len(levels), batch, threshold.data_ptr(), border, streak,
+            len(levels), batch, threshold.data_ptr(), int(threshold.numel() > 1), border,
+            streak,
             (ctypes.c_float * len(taps))(*taps), torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "tinyslam_fast_pyramid")
     LAUNCHES += 1

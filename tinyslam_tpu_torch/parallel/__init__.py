@@ -12,6 +12,8 @@ thread (mirrors ``tinyslam_tpu/parallel/``).
 - ``dist_pose_graph`` the edge-sharded pose graph (one sum of the normal
                   equations an iteration) and the node-sharded one
                   (two-level overlapping Schwarz with a halo exchange).
+- ``track_dp``    multi-sequence tracking: B camera streams split over
+                  ``frame``, each rank tracking its own as one batch.
 - ``pipeline``    decoupling the back-end from tracking: the latest-wins
                   worker thread.
 """
@@ -26,6 +28,7 @@ _LAZY = {
     "optimize_pose_graph_sharded": "tinyslam_tpu_torch.parallel.dist_pose_graph",
     "optimize_pose_graph_node_sharded": "tinyslam_tpu_torch.parallel.dist_pose_graph",
     "partition_edges_by_node": "tinyslam_tpu_torch.parallel.dist_pose_graph",
+    "track_chunk_dp": "tinyslam_tpu_torch.parallel.track_dp",
 }
 
 __all__ = list(_LAZY)

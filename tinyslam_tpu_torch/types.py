@@ -60,16 +60,11 @@ class Features:
         )
 
     @staticmethod
-    def concatenate(parts: list["Features"]) -> "Features":
+    def concatenate(parts: list["Features"], dim: int = 0) -> "Features":
+        """Join feature sets along the feature axis ``dim`` (after ``dim``
+        leading batch dimensions)."""
         return Features(**{
-            f.name: torch.cat([getattr(p, f.name) for p in parts], dim=0)
-            for f in dataclasses.fields(Features)})
-
-    @staticmethod
-    def stack(parts: list["Features"]) -> "Features":
-        """Stack feature sets of one capacity along a new leading axis."""
-        return Features(**{
-            f.name: torch.stack([getattr(p, f.name) for p in parts])
+            f.name: torch.cat([getattr(p, f.name) for p in parts], dim=dim)
             for f in dataclasses.fields(Features)})
 
     @staticmethod

@@ -34,14 +34,18 @@ def trace(log_dir=None, device=None):
         with profiling.trace("build/trace") as d:
             feats = frontend.extract(frame)
 
-    CPU activity always; CUDA activity where ``device`` is CUDA (None: the
-    card when there is one), with a synchronize before the trace stops.
+    CPU activity always; CUDA activity where ``device`` is CUDA, with a
+    synchronize before the trace stops.  ``device`` None means the card:
+    without one it raises; a trace of the CPU alone asks for ``"cpu"``.
     """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("profiling.trace: no CUDA device to trace; pass "
+                               "device='cpu' to trace the CPU alone")
+        device = "cuda"
+    cuda = torch.device(device).type == "cuda"
     log_dir = Path(tempfile.mkdtemp(prefix="tinyslam_trace_") if log_dir is None else log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities) as prof:
         try:
