@@ -86,7 +86,8 @@ Phases, in order; any failure raises and the script exits nonzero:
  10. the datasets: (a) tools/eval_ate.py's fr1_desk-like sequence (640x480
      through the distorted fr1 camera, handheld motion, photometrics) and
      its mh01-like one (752x480, EuRoC's camera, MAV motion), rendered by
-     the port and written in the TUM and EuRoC layouts under
+     ``tinyslam_tpu_torch.eval_ate`` (clean ray casts on spawned processes)
+     and written in the TUM and EuRoC layouts under
      build/tinyslam_tpu_torch/seq/ (reused on a rerun); (b) the native
      loader alone: decode and undistort frames/s, the first frame equal to
      the rendered one once undistorted; (c) ``run.main(["--dataset", "tum",
@@ -156,7 +157,17 @@ Phases, in order; any failure raises and the script exits nonzero:
      serial ``track_chunk`` runs; (e) ``entry()``'s step on the card: 256
      landmarks, 0 matches, features within 1% of the JAX step's 1543; (f)
      ``dryrun_multichip(1)`` on NCCL and ``dryrun_multichip(2)`` with two
-     gloo ranks sharing the card.  Phase 7 also times K1 and K2 at B=4.
+     gloo ranks sharing the card.  Phase 7 also times K1 and K2 at B=4;
+ 14. the accuracy eval: tools/eval_ate.py's fr1_loop-like sequence (a
+     full-circuit handheld walk that returns to its start, 640x480 through
+     the distorted fr1 camera) at ``N_LOOP`` frames, rendered by
+     ``tinyslam_tpu_torch.eval_ate`` (the renderer phase 10 shares), through
+     ``eval_ate.run_sequence`` (``DeviceSlam``, the loader's uint8 frames)
+     under ``Sampler(0)``-``(3)``: every frame fed, finite ATE and RPE, K1
+     once a frame, K2 once per keyframe ingest, 1 + ``loop_candidates``
+     times per loop probe and at least once per tracked frame besides; the
+     medians of the four inside the JAX reference's envelope over four key
+     offsets (``REF_LOOP_*``, as phase 10's).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -164,8 +175,6 @@ The second-to-last line is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
-import multiprocessing
-import os
 import subprocess
 import sys
 import time
@@ -211,12 +220,12 @@ CRASH_AT = 70           # phase 11c: the DeviceSlam dropped after frame 69 ...
 CRASH_END = 100         # ... and frames 70-99 tracked after the restore
 REC_DIR = Path(__file__).resolve().parent / "build" / "tinyslam_tpu_torch" / "phase11"
 # Phase 10's sequences: tools/eval_ate.py's fr1_desk-like (:29-46) and
-# mh01-like (:64-76) builders, rendered by the port at these lengths.
+# mh01-like (:64-76) builders at these lengths (tinyslam_tpu_torch.eval_ate's
+# fr1_desk_spec(150) and mh01_spec(60)), rendered by the port.
 TUM_SEQ = dict(kind="tum", seed=101, frames=150, width=640, height=480,
                room=dict(tex_res=256, octaves=4, clutter=8))
 EUROC_SEQ = dict(kind="euroc", seed=202, frames=60, width=752, height=480,
                  room=dict(half_size=(8.0, 5.0, 8.0), tex_res=256, octaves=4, clutter=16))
-SEQ_DIR = Path(__file__).resolve().parent / "build" / "tinyslam_tpu_torch" / "seq"
 N_DP_FRAMES = 8        # phase 12b: frames of one batch through frontend_dp
 N_PG_LOOPS = 512       # phase 12d: loop edges beside the 255 odometry ones
 NODE_ITERS, NODE_HALO = 40, 8   # phase 12d: the node-sharded solver
@@ -245,6 +254,17 @@ REF_TUM_TRACKED, REF_TUM_KEYFRAMES, REF_TUM_CLOSURES = 142, 20, 0
 REF_TUM_ATE = 0.6044219900662758
 REF_EUROC_TRACKED, REF_EUROC_KEYFRAMES, REF_EUROC_CLOSURES = 55, 19, 0
 REF_EUROC_ATE = 0.3265627921063381
+# Phase 14: tools/eval_ate.py's fr1_loop-like sequence (:49-67) at that
+# tool's default length, through tinyslam_tpu_torch.eval_ate.run_sequence
+# (DeviceSlam, the loader's uint8 frames as the tool feeds them) under
+# Sampler(0)-(3); the envelope of the JAX tool's own run_sequence there
+# over key offsets 0-3: the fewest tracked frames, keyframes and accepted
+# closures, the largest Sim(3)-aligned ATE of the corrected trajectory.
+# python tools/jax_reference_orbit.py --eval fr1_loop --key-offset S (see
+# PERF.md).
+N_LOOP = 300
+REF_LOOP_TRACKED, REF_LOOP_KEYFRAMES, REF_LOOP_CLOSURES = 267, 64, 1
+REF_LOOP_ATE = 1.3399
 # Published H100 SXM peaks (NVIDIA's data sheet, dense rates at 700 W): the
 # bounds of phase 7.
 HBM_BYTES_PER_S = 3.35e12
@@ -1176,32 +1196,6 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     return launches, solve
 
 
-def _scene(spec):
-    """tools/eval_ate.py's builder for ``spec`` through the port: (the
-    generator after the room's and the trajectory's draws, room, camera,
-    poses, distortion)."""
-    from tinyslam_tpu_torch.data import synthetic as syn
-    from tinyslam_tpu_torch.data.euroc import EUROC_CAM0, EUROC_DIST
-    from tinyslam_tpu_torch.data.tum import FR1_DIST, FR1_INTRINSICS
-    from tinyslam_tpu_torch.geometry.camera import PinholeCamera
-
-    tum = spec["kind"] == "tum"
-    rng = np.random.default_rng(spec["seed"])
-    room = syn.TexturedRoom(rng, **spec["room"])
-    cam = PinholeCamera.create(**(FR1_INTRINSICS if tum else EUROC_CAM0))
-    poses = (syn.handheld_trajectory if tum else syn.mav_trajectory)(rng, spec["frames"])
-    return rng, room, cam, poses, FR1_DIST if tum else EUROC_DIST
-
-
-_WORKER_SCENE = None
-
-
-def _init_worker(spec) -> None:
-    global _WORKER_SCENE
-    _, room, cam, poses, dist = _scene(spec)
-    _WORKER_SCENE = (room, cam, poses, dist, spec["width"], spec["height"])
-
-
 def _orbit():
     """(room, camera, poses) of the bench orbit at full width."""
     from tinyslam_tpu_torch.data.synthetic import TexturedRoom, orbit_trajectory
@@ -1214,61 +1208,11 @@ def _orbit():
     return room, cam, poses
 
 
-def _init_orbit_worker() -> None:
-    global _WORKER_SCENE
+def _orbit_scene():
+    """The orbit as ``eval_ate.render_clean`` renders it: (room, camera,
+    poses, no distortion, width, height)."""
     room, cam, poses = _orbit()
-    _WORKER_SCENE = (room, cam, poses, None, WIDTH, HEIGHT)
-
-
-def _render_one(i: int) -> np.ndarray:
-    room, cam, poses, dist, w, h = _WORKER_SCENE
-    return room.render(cam, *poses[i], w, h, dist=dist)
-
-
-class _Rendered:
-    """Stands in for the room in ``render_sequence``: hands back the clean
-    frames rendered beforehand, in order, so that the generator's draws
-    (the exposure track, then one noise image a frame) stay its own."""
-
-    def __init__(self, images):
-        self._images = iter(images)
-
-    def render(self, cam, R, t, width, height, dist=None):
-        return next(self._images)
-
-
-def dataset_sequence(spec, workers: int | None = None) -> tuple[Path, float]:
-    """Render ``spec``'s sequence with ``render_sequence`` (the clean ray
-    casts on ``workers`` processes) and write it in its dataset's layout,
-    with the first frame as ``frame0.npy``, under SEQ_DIR, keyed by a hash
-    of ``spec`` and of the renderer's sources; a sequence written already
-    is reused.  Returns (its directory, seconds spent, 0 if reused)."""
-    import hashlib
-    import shutil
-
-    from tinyslam_tpu_torch.data import synthetic as syn
-
-    key = hashlib.sha256(json.dumps(spec, sort_keys=True).encode())
-    for name in ("synthetic.py", "undistort.py", "png.py"):
-        key.update((Path(syn.__file__).parent / name).read_bytes())
-    root = SEQ_DIR / f"{spec['kind']}_{key.hexdigest()[:12]}"
-    if (root / "frame0.npy").exists():
-        return root, 0.0
-    t_start = time.perf_counter()
-    rng, _, cam, poses, dist = _scene(spec)
-    workers = workers or min(8, os.cpu_count() or 1)
-    with multiprocessing.get_context("spawn").Pool(workers, _init_worker, (spec,)) as pool:
-        clean = pool.map(_render_one, range(len(poses)))
-    frames = syn.render_sequence(rng, poses, cam, spec["width"], spec["height"],
-                                 _Rendered(clean), dist=dist)
-    tmp = root.with_name(f"{root.name}.{os.getpid()}.tmp")
-    shutil.rmtree(tmp, ignore_errors=True)
-    writer = syn.write_tum_sequence if spec["kind"] == "tum" else syn.write_euroc_sequence
-    writer(tmp, frames, poses)
-    np.save(tmp / "frame0.npy", frames[0])
-    shutil.rmtree(root, ignore_errors=True)
-    os.replace(tmp, root)
-    return root, time.perf_counter() - t_start
+    return room, cam, poses, None, WIDTH, HEIGHT
 
 
 _SUMMARY = (r"^frames=(\d+) tracked=(\d+) keyframes=(\d+) landmarks=(\d+) "
@@ -1285,7 +1229,7 @@ def _dataset_phase(dev, smi):
 
     import torch
 
-    from tinyslam_tpu_torch import SlamConfig, run
+    from tinyslam_tpu_torch import SlamConfig, eval_ate, run
     from tinyslam_tpu_torch.data.euroc import EUROC_CAM0, EUROC_DIST, EurocSequence
     from tinyslam_tpu_torch.data.tum import FR1_DIST, FR1_INTRINSICS, TumSequence
     from tinyslam_tpu_torch.data.undistort import Undistorter
@@ -1321,7 +1265,7 @@ def _dataset_phase(dev, smi):
     for spec, n, sequence, intrinsics, dist, ref in cases:
         kind, w, h = spec["kind"], spec["width"], spec["height"]
         # a. Render and write.
-        root, secs = dataset_sequence(spec)
+        root, secs = eval_ate.dataset_sequence(spec)
         print(f"phase 10 {kind}: {spec['frames']} frames {w}x{h} in {root.name} "
               f"({f'rendered and written in {secs:.1f} s' if secs else 'reused'})")
         # b. The loader alone: decode, then decode and undistort, after a
@@ -1346,7 +1290,7 @@ def _dataset_phase(dev, smi):
         if not same:
             failures.append(f"{kind}: the first decoded frame differs from the render")
         # c, d. The command line, in this process, on the card.
-        out = SEQ_DIR / f"{root.name}_run"
+        out = eval_ate.SEQ_DIR / f"{root.name}_run"
         out.mkdir(exist_ok=True)
         argv = ["--dataset", kind, "--root", str(root), "--frames", str(n),
                 "--output", str(out / "traj.txt"), "--metrics", str(out / "metrics.json")]
@@ -1397,6 +1341,85 @@ def _dataset_phase(dev, smi):
                             f"outside the reference's envelope {ref}")
     if failures:
         raise AssertionError("dataset phase: " + "; ".join(failures))
+    return launches
+
+
+def _loop_phase(dev, smi):
+    """Phase 14: the accuracy eval on the card, ``eval_ate.run_sequence`` on
+    the fr1_loop-like sequence under four samplers.  Returns the kernels'
+    launch counts of the four runs."""
+    import torch
+
+    from tinyslam_tpu_torch import SlamConfig, eval_ate
+    from tinyslam_tpu_torch.models import slam as sm
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.utils.draws import Sampler
+
+    t_phase = time.perf_counter()
+    spec = eval_ate.fr1_loop_spec(N_LOOP)
+    root, secs = eval_ate.dataset_sequence(spec)
+    print(f"phase 14: fr1_loop-like, {N_LOOP} frames {spec['width']}x{spec['height']} in "
+          f"{root.name} "
+          f"({f'rendered and written in {secs:.1f} s' if secs else 'reused'})  [{smi}]")
+    C = max(2, SlamConfig().pose_graph.loop_candidates)
+    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0}
+    real = {k: getattr(sm, k) for k in ("_kf_ingest", "_loop_probe")}
+    failures, runs = [], []
+
+    def counted(name, calls):
+        def wrapper(*args, **kw):
+            k2 = match_cuda.LAUNCHES
+            out = real[name](*args, **kw)
+            calls[name].append(match_cuda.LAUNCHES - k2)
+            return out
+        return wrapper
+
+    for seed in range(4):
+        calls = {k: [] for k in real}
+        for k in real:
+            setattr(sm, k, counted(k, calls))
+        try:
+            torch.cuda.synchronize()
+            fast_cuda.LAUNCHES = 0
+            match_cuda.LAUNCHES = 0
+            t_run = time.perf_counter()
+            out = eval_ate.run_sequence("fr1_loop_like", "tum", root, "slam", "device",
+                                        device=dev, sampler=Sampler(seed))
+            torch.cuda.synchronize()
+            k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
+        finally:
+            for k, f in real.items():
+                setattr(sm, k, f)
+        launches["fast_score_map_fused"] += k1
+        launches["match_reduce_streaming"] += k2
+        ingests, probes = calls["_kf_ingest"], calls["_loop_probe"]
+        k2_track = k2 - sum(ingests) - sum(probes)
+        print(f"phase 14 Sampler({seed}), {time.perf_counter() - t_run:.1f} s: K1 {k1}, K2 "
+              f"{k2} = tracking {k2_track} + {len(ingests)} ingests {sum(ingests)} + "
+              f"{len(probes)} probes {sum(probes)} (1 + {C} each)  [{smi}]")
+        if out["frames"] != N_LOOP or not np.isfinite(
+                [out[k] for k in ("ate_rmse_m", "ate_se3_m", "ate_raw_m", "rpe_trans_m",
+                                  "rpe_rot_deg")]).all():
+            failures.append(f"Sampler({seed}): {out['frames']} frames or a non-finite error")
+        if k1 != N_LOOP:
+            failures.append(f"Sampler({seed}): K1 launched {k1} times, expected {N_LOOP}")
+        if (set(ingests) - {1} or set(probes) - {1 + C} or len(ingests) != out["keyframes"]
+                or k2_track < out["tracked"]):
+            failures.append(f"Sampler({seed}): K2 launches do not add up")
+        runs.append(out)
+    cols = ("tracked", "keyframes", "loop_closures", "ate_rmse_m")
+    med = [float(v) for v in np.median([[r[k] for k in cols] for r in runs], axis=0)]
+    ref = (REF_LOOP_TRACKED, REF_LOOP_KEYFRAMES, REF_LOOP_CLOSURES, REF_LOOP_ATE)
+    print(f"phase 14, (tracked, keyframes, closures, ATE) under Sampler(0)-(3): "
+          f"{[[r[k] for k in cols] for r in runs]}; medians {med}; the JAX reference over "
+          f"four key offsets: tracked >= {ref[0]}, keyframes >= {ref[1]}, closures >= "
+          f"{ref[2]}, ATE <= {ref[3]}  [{smi}]")
+    if None in ref or not (med[0] >= ref[0] - 2 and med[1] >= ref[1] and med[2] >= ref[2]
+                           and med[3] <= ref[3] + 0.02):
+        failures.append(f"medians {med} outside the reference's envelope {ref}")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    if failures:
+        raise AssertionError("loop eval phase: " + "; ".join(failures))
     return launches
 
 
@@ -2246,7 +2269,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    from tinyslam_tpu_torch import slice_config
+    from tinyslam_tpu_torch import eval_ate, slice_config
     from tinyslam_tpu_torch.data.synthetic import apply_photometrics
     from tinyslam_tpu_torch.frontend.orb import extract_features
     from tinyslam_tpu_torch.geometry.camera import PinholeCamera
@@ -2282,9 +2305,7 @@ def main() -> None:
     fe = cfg.frontend
     room, cam, poses = _orbit()
     t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1),
-                                                   _init_orbit_worker) as pool:
-        frames = pool.map(_render_one, range(len(poses)))
+    frames = eval_ate.render_clean(_orbit_scene, (), len(poses))
     print(f"rendered {len(frames)} frames in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. K1 against plain ---------------------------------------------
@@ -2465,6 +2486,9 @@ def main() -> None:
     # ---- 13. B sequences as one batch, entry() and the dry run ---------------
     ms_launches, _, case4 = _multiseq_phase(cam, room, poses, frames, dev, smi, timed)
 
+    # ---- 14. the accuracy eval: fr1_loop-like under four samplers --------------
+    loop_launches = _loop_phase(dev, smi)
+
     # ---- 7. kernel times -----------------------------------------------------
     # Last: once the profiler has run in a process, every later launch
     # costs more on the host, which would distort the tracked fps above.
@@ -2554,7 +2578,8 @@ def main() -> None:
          "replaces": "tinyslam_tpu/ops/fast_pallas.py:258",
          "launches": sum(x["fast_score_map_fused"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
-                                   data_launches, rec_launches, dist_launches, ms_launches)),
+                                   data_launches, rec_launches, dist_launches, ms_launches,
+                                   loop_launches)),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "match_reduce_streaming", "route": "cuda",
@@ -2562,7 +2587,8 @@ def main() -> None:
          "replaces": "tinyslam_tpu/ops/match_pallas.py:140",
          "launches": sum(x["match_reduce_streaming"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
-                                   data_launches, rec_launches, dist_launches, ms_launches)),
+                                   data_launches, rec_launches, dist_launches, ms_launches,
+                                   loop_launches)),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["K2 real guided r=20"][0],
          "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},

@@ -405,18 +405,23 @@ def test_identity_when_no_distortion():
 
 @pytest.mark.parametrize("kind", ["tum", "euroc"])
 def test_smoke_sequences_equal_eval_ate_builders(tmp_path, monkeypatch, kind):
-    """chip_smoke.py phase 10 renders its sequences with the clean ray casts
-    on worker processes; the files equal those of tools/eval_ate.py's
-    builder through the JAX package (cut in size), and a second call reuses
-    them."""
+    """chip_smoke.py phase 10's sequences (tinyslam_tpu_torch.eval_ate's
+    fr1_desk-like and mh01-like specs at its prefix lengths) through the
+    renderer it shares with eval_ate, the clean ray casts on worker
+    processes: the files equal those of tools/eval_ate.py's builder through
+    the JAX package (cut in size), and a second call reuses them."""
     import chip_smoke
+    from tinyslam_tpu_torch import eval_ate
 
-    monkeypatch.setattr(chip_smoke, "SEQ_DIR", tmp_path / "seq")
+    monkeypatch.setattr(eval_ate, "SEQ_DIR", tmp_path / "seq")
     base = chip_smoke.TUM_SEQ if kind == "tum" else chip_smoke.EUROC_SEQ
+    assert base == (eval_ate.fr1_desk_spec(chip_smoke.TUM_SEQ["frames"]) if kind == "tum"
+                    else eval_ate.mh01_spec(chip_smoke.EUROC_SEQ["frames"]))
     room = dict(base["room"], tex_res=16, octaves=2)
     spec = dict(base, frames=3, room=room)
-    root, secs = chip_smoke.dataset_sequence(spec, workers=2)
-    assert secs > 0 and chip_smoke.dataset_sequence(spec, workers=2) == (root, 0.0)
+    root, secs = eval_ate.dataset_sequence(spec, workers=2)
+    assert root.parent == tmp_path / "seq"
+    assert secs > 0 and eval_ate.dataset_sequence(spec, workers=2) == (root, 0.0)
 
     rng = np.random.default_rng(spec["seed"])
     jroom = jsyn.TexturedRoom(rng, **room)

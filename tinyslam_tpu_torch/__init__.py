@@ -39,6 +39,9 @@ images, (N, 2) xy, (N, 8) packed descriptors).  This package imports
 - ``native``    the C++ PNG/PGM decoder and prefetching frame loader
                 (``g++`` at first use, ``ctypes``).
 - ``run``       the command line (``python -m tinyslam_tpu_torch.run``).
+- ``eval_ate``  the accuracy eval on the rendered dataset-like sequences
+                (``python -m tinyslam_tpu_torch.eval_ate``): ATE and RPE.
+- ``entry``     the entry points (``entry``, ``dryrun_multichip``).
 """
 
 import torch as _torch

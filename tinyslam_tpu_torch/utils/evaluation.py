@@ -1,5 +1,4 @@
-"""Trajectory evaluation: Umeyama alignment and ATE RMSE (mirrors
-``umeyama_alignment`` and ``ate_rmse`` of
+"""Trajectory evaluation: Umeyama alignment, ATE RMSE and RPE (mirrors
 ``tinyslam_tpu/utils/evaluation.py``; numpy only).  A monocular
 trajectory has an arbitrary scale, so its ATE is Sim(3)-aligned."""
 
@@ -36,3 +35,29 @@ def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,
         est = (s * (R @ est.T)).T + t
     err = np.linalg.norm(est - gt, axis=-1)
     return float(np.sqrt(np.mean(err * err)))
+
+
+def rpe(est_poses: list[tuple[np.ndarray, np.ndarray]],
+        gt_poses: list[tuple[np.ndarray, np.ndarray]],
+        delta: int = 1) -> tuple[float, float]:
+    """Relative pose error over a frame delta.  Poses are world->camera
+    (R, t) pairs.  Returns (trans_rmse, rot_rmse_deg); NaN for lists
+    shorter than ``delta`` + 1."""
+    def rel(poses, i, j):
+        Ri, ti = poses[i]
+        Rj, tj = poses[j]
+        R = Rj @ Ri.T
+        return R, tj - R @ ti
+
+    terrs, rerrs = [], []
+    n = min(len(est_poses), len(gt_poses))
+    for i in range(n - delta):
+        Re, te = rel(est_poses, i, i + delta)
+        Rg, tg = rel(gt_poses, i, i + delta)
+        dR = Re @ Rg.T
+        dt = te - dR @ tg
+        terrs.append(np.linalg.norm(dt))
+        c = np.clip((np.trace(dR) - 1) / 2, -1, 1)
+        rerrs.append(np.degrees(np.arccos(c)))
+    return float(np.sqrt(np.mean(np.square(terrs)))), float(
+        np.sqrt(np.mean(np.square(rerrs))))

@@ -47,12 +47,28 @@ a few centimetres), so one run is one sample: ``chip_smoke.REF_TUM_*`` and
 ``REF_EUROC_*`` hold the envelope of offsets 0-3 (the fewest tracked
 frames, keyframes and closures, the largest ATE).
 
+``--eval fr1|fr1_loop|mh01``: the JAX accuracy harness itself,
+``tools/eval_ate.py``'s ``run_sequence`` (imported unchanged, ``--mode
+slam|vo``, tracker ``device``), on that tool's sequence at ``--frames``
+(default 300) as the port renders and caches it
+(``tinyslam_tpu_torch.eval_ate.dataset_sequence``, the files equal to
+the JAX tool's builders byte for byte), read by the JAX package's own
+loader (a private build of its native sources under ``build/``).  Prints
+and writes the JAX tool's JSON with ``key_offset`` and a per-frame record
+added (``per_frame``: each frame's tracking and keyframe flags and counts,
+the raw camera centres, the reboot frames; ``tools/trace_card_cpu.py
+--case eval --ref`` compares the port's run with it):
+``EVAL_jaxcpu_*.json`` and ``chip_smoke.REF_LOOP_*`` (fr1_loop, ``slam``,
+offsets 0-3).
+
     python tools/jax_reference_orbit.py --frames 189 [--out ref.json]
     python tools/jax_reference_orbit.py --bootstrap --frames 101
     python tools/jax_reference_orbit.py --bootstrap --kidnap
     python tools/jax_reference_orbit.py --slam --frames 101
     python tools/jax_reference_orbit.py --tum --frames 150 --prefix [--key-offset S]
     python tools/jax_reference_orbit.py --euroc --frames 60 --prefix [--key-offset S]
+    python tools/jax_reference_orbit.py --eval fr1_loop [--mode slam|vo] [--frames 300]
+        [--key-offset S] [--out ref.json]
 
 Full width takes about 3 minutes and a few GB on an 8-core CPU.  Where
 ``flax`` is not installed, a minimal stand-in for ``flax.struct`` (a frozen
@@ -96,7 +112,8 @@ def _flax_stand_in() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=189)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="frames (default 189; 300 with --eval)")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--bootstrap", action="store_true",
                     help="run DeviceVO from frame 0 instead of a seeded map")
@@ -112,7 +129,13 @@ def main() -> None:
                     help="with --tum/--euroc: shorten the run to the prefix before a reboot")
     ap.add_argument("--key-offset", type=int, default=0,
                     help="add 1000 x this to every jax.random.PRNGKey seed")
+    ap.add_argument("--eval", choices=["fr1", "fr1_loop", "mh01"],
+                    help="run tools/eval_ate.py's run_sequence on this sequence")
+    ap.add_argument("--mode", choices=["slam", "vo"], default="slam",
+                    help="with --eval: the harness's mode")
     args = ap.parse_args()
+    if args.frames is None:
+        args.frames = 300 if args.eval else 189
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
     import jax
@@ -141,6 +164,13 @@ def main() -> None:
     from tinyslam_tpu_torch.types import Features
 
     jcfg = JaxSlamConfig()
+    if args.eval:
+        result = _eval(args.eval, args.mode, args.frames)
+        result["key_offset"] = args.key_offset
+        print(json.dumps({k: v for k, v in result.items() if k != "per_frame"}), flush=True)
+        if args.out is not None:
+            args.out.write_text(json.dumps(result))
+        return
     for kind in ("tum", "euroc"):
         root = getattr(args, kind)
         if root is not None:
@@ -324,8 +354,10 @@ def _dataset(jcfg, kind: str, root: str, n: int, prefix: bool) -> dict:
     from tinyslam_tpu_torch.data.tum import FR1_INTRINSICS, TumSequence
 
     if not root:
+        from tinyslam_tpu_torch.eval_ate import dataset_sequence
+
         spec = chip_smoke.TUM_SEQ if kind == "tum" else chip_smoke.EUROC_SEQ
-        root, secs = chip_smoke.dataset_sequence(spec)
+        root, secs = dataset_sequence(spec)
         print(f"{kind}: phase 10's sequence {root} ({secs:.1f} s to render and write)",
               flush=True)
     seq = (TumSequence if kind == "tum" else EurocSequence).open(root)
@@ -367,6 +399,49 @@ def _dataset(jcfg, kind: str, root: str, n: int, prefix: bool) -> dict:
             break
         n = min(frames - 1, result["reboots"][0])
     result["runs"] = runs[:-1]
+    return result
+
+
+def _eval(name: str, mode: str, n: int) -> dict:
+    """tools/eval_ate.py's run_sequence on the port's rendering of its
+    sequence ``name`` at ``n`` frames, through the JAX package's loader."""
+    import importlib.util
+    import os
+
+    import tinyslam_tpu.native as jn
+    import torch_parity as P
+    from tinyslam_tpu_torch import eval_ate as port
+
+    spec = port.SPECS[name](n)
+    root, secs = port.dataset_sequence(spec)
+    print(f"{name}: {root} ({f'rendered in {secs:.1f} s' if secs else 'reused'})", flush=True)
+    native = ROOT / "build" / "jax_native" / str(os.getpid())
+    native.mkdir(parents=True, exist_ok=True)
+    jn._SO, jn._lib = P.jax_native_library(native), None
+    loader = importlib.util.spec_from_file_location("jax_eval_ate", ROOT / "tools" / "eval_ate.py")
+    tool = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(tool)
+    # The system the tool builds, kept for its per-frame record.
+    import tinyslam_tpu.models as jm
+
+    made, real = [], {k: getattr(jm, k) for k in ("DeviceSlam", "DeviceVO")}
+    for k, cls in real.items():
+        setattr(jm, k, lambda *a, _cls=cls, **kw: made.append(_cls(*a, **kw)) or made[-1])
+    try:
+        t0 = time.perf_counter()
+        result = tool.run_sequence(port.SEQUENCES[name], spec["kind"], root, mode, "device")
+    finally:
+        for k, cls in real.items():
+            setattr(jm, k, cls)
+    print(f"{name} {mode}: {time.perf_counter() - t0:.1f} s (compile included)", flush=True)
+    system = made[-1]
+    vo = system.vo if mode == "slam" else system
+    result["per_frame"] = {
+        "summary": [[int(s.tracking), int(s.is_keyframe), s.num_features, s.num_matches,
+                     s.num_inliers, s.num_landmarks] for s in vo.stats],
+        "centres": np.asarray(system.raw_positions if mode == "slam" else vo.positions,
+                              np.float64).tolist(),
+        "reboots": [int(e["frame"]) for e in vo.submap_events]}
     return result
 
 

@@ -15,6 +15,7 @@ than 1e-6, 1e-4 and 1e-2 m.
 
     python tools/trace_card_cpu.py [--root DIR] [--case boot160|phase6|slamhost|all]
         [--frames N] [--out FILE]
+    python tools/trace_card_cpu.py --case eval --ref ref.json [--out FILE]
 
 - ``boot160``: ``DeviceVO`` from frame 0 of the 160x120 orbit of
   ``tests/torch_parity.py`` (2 levels x 128 features, 512 map points,
@@ -29,6 +30,14 @@ than 1e-6, 1e-4 and 1e-2 m.
   ``tests/test_torch_slam_host.py`` runs it.
 - ``chain``: grayscale of RGB (uint8 and float), downsample and blur at
   160x120, card against CPU (always run first).
+- ``eval``: the port's ``eval_ate.run_sequence`` on the card against the
+  JAX reference's run of the same sequence and mode (``--ref FILE``,
+  written by ``tools/jax_reference_orbit.py --eval NAME --out FILE``), on
+  the same files and with the reference's draws
+  (``torch_parity.JaxSampler``): the first frame whose tracking or keyframe
+  flag or counts (features, matches, inliers, landmarks) differ, the frames
+  where the raw camera centres part by more than 1e-6, 1e-4 and 1e-2 m,
+  and both runs' reboot frames.  Needs ``jax`` for the draws.
 
 ``--root`` imports ``tinyslam_tpu_torch`` from another tree (a parent
 commit unpacked with ``git archive``), to trace it with this script.
@@ -357,11 +366,65 @@ def case_slamhost(dev, rec, n=None) -> list[dict]:
     return [tr.summary()]
 
 
+def case_eval(dev, ref_path) -> list[dict]:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tests"))
+    import torch_parity as P
+    from tinyslam_tpu_torch import eval_ate
+
+    ref = json.loads(Path(ref_path).read_text())
+    if ref.get("key_offset"):
+        raise SystemExit("trace_card_cpu --case eval: the reference must be at key offset 0")
+    name = {v: k for k, v in eval_ate.SEQUENCES.items()}[ref["sequence"]]
+    spec = eval_ate.SPECS[name](ref["frames"])
+    root, _ = eval_ate.dataset_sequence(spec)
+    made, real = [], {k: getattr(eval_ate, k) for k in ("DeviceSlam", "DeviceVO")}
+    for k, cls in real.items():
+        setattr(eval_ate, k, lambda *a, _cls=cls, **kw: made.append(_cls(*a, **kw)) or made[-1])
+    try:
+        out = eval_ate.run_sequence(ref["sequence"], spec["kind"], root, ref["mode"], "device",
+                                    device=dev, sampler=P.JaxSampler())
+    finally:
+        for k, cls in real.items():
+            setattr(eval_ate, k, cls)
+    system = made[-1]
+    vo = system.vo if ref["mode"] == "slam" else system
+    rows = [[int(s.tracking), int(s.is_keyframe), s.num_features, s.num_matches,
+             s.num_inliers, s.num_landmarks] for s in vo.stats]
+    centres = np.asarray(system.raw_positions if ref["mode"] == "slam" else vo.positions)
+    names = ("tracking", "keyframe", "features", "matches", "inliers", "landmarks")
+    first = None
+    for i, (a, b) in enumerate(zip(rows, ref["per_frame"]["summary"])):
+        bad = [f"{n} {x} vs {y}" for n, x, y in zip(names, a, b) if x != y]
+        if bad:
+            first = {"frame": i, "port vs reference": bad}
+            break
+    dc = np.linalg.norm(centres - np.asarray(ref["per_frame"]["centres"]), axis=1)
+    part = {str(t): (int(np.flatnonzero(dc > t)[0]) if (dc > t).any() else None)
+            for t in (1e-6, 1e-4, 1e-2)}
+    keys = ("tracked", "reboots", "keyframes", "loop_closures", "ate_rmse_m", "ate_se3_m",
+            "ate_raw_m", "rpe_trans_m", "rpe_rot_deg")
+    res = {"case": f"eval {ref['sequence']} {ref['mode']}",
+           "port": {k: out[k] for k in keys}, "reference": {k: ref[k] for k in keys},
+           "first_difference": first, "centres_part_at": part,
+           "reboots": {"port": [int(e["frame"]) for e in vo.submap_events],
+                       "reference": ref["per_frame"]["reboots"]},
+           "per_frame": {"port": rows, "centre_diff": dc.tolist()}}
+    print(f"eval {ref['sequence']} {ref['mode']}, port with the reference's draws: first "
+          f"difference {first}; centres part by 1e-6/1e-4/1e-2 m at frames {part}; reboots "
+          f"{res['reboots']}", flush=True)
+    return [res]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None)
     ap.add_argument("--case", default="all",
-                    choices=("boot160", "phase6", "slamhost", "chain", "all"))
+                    choices=("boot160", "phase6", "slamhost", "chain", "eval", "all"))
+    ap.add_argument("--ref", help="with --case eval: tools/jax_reference_orbit.py --eval's "
+                                  "--out file")
     ap.add_argument("--frames", type=int, default=189)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -382,7 +445,13 @@ def main(argv=None) -> int:
     result = {"root": str(Path(tinyslam_tpu_torch.__file__).parent.parent),
               "chain": chain_check(dev)}
     print("chain (None = bit-equal):", result["chain"], flush=True)
-    cases = ("boot160", "slamhost", "phase6") if args.case == "all" else (args.case,)
+    if args.case == "eval":
+        t0 = time.perf_counter()
+        result["eval"] = case_eval(dev, args.ref)
+        print(json.dumps({k: v for k, v in result["eval"][0].items() if k != "per_frame"}))
+        print(f"eval: {time.perf_counter() - t0:.1f} s", flush=True)
+    cases = (("boot160", "slamhost", "phase6") if args.case == "all"
+             else () if args.case == "eval" else (args.case,))
     with Recorder() as rec:
         for case in cases:
             if case == "chain":
