@@ -167,7 +167,15 @@ Phases, in order; any failure raises and the script exits nonzero:
      once a frame, K2 once per keyframe ingest, 1 + ``loop_candidates``
      times per loop probe and at least once per tracked frame besides; the
      medians of the four inside the JAX reference's envelope over four key
-     offsets (``REF_LOOP_*``, as phase 10's).
+     offsets (``REF_LOOP_*``, as phase 10's);
+ 15. the error budget: ``tinyslam_tpu_torch.error_budget.budget_for_sequence``
+     on phase 14's fr1_loop-like frames under ``Sampler(0)`` (VO with and
+     without BA, then SLAM): every stage with the JAX tool's keys and finite
+     numbers, each loop candidate classified against the ground-truth
+     revisits (tp + fp + fn + tn = candidates, the accepted ones = the
+     closures), K1 and K2 launched; the SLAM stage printed beside phase
+     14's ``Sampler(0)`` run (not a gate: two runs on the card are not yet
+     shown to agree).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -1420,6 +1428,103 @@ def _loop_phase(dev, smi):
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
     if failures:
         raise AssertionError("loop eval phase: " + "; ".join(failures))
+    return launches, runs
+
+
+# The keys of tools/error_budget.py's report, stage by stage.
+BUDGET_KEYS = {
+    "vo_ba_on": ("tracked", "frames", "reboots", "drift_segment", "ate_sim3_m", "ate_se3_m",
+                 "dist_travelled_m", "scale_drift_logspread", "scale_drift_per_m",
+                 "windowed_scale"),
+    "bootstrap": ("first_tracked_frame", "window_scale_vs_run", "window_rmse_m"),
+    "loop_gates": ("candidates", "tp", "fp", "fn", "tn", "precision", "recall",
+                   "accepted_scales", "log"),
+    "slam": ("loop_closures", "keyframes", "reboots", "ate_sim3_m", "ate_se3_m",
+             "ate_raw_sim3_m"),
+}
+BUDGET_KEYS["vo_ba_off"] = BUDGET_KEYS["vo_ba_on"]
+
+
+def _numbers(x):
+    """Every number in a nest of dicts and lists."""
+    if isinstance(x, dict):
+        return [n for v in x.values() for n in _numbers(v)]
+    if isinstance(x, (list, tuple)):
+        return [n for v in x for n in _numbers(v)]
+    return [x] if isinstance(x, (int, float)) and not isinstance(x, bool) else []
+
+
+def _budget_phase(dev, smi, loop_run):
+    """Phase 15: the error budget on the card, on phase 14's fr1_loop-like
+    frames under ``Sampler(0)``; ``loop_run`` is phase 14's ``Sampler(0)``
+    run.  Returns the kernels' launch counts."""
+    import torch
+
+    from tinyslam_tpu_torch import error_budget, eval_ate
+    from tinyslam_tpu_torch.data.tum import TumSequence
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+
+    root, _ = eval_ate.dataset_sequence(eval_ate.fr1_loop_spec(N_LOOP))
+    made, real = [], error_budget.DeviceSlam
+    error_budget.DeviceSlam = lambda *a, **kw: made.append(real(*a, **kw)) or made[-1]
+    try:
+        torch.cuda.synchronize()
+        fast_cuda.LAUNCHES = 0
+        match_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rep = error_budget.budget_for_sequence("fr1_loop_like", "tum", root, device=dev, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
+                    "match_reduce_streaming": match_cuda.LAUNCHES}
+    finally:
+        error_budget.DeviceSlam = real
+    slam = made[-1]
+    for stage in ("vo_ba_on", "vo_ba_off", "bootstrap", "slam"):
+        print(f"phase 15 {stage}: "
+              f"{json.dumps({k: v for k, v in rep[stage].items() if k != 'windowed_scale'})}")
+    gates = {k: v for k, v in rep["loop_gates"].items() if k != "log"}
+    print(f"phase 15 loop_gates: {json.dumps(gates)}")
+    gt = TumSequence.open(root).gt_positions()[:len(slam.vo.stats)]
+    print("phase 15 loop candidates: kf old frames gt_dist_m n_appear inliers/chain rmse "
+          "s_e s_e_med accepted revisit")
+    for r in slam.loop_log:
+        fi, fj = slam.kf_frame_of.get(r["kf"]), slam.kf_frame_of.get(r["old"])
+        dist = (float(np.linalg.norm(gt[fi] - gt[fj]))
+                if fi is not None and fj is not None and max(fi, fj) < len(gt) else None)
+        truth = dist is not None and dist < error_budget.REVISIT_M
+        print(f"  {r['kf']:3d} {r['old']:3d} {fi}-{fj} "
+              f"{dist if dist is None else round(dist, 3)} {r['n_appear']} {r['num_inliers']}/{r['n_chain']} {r['rmse']:.3f} "
+              f"{r['s_e']:.4f} {r['s_e_med']:.4f} {r['accepted']} {truth}")
+    print(f"phase 15 slam beside phase 14's Sampler(0) run (not a gate): closures "
+          f"{rep['slam']['loop_closures']} vs {loop_run['loop_closures']}, keyframes "
+          f"{rep['slam']['keyframes']} vs {loop_run['keyframes']}, ATE Sim(3) "
+          f"{rep['slam']['ate_sim3_m']} vs {loop_run['ate_rmse_m']}, SE(3) "
+          f"{rep['slam']['ate_se3_m']} vs {loop_run['ate_se3_m']}, raw "
+          f"{rep['slam']['ate_raw_sim3_m']} vs {loop_run['ate_raw_m']} m  [{smi}]")
+    print(f"phase 15: 3 runs of {len(slam.vo.stats)} frames in {wall:.1f} s; K1 "
+          f"{launches['fast_score_map_fused']}, K2 {launches['match_reduce_streaming']} "
+          f"launches  [{smi}]")
+    failures = []
+    for stage, keys in BUDGET_KEYS.items():
+        missing = set(keys) - set(rep.get(stage, {}))
+        if missing:
+            failures.append(f"{stage} lacks {sorted(missing)}")
+    numbers = _numbers({k: v for k, v in rep.items() if k != "loop_gates"}
+                       | {"loop_gates": gates})
+    if not np.isfinite(np.asarray(numbers, np.float64)).all():
+        failures.append("a number of the report is not finite")
+    g = rep["loop_gates"]
+    if g["candidates"] != g["tp"] + g["fp"] + g["fn"] + g["tn"]:
+        failures.append(f"{g['candidates']} candidates != tp + fp + fn + tn")
+    accepted = sum(r["accepted"] for r in slam.loop_log)
+    if not accepted == g["tp"] + g["fp"] == rep["slam"]["loop_closures"]:
+        failures.append(f"{accepted} accepted candidates, {rep['slam']['loop_closures']} "
+                        f"closures")
+    if 0 in launches.values():
+        failures.append(f"a kernel launched no time: {launches}")
+    if failures:
+        raise AssertionError("error budget phase: " + "; ".join(failures))
     return launches
 
 
@@ -2487,7 +2592,10 @@ def main() -> None:
     ms_launches, _, case4 = _multiseq_phase(cam, room, poses, frames, dev, smi, timed)
 
     # ---- 14. the accuracy eval: fr1_loop-like under four samplers --------------
-    loop_launches = _loop_phase(dev, smi)
+    loop_launches, loop_runs = _loop_phase(dev, smi)
+
+    # ---- 15. the error budget on fr1_loop-like under Sampler(0) ----------------
+    budget_launches = _budget_phase(dev, smi, loop_runs[0])
 
     # ---- 7. kernel times -----------------------------------------------------
     # Last: once the profiler has run in a process, every later launch
@@ -2579,7 +2687,7 @@ def main() -> None:
          "launches": sum(x["fast_score_map_fused"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
                                    data_launches, rec_launches, dist_launches, ms_launches,
-                                   loop_launches)),
+                                   loop_launches, budget_launches)),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "match_reduce_streaming", "route": "cuda",
@@ -2588,7 +2696,7 @@ def main() -> None:
          "launches": sum(x["match_reduce_streaming"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
                                    data_launches, rec_launches, dist_launches, ms_launches,
-                                   loop_launches)),
+                                   loop_launches, budget_launches)),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["K2 real guided r=20"][0],
          "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},

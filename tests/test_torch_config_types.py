@@ -94,3 +94,28 @@ def test_camera_rounds_to_float32():
     assert tcam.fx == float(jcam.fx) and tcam.cx == float(jcam.cx)
     odd = type(tcam).create(517.3, 516.5, 318.6, 255.3)
     assert odd.fx == float(np.float32(517.3))
+
+
+@pytest.mark.parametrize("intrinsics", ["FR1_INTRINSICS", "EUROC_CAM0", "small"])
+def test_camera_K_equals_jax(intrinsics):
+    from tinyslam_tpu.data import euroc as jeuroc, tum as jtum
+    from tinyslam_tpu.geometry.camera import PinholeCamera as JCam
+    from tinyslam_tpu_torch.geometry.camera import PinholeCamera as TCam
+
+    kw = {"FR1_INTRINSICS": jtum.FR1_INTRINSICS, "EUROC_CAM0": jeuroc.EUROC_CAM0,
+          "small": P.CAMERA}[intrinsics]
+    got, want = TCam.create(**kw).K, np.asarray(JCam.create(**kw).K)
+    assert got.dtype == torch.float32 and got.shape == (3, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_frame_fields_equal_jax():
+    import dataclasses
+
+    assert [f.name for f in dataclasses.fields(tt.Frame)] == \
+        [f.name for f in dataclasses.fields(jt.Frame)]
+    rgb = np.random.default_rng(5).integers(0, 256, (4, 6, 3), np.uint8)
+    frame = tt.Frame(rgb=torch.from_numpy(rgb), timestamp=torch.tensor(1.25, dtype=torch.float64))
+    ref = jt.Frame(rgb=jnp.asarray(rgb), timestamp=jnp.float32(1.25))
+    np.testing.assert_array_equal(frame.rgb.numpy(), np.asarray(ref.rgb))
+    assert float(frame.timestamp) == float(ref.timestamp)

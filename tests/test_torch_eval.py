@@ -19,7 +19,6 @@
 
 from __future__ import annotations
 
-import dataclasses
 import importlib.util
 import json
 from pathlib import Path
@@ -96,16 +95,7 @@ def test_fr1_loop_returns_to_its_start():
 def sequence(tmp_path_factory):
     """The 160x120 orbit out and back with real-camera photometrics,
     written in the TUM layout by the port's writer."""
-    from tinyslam_tpu_torch.data.synthetic import apply_photometrics, write_tum_sequence
-
-    frames, poses, _ = P.orbit(N_OUT)
-    frames, poses = frames + frames[-2::-1], poses + poses[-2::-1]
-    rng = np.random.default_rng(8)
-    images = [apply_photometrics(f, rng, exposure=1.0 + 0.005 * (i % 7))
-              for i, f in enumerate(frames)]
-    root = tmp_path_factory.mktemp("eval") / "fr1_desk_like"
-    write_tum_sequence(root, images, poses)
-    return root
+    return P.out_and_back_tum(tmp_path_factory.mktemp("eval") / "fr1_desk_like", N_OUT)
 
 
 @pytest.fixture
@@ -113,19 +103,7 @@ def small(monkeypatch, tmp_path):
     """Both tools on the small set-up: ``SlamConfig`` and ``FR1_INTRINSICS``
     replaced in their namespaces; the JAX loader through a private build
     of its native sources."""
-    import tinyslam_tpu.config as jconfig
-    import tinyslam_tpu.data.tum as jtum
-    import tinyslam_tpu.models  # noqa: F401  (imported before its SlamConfig is replaced)
-    import tinyslam_tpu.native as jn
-
-    jcfg, tcfg = (dataclasses.replace(c, pose_graph=dataclasses.replace(
-        c.pose_graph, loop_min_gap=LOOP_MIN_GAP)) for c in P.configs(keyframes=True))
-    monkeypatch.setattr(jconfig, "SlamConfig", lambda: jcfg)
-    monkeypatch.setattr(jtum, "FR1_INTRINSICS", P.CAMERA)
-    monkeypatch.setattr(eval_ate, "SlamConfig", lambda: tcfg)
-    monkeypatch.setattr(eval_ate, "FR1_INTRINSICS", P.CAMERA)
-    monkeypatch.setattr(jn, "_SO", P.jax_native_library(tmp_path))
-    monkeypatch.setattr(jn, "_lib", None)
+    P.small_tools(monkeypatch, tmp_path, LOOP_MIN_GAP, eval_ate)
 
 
 EQUAL = ("frames", "tracked", "keyframes", "loop_closures", "reboots", "host_frames")

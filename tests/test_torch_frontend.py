@@ -47,6 +47,18 @@ def test_streak_exhaustive(n):
     np.testing.assert_array_equal(got, np.asarray(jfast.detect_streak(jnp.asarray(masks), n)))
 
 
+def test_streak16_equals_jax():
+    """``detect_streak_16`` on all 65,536 masks, exported from ``ops`` as
+    the JAX package exports it."""
+    from tinyslam_tpu.ops import detect_streak_16 as jstreak16
+    from tinyslam_tpu_torch.ops import detect_streak_16
+
+    masks = np.arange(65536, dtype=np.int32)
+    got = detect_streak_16(torch.from_numpy(masks)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jstreak16(jnp.asarray(masks))))
+    np.testing.assert_array_equal(got, tfast.detect_streak(torch.from_numpy(masks), 12).numpy())
+
+
 @pytest.mark.parametrize("kind,threshold", [("frame", 0.06), ("noise", 0.1), ("noise", 0.02)])
 def test_fast_maps_match_jax(kind, threshold):
     img = _img(kind)

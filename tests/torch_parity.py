@@ -81,6 +81,42 @@ def orbit(n_frames: int):
     return [room.render(cam, R, t, WIDTH, HEIGHT) for R, t in poses], poses, room
 
 
+def out_and_back_tum(root, n_out: int):
+    """The orbit's frames 0..n_out-1, then n_out-2..0, with real-camera
+    photometrics, written in the TUM layout under ``root`` by the port's
+    writer; returns ``root``."""
+    from tinyslam_tpu_torch.data.synthetic import apply_photometrics, write_tum_sequence
+
+    frames, poses, _ = orbit(n_out)
+    frames, poses = frames + frames[-2::-1], poses + poses[-2::-1]
+    rng = np.random.default_rng(8)
+    images = [apply_photometrics(f, rng, exposure=1.0 + 0.005 * (i % 7))
+              for i, f in enumerate(frames)]
+    write_tum_sequence(root, images, poses)
+    return root
+
+
+def small_tools(monkeypatch, native_dir, loop_min_gap: int, *port_modules):
+    """The JAX package's tools and the port's ``port_modules`` on the small
+    set-up with keyframes and ``loop_min_gap``: ``SlamConfig`` and
+    ``FR1_INTRINSICS`` replaced in their namespaces; the JAX loader through
+    a private build of its native sources in ``native_dir``."""
+    import tinyslam_tpu.config as jconfig
+    import tinyslam_tpu.data.tum as jtum
+    import tinyslam_tpu.models  # noqa: F401  (imported before its SlamConfig is replaced)
+    import tinyslam_tpu.native as jn
+
+    jcfg, tcfg = (dataclasses.replace(c, pose_graph=dataclasses.replace(
+        c.pose_graph, loop_min_gap=loop_min_gap)) for c in configs(keyframes=True))
+    monkeypatch.setattr(jconfig, "SlamConfig", lambda: jcfg)
+    monkeypatch.setattr(jtum, "FR1_INTRINSICS", CAMERA)
+    for mod in port_modules:
+        monkeypatch.setattr(mod, "SlamConfig", lambda: tcfg)
+        monkeypatch.setattr(mod, "FR1_INTRINSICS", CAMERA)
+    monkeypatch.setattr(jn, "_SO", jax_native_library(native_dir))
+    monkeypatch.setattr(jn, "_lib", None)
+
+
 def seeded_state(tcfg, feats: dict, room, pose) -> dict:
     """Flat numpy VOState: the map holds the valid features of one frame at
     their ray-cast ground-truth 3D points, the pose is that frame's."""
@@ -124,9 +160,12 @@ class JaxSampler:
     tracker's relocalization), ``("host_reloc", frame_idx)`` is
     ``PRNGKey(frame_idx)`` (``VisualOdometry``'s relocalization) and
     ``("loop", kf_id * 131 + old_id)`` is ``fold_in(PRNGKey(23), n)`` (the
-    loop probe's PnP-RANSAC).  ``calls`` lists the keys drawn, in order."""
+    loop probe's PnP-RANSAC).  ``key_offset`` k adds 1000 k to every
+    ``PRNGKey`` seed, as ``tools/jax_reference_orbit.py --key-offset k``
+    does to the JAX package.  ``calls`` lists the keys drawn, in order."""
 
-    def __init__(self):
+    def __init__(self, key_offset: int = 0):
+        self.key_offset = key_offset
         self.calls: list = []
 
     def _key(self, key):
@@ -135,14 +174,15 @@ class JaxSampler:
         self.calls.append(tuple(int(k) if isinstance(k, torch.Tensor) else k
                                 for k in key))
         kind, n = key[0], int(key[1])
+        prng = lambda seed: jax.random.PRNGKey(seed + 1000 * self.key_offset)  # noqa: E731
         if kind == "two_view":
-            return jax.random.split(jax.random.PRNGKey(n))[0 if key[2] == "E" else 1]
+            return jax.random.split(prng(n))[0 if key[2] == "E" else 1]
         if kind == "reloc":
-            return jax.random.fold_in(jax.random.PRNGKey(17), n)
+            return jax.random.fold_in(prng(17), n)
         if kind == "host_reloc":
-            return jax.random.PRNGKey(n)
+            return prng(n)
         if kind == "loop":
-            return jax.random.fold_in(jax.random.PRNGKey(23), n)
+            return jax.random.fold_in(prng(23), n)
         raise KeyError(key)
 
     def uniform(self, shape, device, key=None) -> torch.Tensor:

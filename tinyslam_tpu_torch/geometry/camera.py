@@ -27,6 +27,12 @@ class PinholeCamera:
         f = lambda v: float(np.float32(v))
         return PinholeCamera(f(fx), f(fy), f(cx), f(cy))
 
+    @property
+    def K(self) -> torch.Tensor:
+        """The float32 (3, 3) intrinsic matrix."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy],
+                             [0.0, 0.0, 1.0]], dtype=torch.float32)
+
     def project(self, xc: torch.Tensor, eps: float = 1e-6):
         """Camera-frame points (..., 3) -> pixels (..., 2), plus a validity
         mask (point in front of the camera)."""

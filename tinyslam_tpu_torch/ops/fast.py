@@ -58,6 +58,11 @@ def detect_streak(x: torch.Tensor, n: int) -> torch.Tensor:
     return run
 
 
+def detect_streak_16(x: torch.Tensor) -> torch.Tensor:
+    """The exact n=12 variant of the FAST segment test."""
+    return detect_streak(x, 12)
+
+
 def fast_score_map(img: torch.Tensor, threshold, border: int = 20,
                    streak: int = 9):
     """Dense FAST-16 corner response of one (H, W) level.

@@ -81,6 +81,14 @@ class Features:
                 for f in dataclasses.fields(self)}
 
 
+
+@dataclass
+class Frame:
+    """One input frame: image plus metadata."""
+
+    rgb: torch.Tensor          # (H, W, 3) float32 in [0, 1] or uint8
+    timestamp: torch.Tensor    # () float64 or float32 seconds
+
 def from_numpy(a, device=None) -> torch.Tensor:
     """numpy -> tensor; ``uint32`` (descriptors) is re-viewed as int32."""
     a = np.asarray(a)

@@ -56,10 +56,16 @@ the JAX tool's builders byte for byte), read by the JAX package's own
 loader (a private build of its native sources under ``build/``).  Prints
 and writes the JAX tool's JSON with ``key_offset`` and a per-frame record
 added (``per_frame``: each frame's tracking and keyframe flags and counts,
-the raw camera centres, the reboot frames; ``tools/trace_card_cpu.py
+the raw camera centres, the reboot frames and, in ``slam`` mode, every
+loop candidate's record and the keyframes' frames; ``tools/trace_card_cpu.py
 --case eval --ref`` compares the port's run with it):
 ``EVAL_jaxcpu_*.json`` and ``chip_smoke.REF_LOOP_*`` (fr1_loop, ``slam``,
-offsets 0-3).
+offsets 0-3).  With ``--boot-sweep N``: the host tracker's first bootstrap
+attempt on that sequence (frame 3 against frame 0), the JAX two-view
+estimate against the port's on the CPU on each one's own features, under
+the reference's draws at key offsets 0..N-1: inliers, median parallax,
+whether it passes the bootstrap's gates and its translation's angle to
+the ground truth's (about a minute).
 
     python tools/jax_reference_orbit.py --frames 189 [--out ref.json]
     python tools/jax_reference_orbit.py --bootstrap --frames 101
@@ -69,6 +75,7 @@ offsets 0-3).
     python tools/jax_reference_orbit.py --euroc --frames 60 --prefix [--key-offset S]
     python tools/jax_reference_orbit.py --eval fr1_loop [--mode slam|vo] [--frames 300]
         [--key-offset S] [--out ref.json]
+    python tools/jax_reference_orbit.py --eval fr1_loop --boot-sweep 24 [--out sweep.json]
 
 Full width takes about 3 minutes and a few GB on an 8-core CPU.  Where
 ``flax`` is not installed, a minimal stand-in for ``flax.struct`` (a frozen
@@ -133,6 +140,9 @@ def main() -> None:
                     help="run tools/eval_ate.py's run_sequence on this sequence")
     ap.add_argument("--mode", choices=["slam", "vo"], default="slam",
                     help="with --eval: the harness's mode")
+    ap.add_argument("--boot-sweep", type=int, default=0, metavar="N",
+                    help="with --eval: the first bootstrap attempt under key offsets 0..N-1, "
+                         "the JAX estimate against the port's")
     args = ap.parse_args()
     if args.frames is None:
         args.frames = 300 if args.eval else 189
@@ -164,6 +174,11 @@ def main() -> None:
     from tinyslam_tpu_torch.types import Features
 
     jcfg = JaxSlamConfig()
+    if args.eval and args.boot_sweep:
+        result = _boot_sweep(args.eval, args.frames, args.boot_sweep)
+        if args.out is not None:
+            args.out.write_text(json.dumps(result))
+        return
     if args.eval:
         result = _eval(args.eval, args.mode, args.frames)
         result["key_offset"] = args.key_offset
@@ -442,6 +457,87 @@ def _eval(name: str, mode: str, n: int) -> dict:
         "centres": np.asarray(system.raw_positions if mode == "slam" else vo.positions,
                               np.float64).tolist(),
         "reboots": [int(e["frame"]) for e in vo.submap_events]}
+    if mode == "slam":
+        result["per_frame"].update(
+            loop_log=system.loop_log,
+            kf_frame_of={str(k): int(f) for k, f in system.kf_frame_of.items()})
+    return result
+
+
+def _boot_sweep(name: str, n: int, offsets: int) -> dict:
+    """The first two-view bootstrap attempt on sequence ``name`` (the host
+    tracker's, frame 3 against frame 0): the JAX ``TwoViewEstimator`` and
+    the port's on the CPU, each on the features its own ``VisualOdometry``
+    extracted, under the reference's draws at key offsets 0..offsets-1.
+    Per offset: each one's inliers, median parallax, whether the attempt
+    passes the bootstrap's gates, and the angle of its translation to the
+    ground truth's."""
+    import jax
+
+    import torch_parity as P
+    from tinyslam_tpu.config import SlamConfig as JaxSlamConfig
+    from tinyslam_tpu.geometry.camera import PinholeCamera as JaxCamera
+    from tinyslam_tpu.models.vo import VisualOdometry as JaxVO
+    from tinyslam_tpu_torch import SlamConfig, eval_ate as port
+    from tinyslam_tpu_torch.geometry.camera import PinholeCamera
+    from tinyslam_tpu_torch.models.vo import VisualOdometry
+
+    spec = port.SPECS[name](n)
+    root, _ = port.dataset_sequence(spec)
+    seq = (port.TumSequence if spec["kind"] == "tum" else port.EurocSequence).open(root)
+    intr = port.FR1_INTRINSICS if spec["kind"] == "tum" else port.EUROC_CAM0
+    cfg, jcfg = SlamConfig(), JaxSlamConfig()
+    pairs = {}
+    jvo = JaxVO(jcfg, JaxCamera.create(**intr))
+    jest = jvo.two_view.estimate
+    jvo.two_view.estimate = lambda fa, fb, key=None: (
+        pairs.setdefault("jax", (fa, fb)), jest(fa, fb, key))[1]
+    tvo = VisualOdometry(cfg, PinholeCamera.create(**intr), device="cpu",
+                         sampler=P.JaxSampler())
+    test = tvo.two_view.estimate
+    tvo.two_view.estimate = lambda fa, fb, sampler, seed=0: (
+        pairs.setdefault("port", (fa, fb, seed)), test(fa, fb, sampler, seed=seed))[1]
+    for _, image in seq.frames():
+        if len(pairs) == 2:
+            break
+        jvo.process(image)
+        tvo.process(image)
+    frame = pairs["port"][2]
+    (_, Ra, ta), (_, Rb, tb) = seq.groundtruth[0], seq.groundtruth[frame]
+    R_gt = Rb @ Ra.T
+    t_gt = tb - R_gt @ ta
+    t_gt /= np.linalg.norm(t_gt)
+
+    def gates(res) -> dict:
+        g = {k: np.asarray(v, np.float64) for k, v in res.items() if k != "model"}
+        mv, inl, X = g["match_valid"] > 0.5, g["inliers"] > 0.5, g["points"]
+        good = inl & mv & np.isfinite(X).all(-1) & (X[:, 2] > 0.1) & (X[:, 2] < 1e4)
+        C1 = -g["R"].T @ g["t"]
+        Xg = X[good]
+        r1 = Xg - C1
+        cosp = np.sum(Xg * r1, -1) / np.maximum(
+            np.linalg.norm(Xg, axis=-1) * np.linalg.norm(r1, axis=-1), 1e-12)
+        par = float(np.degrees(np.arccos(np.clip(np.median(cosp), -1, 1)))) if len(Xg) else None
+        t = g["t"] / np.linalg.norm(g["t"])
+        return {"matches": int(mv.sum()), "inliers": int(g["num_inliers"]),
+                "parallax_deg": par,
+                "passes": bool(mv.sum() >= 50 and g["num_inliers"] >= 60 and good.sum() >= 50
+                               and par is not None and par >= cfg.vo.min_parallax_deg),
+                "t_to_gt_deg": float(np.degrees(np.arccos(np.clip(t @ t_gt, -1, 1))))}
+
+    rows = []
+    for k in range(offsets):
+        rows.append({"key_offset": k,
+                     "jax": gates(jest(*pairs["jax"], key=jax.random.PRNGKey(frame + 1000 * k))),
+                     "port": gates(test(*pairs["port"][:2], P.JaxSampler(k), seed=frame))})
+        print(json.dumps(rows[-1]), flush=True)
+    same = sum(r["jax"]["passes"] == r["port"]["passes"] for r in rows)
+    result = {"sequence": port.SEQUENCES[name], "frame": frame, "offsets": offsets,
+              "passes": [sum(r[s]["passes"] for r in rows) for s in ("jax", "port")],
+              "same_decision": same, "rows": rows}
+    print(f"{name}: the bootstrap attempt at frame {frame} passes under {result['passes'][0]} "
+          f"(JAX) and {result['passes'][1]} (port) of {offsets} key offsets; the same decision "
+          f"at {same}", flush=True)
     return result
 
 

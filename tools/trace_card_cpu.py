@@ -34,10 +34,14 @@ than 1e-6, 1e-4 and 1e-2 m.
   JAX reference's run of the same sequence and mode (``--ref FILE``,
   written by ``tools/jax_reference_orbit.py --eval NAME --out FILE``), on
   the same files and with the reference's draws
-  (``torch_parity.JaxSampler``): the first frame whose tracking or keyframe
-  flag or counts (features, matches, inliers, landmarks) differ, the frames
-  where the raw camera centres part by more than 1e-6, 1e-4 and 1e-2 m,
-  and both runs' reboot frames.  Needs ``jax`` for the draws.
+  (``torch_parity.JaxSampler`` at the reference's key offset, any offset):
+  the first frame whose tracking or keyframe flag or counts (features,
+  matches, inliers, landmarks) differ, the frames where the raw camera
+  centres part by more than 1e-6, 1e-4 and 1e-2 m, and both runs' reboot
+  frames; in ``slam`` mode, with a reference that records its loop log,
+  every loop candidate side by side (keyframes, decision, inliers,
+  ``s_e``), the first that differs and the largest relative ``s_e``
+  difference of the accepted ones.  Needs ``jax`` for the draws.
 
 ``--root`` imports ``tinyslam_tpu_torch`` from another tree (a parent
 commit unpacked with ``git archive``), to trace it with this script.
@@ -375,8 +379,6 @@ def case_eval(dev, ref_path) -> list[dict]:
     from tinyslam_tpu_torch import eval_ate
 
     ref = json.loads(Path(ref_path).read_text())
-    if ref.get("key_offset"):
-        raise SystemExit("trace_card_cpu --case eval: the reference must be at key offset 0")
     name = {v: k for k, v in eval_ate.SEQUENCES.items()}[ref["sequence"]]
     spec = eval_ate.SPECS[name](ref["frames"])
     root, _ = eval_ate.dataset_sequence(spec)
@@ -385,7 +387,8 @@ def case_eval(dev, ref_path) -> list[dict]:
         setattr(eval_ate, k, lambda *a, _cls=cls, **kw: made.append(_cls(*a, **kw)) or made[-1])
     try:
         out = eval_ate.run_sequence(ref["sequence"], spec["kind"], root, ref["mode"], "device",
-                                    device=dev, sampler=P.JaxSampler())
+                                    device=dev,
+                                    sampler=P.JaxSampler(ref.get("key_offset", 0)))
     finally:
         for k, cls in real.items():
             setattr(eval_ate, k, cls)
@@ -407,6 +410,7 @@ def case_eval(dev, ref_path) -> list[dict]:
     keys = ("tracked", "reboots", "keyframes", "loop_closures", "ate_rmse_m", "ate_se3_m",
             "ate_raw_m", "rpe_trans_m", "rpe_rot_deg")
     res = {"case": f"eval {ref['sequence']} {ref['mode']}",
+           "key_offset": ref.get("key_offset", 0),
            "port": {k: out[k] for k in keys}, "reference": {k: ref[k] for k in keys},
            "first_difference": first, "centres_part_at": part,
            "reboots": {"port": [int(e["frame"]) for e in vo.submap_events],
@@ -415,7 +419,48 @@ def case_eval(dev, ref_path) -> list[dict]:
     print(f"eval {ref['sequence']} {ref['mode']}, port with the reference's draws: first "
           f"difference {first}; centres part by 1e-6/1e-4/1e-2 m at frames {part}; reboots "
           f"{res['reboots']}", flush=True)
+    if ref["mode"] == "slam" and "loop_log" in ref["per_frame"]:
+        res["loop"] = compare_loop_logs(system.loop_log, ref["per_frame"]["loop_log"])
+        res["per_frame"]["loop_log"] = system.loop_log
+        res["per_frame"]["kf_frame_of"] = {str(k): f for k, f in system.kf_frame_of.items()}
+        for a, b in zip(system.loop_log, ref["per_frame"]["loop_log"]):
+            print(f"  candidate kf {a['kf']} old {a['old']}: port accepted {a['accepted']} "
+                  f"inliers {a['num_inliers']}/{a['n_chain']} s_e {a['s_e']:.5g} pairs "
+                  f"{a['n_scale_pairs']}/{a['n_scale_new']}; reference kf {b['kf']} old "
+                  f"{b['old']} accepted {b['accepted']} inliers {b['num_inliers']}/{b['n_chain']} "
+                  f"s_e {b['s_e']:.5g} pairs {b['n_scale_pairs']}/{b['n_scale_new']}", flush=True)
+        print(f"loop log: {json.dumps(res['loop'])}; ATE raw -> corrected: port "
+              f"{out['ate_raw_m']} -> {out['ate_rmse_m']}, reference {ref['ate_raw_m']} -> "
+              f"{ref['ate_rmse_m']}", flush=True)
     return [res]
+
+
+LOOP_EQUAL = ("kf", "old", "accepted", "n_appear", "n_chain", "num_inliers", "n_scale_pairs")
+
+
+def compare_loop_logs(port: list[dict], ref: list[dict], s_e_rel: float = 2e-3) -> dict:
+    """The loop candidates of two runs side by side, in order: the first
+    whose keyframes, decision or counts differ, and the largest relative
+    difference of ``s_e`` over the accepted candidates both runs share
+    (within ``s_e_rel``, phase 9b's tolerance, or not)."""
+    first = None
+    rel = []
+    for i, (a, b) in enumerate(zip(port, ref)):
+        bad = [f"{k} {a[k]} vs {b[k]}" for k in LOOP_EQUAL if a[k] != b[k]]
+        if bad and first is None:
+            first = {"candidate": i, "port vs reference": bad}
+        if not bad and a["accepted"]:
+            both_nan = np.isnan(a["s_e"]) and np.isnan(b["s_e"])
+            rel.append(0.0 if both_nan else abs(a["s_e"] - b["s_e"]) / max(abs(b["s_e"]), 1e-12))
+    if first is None and len(port) != len(ref):
+        first = {"candidate": min(len(port), len(ref)),
+                 "port vs reference": [f"candidates {len(port)} vs {len(ref)}"]}
+    return {"candidates": [len(port), len(ref)],
+            "accepted": [[(r["kf"], r["old"]) for r in log if r["accepted"]]
+                         for log in (port, ref)],
+            "first_difference": first,
+            "accepted_s_e_max_rel": max(rel) if rel else None,
+            "s_e_within": all(r <= s_e_rel for r in rel)}
 
 
 def main(argv=None) -> int:
