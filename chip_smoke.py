@@ -15,7 +15,10 @@ Phases, in order; any failure raises and the script exits nonzero:
      N=2048 features x M=8192 map points, guided (r=20, 8, the keyframes'
      32 and the relocalization's 64) and unguided (the global
      relocalization), and at the keyframes' and the two-view bootstrap's
-     2048 x 2048;
+     2048 x 2048; and with an explicit (N, M) pair mask (not on the main
+     path): the r=20 gate written out as a mask (equal to the guided
+     result too) at 2048 x 8192 and a random third of the pairs at 2048 x
+     2048;
   5. the tracked-frame slice at full width with keyframes off
      (``slice_config()``): frame 0 seeds the map at its ray-cast 3D points,
      DeviceVO tracks frames 1-24 of the bench orbit on the card; every
@@ -42,9 +45,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      thresholds, K2 also over phase 13's 4 sequences, K2's library
      yardstick (torch._int_mm of the +-1 int8 unpacking, or a bf16 matmul,
      whichever is faster; a bf16 bmm for 4 sequences: the distance matrices
-     alone, never called by the port), each kernel's bound from this run's
-     shapes, and the device time (profiler) of one keyframe insertion, one
-     relocalization frame and one graph solve;
+     alone, never called by the port), K2 with a pair mask (the mask's bytes
+     in its bound), the order-fixed assembly kernel of the pose graph's
+     normal equations at phases 9's and 14's first solve (its order in
+     PyTorch as the plain version, one ``index_add_`` on the card as the
+     library call), each kernel's bound from this run's shapes, and the
+     device time (profiler) of one keyframe insertion, one relocalization
+     frame and one graph solve;
   8. DeviceVO from frame 0 under the default ``SlamConfig()``, no state
      handed over: (a) the host-phase two-view bootstrap must succeed within
      14 frames; (b) every later frame to 100 must track, the Sim(3)-aligned
@@ -68,7 +75,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      bootstrap frame stays within 2 cm of the reference's
      (``REF_SLAM_ATE``); K1 launches once a frame, K2 once per keyframe
      ingest and 1 + ``loop_candidates`` times per loop probe on top of the
-     tracking path, and a tracked frame synchronizes at most 3 times (4 on
+     tracking path, the assembly kernel once a Gauss-Newton iteration of
+     each graph solve (its first inputs bit-equal to ``index_add_`` on the
+     CPU), and a tracked frame synchronizes at most 3 times (4 on
      a keyframe, one more after a lost frame); it prints the SLAM layer's
      syncs per chunk, its timings per stage and its tracked fps against
      ``DeviceVO`` on the same frames; (b) the first probe, the one that
@@ -130,12 +139,11 @@ Phases, in order; any failure raises and the script exits nonzero:
      frames, K1's batched launch against 8 single ones; (c)
      ``bundle_adjust_sharded`` at ``BAConfig()``'s size (K=10, L=2048, 6
      iterations) on a problem built as ``__graft_entry__.py`` builds its BA
-     stage, bit-equal to ``bundle_adjust`` (both under
-     ``torch.use_deterministic_algorithms``), ms an LM iteration; (d) at
+     stage, bit-equal to ``bundle_adjust``, ms an LM iteration; (d) at
      ``PoseGraphConfig()``'s size (N=256, E=1024: an odometry chain, 512
      loop edges and invalid padding) ``optimize_pose_graph_sharded`` over 20
-     iterations bit-equal to ``optimize_pose_graph`` (deterministic: its
-     ``index_add_`` adds by atomics otherwise) and
+     iterations bit-equal to ``optimize_pose_graph`` and to a second run of
+     it (the order-fixed assembly kernel adds the normal equations) and
      ``optimize_pose_graph_node_sharded`` (halo 8, 40 iterations) with
      centres within 0.05 m of it, ms each; (e) two processes on the one card
      over gloo with CUDA tensors (``chip_smoke.py --dist-rank``) running (c)
@@ -165,7 +173,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      ``eval_ate.run_sequence`` (``DeviceSlam``, the loader's uint8 frames)
      under ``Sampler(0)``-``(3)``: every frame fed, finite ATE and RPE, K1
      once a frame, K2 once per keyframe ingest, 1 + ``loop_candidates``
-     times per loop probe and at least once per tracked frame besides; the
+     times per loop probe and at least once per tracked frame besides, the
+     assembly kernel once an iteration of each closure's solve; the
      medians of the four inside the JAX reference's envelope over four key
      offsets (``REF_LOOP_*``, as phase 10's);
  15. the error budget: ``tinyslam_tpu_torch.error_budget.budget_for_sequence``
@@ -173,9 +182,11 @@ Phases, in order; any failure raises and the script exits nonzero:
      without BA, then SLAM): every stage with the JAX tool's keys and finite
      numbers, each loop candidate classified against the ground-truth
      revisits (tp + fp + fn + tn = candidates, the accepted ones = the
-     closures), K1 and K2 launched; the SLAM stage printed beside phase
-     14's ``Sampler(0)`` run (not a gate: two runs on the card are not yet
-     shown to agree).
+     closures), K1, K2 and the assembly kernel launched; the SLAM stage is
+     phase 14's ``Sampler(0)`` run again and must equal it bit for bit: raw
+     and corrected trajectories, closures, keyframes and edges (runs on the
+     card are reproducible since the pose graph adds its normal equations
+     in a fixed order).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -909,11 +920,70 @@ def _moved(a, device):
     return a
 
 
+class _FirstAssembly:
+    """While entered, keeps the inputs (plan, values) of the first
+    order-fixed scatter the pose graph makes (its normal equations), for
+    the kernel's checks and times at the main path's shape."""
+
+    def __enter__(self):
+        from tinyslam_tpu_torch.backend import pose_graph
+
+        self.mod, self.real, self.first = pose_graph, pose_graph.ordered_scatter_add, None
+
+        def first(plan, vals):
+            if self.first is None:
+                self.first = (plan, vals.clone())
+            return self.real(plan, vals)
+
+        pose_graph.ordered_scatter_add = first
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.ordered_scatter_add = self.real
+        return False
+
+
+def _assembly_check(label: str, first, smi) -> tuple:
+    """The assembly kernel on the main path's inputs ``first`` (plan,
+    values) against its plain version, ``index_add_`` on the CPU: bit-equal.
+    Returns (label, kernel call, plain call, library call, bytes, terms)
+    for phase 7: the plain call is the kernel's order in PyTorch on the
+    card (``ordered_scatter_segments``), the library call one ``index_add_``
+    on the card (atomics)."""
+    import torch
+
+    from tinyslam_tpu_torch.ops import scatter_cuda
+
+    plan, vals = first
+    got = scatter_cuda.ordered_scatter_add(plan, vals)
+    want = scatter_cuda.ordered_scatter_add(
+        scatter_cuda.scatter_plan(plan.at.cpu(), plan.size), vals.cpu())
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"assembly {label}: the kernel differs from index_add_ on the CPU "
+                             f"by {float((got.cpu() - want).abs().max())}")
+    plain = lambda: scatter_cuda.ordered_scatter_segments(plan.at, plan.size, vals)  # noqa: E731
+    library = lambda: torch.zeros(plan.size, dtype=vals.dtype,  # noqa: E731
+                                  device=vals.device).index_add_(0, plan.at, vals)
+    if not torch.equal(plain(), got):
+        raise AssertionError(f"assembly {label}: the kernel differs from its order in PyTorch")
+    atomics = float((library().cpu() - want).abs().max())
+    m = int(round((-1 + (1 + 4 * plan.size) ** 0.5) / 2))
+    # The terms, the plan's sort and segments (int32) and H and g.
+    nbytes = (vals.numel() * (vals.element_size() + 4) + (plan.size + 1) * 4
+              + plan.size * vals.element_size())
+    print(f"assembly kernel {label}: {vals.numel()} terms into H ({m}x{m}) and g, bit-equal to "
+          f"index_add_ on the CPU; index_add_ on the card (atomics) differs by {atomics:.3g}"
+          f"  [{smi}]")
+    return (f"assembly {label}", lambda: scatter_cuda.ordered_scatter_add(plan, vals), plain,
+            library, nbytes, vals.numel())
+
+
 def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     """Phase 9: Sim(3) loop closure (``slam_config()`` unless ``cfg``) on
     the out-and-back of the orbit's first ``n`` frames.  Returns the
-    kernels' launch counts of the DeviceSlam run and a callable that runs
-    the first graph solve again (timed in phase 7), or None."""
+    kernels' launch counts of the DeviceSlam run, a callable that runs
+    the first graph solve again (timed in phase 7), or None, and the first
+    assembly's inputs (plan, values)."""
     import re
 
     import torch
@@ -922,7 +992,7 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     from tinyslam_tpu_torch.models import vo_device as vd
     from tinyslam_tpu_torch.models.slam import DeviceSlam, Slam
     from tinyslam_tpu_torch.models.vo_device import DeviceVO
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
     from tinyslam_tpu_torch.utils.draws import Sampler
     from tinyslam_tpu_torch.utils.evaluation import ate_rmse
 
@@ -1010,10 +1080,13 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
         torch.cuda.synchronize()
         fast_cuda.LAUNCHES = 0
         match_cuda.LAUNCHES = 0
-        slam_secs = run_timed(slam.process_frame, slam.finalize, images)
+        scatter_cuda.LAUNCHES = 0
+        with _FirstAssembly() as assembly:
+            slam_secs = run_timed(slam.process_frame, slam.finalize, images)
         torch.cuda.synchronize()
         launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
-                    "match_reduce_streaming": match_cuda.LAUNCHES}
+                    "match_reduce_streaming": match_cuda.LAUNCHES,
+                    "ordered_scatter_add": scatter_cuda.LAUNCHES}
     finally:
         for k, f in real.items():
             setattr(sm, k, f)
@@ -1057,6 +1130,11 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     if (set(k2_ingest) != {1} or len(k2_ingest) != n_kf or set(k2_probe) != {1 + C}
             or k2_track < len(seq) - b0 - 1):
         failures.append("K2 launches do not add up")
+    # The assembly kernel: one launch a Gauss-Newton iteration of a solve.
+    n_solves = len(calls["solve_graph"])
+    if not 0 < launches["ordered_scatter_add"] == n_solves * cfg.pose_graph.gn_iters:
+        failures.append(f"the assembly kernel launched {launches['ordered_scatter_add']} "
+                        f"times for {n_solves} solves of {cfg.pose_graph.gn_iters} iterations")
     # A tracked frame syncs at most 3 times, 4 on a keyframe, one more after
     # a lost frame.
     fs = np.array(frame_syncs)
@@ -1201,7 +1279,7 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
         failures.append(f"the command line failed: {proc.stderr[-2000:]}")
     if failures:
         raise AssertionError("SLAM phase: " + "; ".join(failures))
-    return launches, solve
+    return launches, solve, assembly.first
 
 
 def _orbit():
@@ -1355,12 +1433,14 @@ def _dataset_phase(dev, smi):
 def _loop_phase(dev, smi):
     """Phase 14: the accuracy eval on the card, ``eval_ate.run_sequence`` on
     the fr1_loop-like sequence under four samplers.  Returns the kernels'
-    launch counts of the four runs."""
+    launch counts of the four runs, the runs' reports (``Sampler(0)``'s
+    with its ``DeviceSlam`` under "slam") and the first assembly's inputs
+    of ``Sampler(0)``'s run (plan, values)."""
     import torch
 
     from tinyslam_tpu_torch import SlamConfig, eval_ate
     from tinyslam_tpu_torch.models import slam as sm
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
     from tinyslam_tpu_torch.utils.draws import Sampler
 
     t_phase = time.perf_counter()
@@ -1370,9 +1450,10 @@ def _loop_phase(dev, smi):
           f"{root.name} "
           f"({f'rendered and written in {secs:.1f} s' if secs else 'reused'})  [{smi}]")
     C = max(2, SlamConfig().pose_graph.loop_candidates)
-    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0}
+    iters = SlamConfig().pose_graph.gn_iters
+    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0, "ordered_scatter_add": 0}
     real = {k: getattr(sm, k) for k in ("_kf_ingest", "_loop_probe")}
-    failures, runs = [], []
+    failures, runs, made, real_slam = [], [], [], eval_ate.DeviceSlam
 
     def counted(name, calls):
         def wrapper(*args, **kw):
@@ -1386,25 +1467,34 @@ def _loop_phase(dev, smi):
         calls = {k: [] for k in real}
         for k in real:
             setattr(sm, k, counted(k, calls))
+        eval_ate.DeviceSlam = lambda *a, **kw: made.append(real_slam(*a, **kw)) or made[-1]
         try:
             torch.cuda.synchronize()
             fast_cuda.LAUNCHES = 0
             match_cuda.LAUNCHES = 0
+            scatter_cuda.LAUNCHES = 0
             t_run = time.perf_counter()
-            out = eval_ate.run_sequence("fr1_loop_like", "tum", root, "slam", "device",
-                                        device=dev, sampler=Sampler(seed))
+            with _FirstAssembly() as assembly:
+                out = eval_ate.run_sequence("fr1_loop_like", "tum", root, "slam", "device",
+                                            device=dev, sampler=Sampler(seed))
             torch.cuda.synchronize()
-            k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
+            k1, k2, k3 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES, scatter_cuda.LAUNCHES
         finally:
             for k, f in real.items():
                 setattr(sm, k, f)
+            eval_ate.DeviceSlam = real_slam
+        if seed == 0:
+            out["slam"], first = made[-1], assembly.first
+        made.clear()
         launches["fast_score_map_fused"] += k1
         launches["match_reduce_streaming"] += k2
+        launches["ordered_scatter_add"] += k3
         ingests, probes = calls["_kf_ingest"], calls["_loop_probe"]
         k2_track = k2 - sum(ingests) - sum(probes)
         print(f"phase 14 Sampler({seed}), {time.perf_counter() - t_run:.1f} s: K1 {k1}, K2 "
               f"{k2} = tracking {k2_track} + {len(ingests)} ingests {sum(ingests)} + "
-              f"{len(probes)} probes {sum(probes)} (1 + {C} each)  [{smi}]")
+              f"{len(probes)} probes {sum(probes)} (1 + {C} each), assembly {k3} "
+              f"({out['loop_closures']} solves of {iters} iterations)  [{smi}]")
         if out["frames"] != N_LOOP or not np.isfinite(
                 [out[k] for k in ("ate_rmse_m", "ate_se3_m", "ate_raw_m", "rpe_trans_m",
                                   "rpe_rot_deg")]).all():
@@ -1414,6 +1504,9 @@ def _loop_phase(dev, smi):
         if (set(ingests) - {1} or set(probes) - {1 + C} or len(ingests) != out["keyframes"]
                 or k2_track < out["tracked"]):
             failures.append(f"Sampler({seed}): K2 launches do not add up")
+        if k3 != iters * out["loop_closures"]:
+            failures.append(f"Sampler({seed}): the assembly kernel launched {k3} times for "
+                            f"{out['loop_closures']} solves")
         runs.append(out)
     cols = ("tracked", "keyframes", "loop_closures", "ate_rmse_m")
     med = [float(v) for v in np.median([[r[k] for k in cols] for r in runs], axis=0)]
@@ -1426,9 +1519,11 @@ def _loop_phase(dev, smi):
                            and med[3] <= ref[3] + 0.02):
         failures.append(f"medians {med} outside the reference's envelope {ref}")
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    if first is None:
+        failures.append("Sampler(0)'s run solved no pose graph")
     if failures:
         raise AssertionError("loop eval phase: " + "; ".join(failures))
-    return launches, runs
+    return launches, runs, first
 
 
 # The keys of tools/error_budget.py's report, stage by stage.
@@ -1457,12 +1552,14 @@ def _numbers(x):
 def _budget_phase(dev, smi, loop_run):
     """Phase 15: the error budget on the card, on phase 14's fr1_loop-like
     frames under ``Sampler(0)``; ``loop_run`` is phase 14's ``Sampler(0)``
-    run.  Returns the kernels' launch counts."""
+    run, whose ``DeviceSlam`` the budget's SLAM stage must repeat bit for
+    bit.  Returns the kernels' launch counts."""
     import torch
 
-    from tinyslam_tpu_torch import error_budget, eval_ate
+    from tinyslam_tpu_torch import SlamConfig, error_budget, eval_ate
     from tinyslam_tpu_torch.data.tum import TumSequence
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
+    from tinyslam_tpu_torch.utils.evaluation import ate_rmse
 
     root, _ = eval_ate.dataset_sequence(eval_ate.fr1_loop_spec(N_LOOP))
     made, real = [], error_budget.DeviceSlam
@@ -1471,12 +1568,14 @@ def _budget_phase(dev, smi, loop_run):
         torch.cuda.synchronize()
         fast_cuda.LAUNCHES = 0
         match_cuda.LAUNCHES = 0
+        scatter_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
         rep = error_budget.budget_for_sequence("fr1_loop_like", "tum", root, device=dev, seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
-                    "match_reduce_streaming": match_cuda.LAUNCHES}
+                    "match_reduce_streaming": match_cuda.LAUNCHES,
+                    "ordered_scatter_add": scatter_cuda.LAUNCHES}
     finally:
         error_budget.DeviceSlam = real
     slam = made[-1]
@@ -1496,16 +1595,32 @@ def _budget_phase(dev, smi, loop_run):
         print(f"  {r['kf']:3d} {r['old']:3d} {fi}-{fj} "
               f"{dist if dist is None else round(dist, 3)} {r['n_appear']} {r['num_inliers']}/{r['n_chain']} {r['rmse']:.3f} "
               f"{r['s_e']:.4f} {r['s_e_med']:.4f} {r['accepted']} {truth}")
-    print(f"phase 15 slam beside phase 14's Sampler(0) run (not a gate): closures "
+    # The SLAM stage is phase 14's Sampler(0) run again: the same frames and
+    # draws, so the same decisions and the same trajectories, bit for bit.
+    first = loop_run["slam"]
+    same = {
+        "raw trajectory": np.array_equal(slam.raw_positions, first.raw_positions),
+        "corrected trajectory": np.array_equal(slam.positions, first.positions),
+        "closures": slam.num_loop_closures == first.num_loop_closures
+        == rep["slam"]["loop_closures"] == loop_run["loop_closures"],
+        "keyframes": len(slam.kf_store) == len(first.kf_store) == loop_run["keyframes"]
+        and slam.kf_frame_of == first.kf_frame_of,
+        "edges": len(slam.edges) == len(first.edges) and all(
+            a[:2] == b[:2] and np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
+            and a[4:] == b[4:] for a, b in zip(slam.edges, first.edges))}
+    b0 = next((i for i, s_ in enumerate(slam.vo.stats) if s_.tracking), 0)
+    m = min(len(slam.positions), len(gt))
+    ates = [(ate_rmse(x.positions[b0:m], gt[b0:m]), ate_rmse(x.raw_positions[b0:m], gt[b0:m]))
+            for x in (slam, first)]
+    print(f"phase 15 slam against phase 14's Sampler(0) run: {same}; closures "
           f"{rep['slam']['loop_closures']} vs {loop_run['loop_closures']}, keyframes "
-          f"{rep['slam']['keyframes']} vs {loop_run['keyframes']}, ATE Sim(3) "
-          f"{rep['slam']['ate_sim3_m']} vs {loop_run['ate_rmse_m']}, SE(3) "
-          f"{rep['slam']['ate_se3_m']} vs {loop_run['ate_se3_m']}, raw "
-          f"{rep['slam']['ate_raw_sim3_m']} vs {loop_run['ate_raw_m']} m  [{smi}]")
+          f"{rep['slam']['keyframes']} vs {loop_run['keyframes']}, ATE Sim(3) {ates[0][0]!r} vs "
+          f"{ates[1][0]!r}, raw {ates[0][1]!r} vs {ates[1][1]!r} m  [{smi}]")
     print(f"phase 15: 3 runs of {len(slam.vo.stats)} frames in {wall:.1f} s; K1 "
-          f"{launches['fast_score_map_fused']}, K2 {launches['match_reduce_streaming']} "
-          f"launches  [{smi}]")
-    failures = []
+          f"{launches['fast_score_map_fused']}, K2 {launches['match_reduce_streaming']}, "
+          f"assembly {launches['ordered_scatter_add']} launches  [{smi}]")
+    failures = [f"the SLAM stage's {k} differs from phase 14's Sampler(0) run"
+                for k, v in same.items() if not v]
     for stage, keys in BUDGET_KEYS.items():
         missing = set(keys) - set(rep.get(stage, {}))
         if missing:
@@ -1521,8 +1636,10 @@ def _budget_phase(dev, smi, loop_run):
     if not accepted == g["tp"] + g["fp"] == rep["slam"]["loop_closures"]:
         failures.append(f"{accepted} accepted candidates, {rep['slam']['loop_closures']} "
                         f"closures")
-    if 0 in launches.values():
-        failures.append(f"a kernel launched no time: {launches}")
+    if 0 in (launches["fast_score_map_fused"], launches["match_reduce_streaming"]) or \
+            launches["ordered_scatter_add"] != SlamConfig().pose_graph.gn_iters * accepted:
+        failures.append(f"a kernel launched no time, or the assembly kernel not once an "
+                        f"iteration of each solve: {launches}")
     if failures:
         raise AssertionError("error budget phase: " + "; ".join(failures))
     return launches
@@ -1922,18 +2039,6 @@ def _dist_args(prob: dict, dev):
             [T(f"pg_{k}") for k in ("R", "t", "ei", "ej", "eR", "et", "ev", "ew")])
 
 
-def _deterministic(fn):
-    """fn() under ``torch.use_deterministic_algorithms``: ``index_add_``
-    on the card adds by atomics, in an order that changes run to run."""
-    import torch
-
-    torch.use_deterministic_algorithms(True)
-    try:
-        return fn()
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def _dist_rank(rank: int, port: str, device: str) -> None:
     """Phase 12e, one of two ranks on the one card over gloo, CUDA tensors
     (``device`` "cuda"; "cpu" rehearses it): phase 12c's BA and 12d's
@@ -2038,8 +2143,8 @@ def _dist_phase(frames, dev, smi, timed):
         prob = _dist_problems()
         cam, ba_args, pg_args = _dist_args(prob, dev)
         kw = _ba_kwargs()
-        ba_sh = _deterministic(lambda: bundle_adjust_sharded(mesh, cam, *ba_args, **kw))
-        ba_1 = _deterministic(lambda: bundle_adjust(cam, *ba_args, **kw))
+        ba_sh = bundle_adjust_sharded(mesh, cam, *ba_args, **kw)
+        ba_1 = bundle_adjust(cam, *ba_args, **kw)
         for k in ("R", "t", "X", "cost", "initial_cost", "lam"):
             if not torch.equal(ba_sh[k], ba_1[k]):
                 raise AssertionError(f"phase 12c: bundle_adjust_sharded {k} differs from "
@@ -2057,14 +2162,15 @@ def _dist_phase(frames, dev, smi, timed):
 
         # (d) the pose graphs at PoseGraphConfig()'s sizes.
         iters = PoseGraphConfig().gn_iters
-        pg_sh = _deterministic(lambda: optimize_pose_graph_sharded(mesh, *pg_args, iters=iters))
-        pg_1 = _deterministic(lambda: optimize_pose_graph(*pg_args, iters=iters))
+        pg_sh = optimize_pose_graph_sharded(mesh, *pg_args, iters=iters)
+        pg_1 = optimize_pose_graph(*pg_args, iters=iters)
         for k in ("R", "t", "costs"):
             if not torch.equal(pg_sh[k], pg_1[k]):
                 raise AssertionError(f"phase 12d: optimize_pose_graph_sharded {k} differs "
                                      f"from optimize_pose_graph")
         again = optimize_pose_graph(*pg_args, iters=iters)
-        spread = float((again["t"] - optimize_pose_graph(*pg_args, iters=iters)["t"]).abs().max())
+        if not all(torch.equal(again[k], pg_1[k]) for k in ("R", "t", "costs")):
+            raise AssertionError("phase 12d: two runs of optimize_pose_graph differ")
         node = optimize_pose_graph_node_sharded(mesh, *pg_args, iters=NODE_ITERS, halo=NODE_HALO)
         c_ref = _centres(pg_1["R"].cpu().numpy(), pg_1["t"].cpu().numpy())
         err = np.linalg.norm(_centres(node["R"].cpu().numpy(), node["t"].cpu().numpy())
@@ -2077,8 +2183,8 @@ def _dist_phase(frames, dev, smi, timed):
             mesh, *pg_args, iters=NODE_ITERS, halo=NODE_HALO), reps=3, warmup=1)
         n, E = pg_args[0].shape[0], pg_args[2].shape[0]
         print(f"phase 12d: optimize_pose_graph_sharded N={n} E={E}, {iters} iterations, "
-              f"bit-equal to optimize_pose_graph (both deterministic; two default runs differ "
-              f"by {spread:.3g} m: index_add_ atomics); cost {float(pg_1['costs'][0]):.4g} -> "
+              f"bit-equal to optimize_pose_graph and a second run of it (the normal "
+              f"equations added in a fixed order); cost {float(pg_1['costs'][0]):.4g} -> "
               f"{float(pg_1['costs'][-1]):.4g}; wall {ms_pg:.3f} ms, unsharded {ms_pg1:.3f} ms"
               f"  [{smi}]")
         print(f"phase 12d: optimize_pose_graph_node_sharded N={n}, halo {NODE_HALO}, "
@@ -2379,7 +2485,7 @@ def main() -> None:
     from tinyslam_tpu_torch.frontend.orb import extract_features
     from tinyslam_tpu_torch.geometry.camera import PinholeCamera
     from tinyslam_tpu_torch.models.vo_device import DeviceVO, VOState, track_chunk
-    from tinyslam_tpu_torch.ops import cuda_build, fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import cuda_build, fast_cuda, hamming, match_cuda
     from tinyslam_tpu_torch.ops.fast import fast_maps
     from tinyslam_tpu_torch.ops.hamming import match_reduce_plain
     from tinyslam_tpu_torch.ops.image import build_pyramid
@@ -2478,13 +2584,21 @@ def main() -> None:
     # unguided.
     kf_pair = dict(desc_a=feats1.desc, valid_a=feats1.valid, desc_b=seed_feats.desc,
                    valid_b=seed_feats.valid)
+    # An explicit (N, M) pair mask (not on the main path): the guided gate
+    # at r=20 written out as a mask, and a random third of the keyframe pairs.
+    du = real["xy_a"][:, None, 0] - real["proj_b"][None, :, 0]
+    dv = real["xy_a"][:, None, 1] - real["proj_b"][None, :, 1]
+    gate_mask = du * du + dv * dv < hamming.gate_radius2(20.0)
+    kf_mask = T(np.random.default_rng(6).random((n, n)) < 0.35)
     cases = [("real guided r=20", real, 20.0), ("real guided r=8", real, 8.0),
              ("real unguided", unguided(real), 0.0),
              ("random guided r=20", rand_case, 20.0),
              ("random unguided", unguided(rand_case), 0.0),
              ("keyframe unguided", kf_pair, 0.0),
              ("keyframe guided r=32", real, 32.0),
-             ("relocalization guided r=64", real, 64.0)]
+             ("relocalization guided r=64", real, 64.0),
+             ("masked real r=20 gate", unguided(real) | {"pair_mask": gate_mask}, 0.0),
+             ("masked keyframe random", kf_pair | {"pair_mask": kf_mask}, 0.0)]
     for name, case, r in cases:
         got = match_cuda.match_reduce(**case, radius_px=r)
         want = match_reduce_plain(**case, radius_px=r)
@@ -2492,6 +2606,10 @@ def main() -> None:
             if not torch.equal(g, w.to(g.dtype)):
                 bad = int((g != w).sum())
                 raise AssertionError(f"K2 {name}: {label} differs at {bad} slots")
+        if name == "masked real r=20 gate":     # the mask of the gate = the gate
+            guided = match_cuda.match_reduce(**real, radius_px=20.0)
+            if not all(torch.equal(g, w) for g, w in zip(got, guided)):
+                raise AssertionError("K2 masked by the r=20 gate differs from guided r=20")
         n_match = int(((got[0] <= cfg.matcher.max_distance)
                        & (got[0].float() <= cfg.matcher.ratio * got[1].float())).sum())
         print(f"K2 {name}: N={case['desc_a'].shape[0]} M={case['desc_b'].shape[0]} "
@@ -2575,7 +2693,8 @@ def main() -> None:
     boot_launches, reloc_frame = _bootstrap_phase(cam, poses, frames, dev, smi)
 
     # ---- 9. Sim(3) loop closure: DeviceSlam, the async back-end, Slam, CLI --
-    slam_launches, graph_solve = _slam_phase(cam, poses, frames, dev, smi)
+    slam_launches, graph_solve, pg_orbit = _slam_phase(cam, poses, frames, dev, smi)
+    assembly = [_assembly_check("phase 9 orbit", pg_orbit, smi)]
 
     # ---- 10. the datasets: render, write, load, the command line ----------
     data_launches = _dataset_phase(dev, smi)
@@ -2592,7 +2711,8 @@ def main() -> None:
     ms_launches, _, case4 = _multiseq_phase(cam, room, poses, frames, dev, smi, timed)
 
     # ---- 14. the accuracy eval: fr1_loop-like under four samplers --------------
-    loop_launches, loop_runs = _loop_phase(dev, smi)
+    loop_launches, loop_runs, pg_loop = _loop_phase(dev, smi)
+    assembly.append(_assembly_check("phase 14 fr1_loop", pg_loop, smi))
 
     # ---- 15. the error budget on fr1_loop-like under Sampler(0) ----------------
     budget_launches = _budget_phase(dev, smi, loop_runs[0])
@@ -2679,6 +2799,18 @@ def main() -> None:
     print(f"one graph solve (phase 9's first, 20 Gauss-Newton iterations, upload and "
           f"readback included): wall {solve_wall:.3f} ms, device {solve_dev:.3f} ms, card "
           f"busy {100 * solve_dev / solve_wall:.1f}%  [{smi}]")
+    # The assembly kernel at the main path's shapes: one Gauss-Newton
+    # iteration's H and g; bound by the bytes of the terms, the plan and H.
+    pg_ms = {}
+    for label, run_k, run_p, run_lib, nbytes, terms in assembly:
+        pg_ms[label] = (_queued_ms(run_k), _queued_ms(run_p, reps=3), _queued_ms(run_lib),
+                        _bound_ms(nbytes, terms, FP32_FLOPS_PER_S))
+        k_ms, p_ms, l_ms, (b_ms, b_by) = pg_ms[label]
+        print(f"{label}: device kernel {k_ms:.4f} ms (profiler {_device_ms(run_k):.4f}), plain "
+              f"(its order in PyTorch) {p_ms:.4f} ms, library (index_add_, atomics) "
+              f"{l_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {nbytes} B), kernel at "
+              f"{100 * b_ms / k_ms:.1f}% of it  [{smi}]")
+    pg_label = assembly[-1][0]
 
     kernels = [
         {"name": "fast_score_map_fused", "route": "cuda",
@@ -2700,6 +2832,14 @@ def main() -> None:
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["K2 real guided r=20"][0],
          "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},
+        {"name": "ordered_scatter_add", "route": "cuda",
+         "source": "tinyslam_tpu_torch/csrc/scatter.cu",
+         "replaces": "tinyslam_tpu/backend/pose_graph.py:116",
+         "launches": sum(x.get("ordered_scatter_add", 0)
+                         for x in (slam_launches, loop_launches, budget_launches)),
+         "max_abs_err": 0.0, "ms": pg_ms[pg_label][0], "plain_ms": pg_ms[pg_label][1],
+         "bound_ms": pg_ms[pg_label][3][0], "bound_by": pg_ms[pg_label][3][1],
+         "library_ms": pg_ms[pg_label][2]},
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_main:.1f} s  [{smi}]")
     print(json.dumps({"kernels": kernels}))

@@ -249,11 +249,60 @@ def test_track_chunk_batch_card_matches_cpu(dev):
     assert sc[..., 3][active].all()
 
 
-def test_explicit_pair_mask_raises_on_cuda(dev):
-    case = _match_case(0, 16, 32, False, dev)
-    with pytest.raises(NotImplementedError):
-        match_cuda.match_reduce(**case, pair_mask=torch.ones(16, 32, dtype=torch.bool,
-                                                             device=dev))
+def _pair_mask(seed, lead, n, m, dev):
+    """A random ([B,] N, M) pair mask, about a third of the pairs set, with
+    a row and a column of each sequence wholly clear."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((*lead, n, m)) < 0.35
+    mask[..., n // 2, :] = False
+    mask[..., :, m // 3] = False
+    return torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.parametrize("batch,n,m", [(0, 2048, 8192), (0, 2048, 2048), (4, 2048, 8192),
+                                       (0, 100, 333), (0, 7, 1), (0, 1, 50), (0, 300, 5000),
+                                       (0, 130, 70), (0, 2047, 8191), (3, 130, 70)])
+def test_explicit_pair_mask_equal_on_cuda(dev, batch, n, m):
+    """An explicit pair mask runs in the kernel (packed to bits on the
+    card, one matcher launch), exact against the plain version; with a
+    leading B (batch > 0) each sequence has its own mask."""
+    lead = (batch,) if batch else ()
+    cases = [_match_case(n + 5 * m + 3 * b, n, m, False, dev) for b in range(max(batch, 1))]
+    case = {k: torch.stack([c[k] for c in cases]) for k in cases[0]} if batch else cases[0]
+    mask = _pair_mask(n * m + batch, lead, n, m, dev)
+    before = match_cuda.LAUNCHES
+    got = match_cuda.match_reduce(**case, pair_mask=mask)
+    assert match_cuda.LAUNCHES == before + 1
+    want = hamming.match_reduce_plain(**case, pair_mask=mask)
+    for name, g, w in zip(("best", "second", "idx_b", "col_idx"), got, want):
+        assert g.shape == w.shape and torch.equal(g, w.to(g.dtype)), name
+
+
+@pytest.mark.parametrize("kind", ["se3", "sim3", "coarse", "fine"])
+def test_pose_graph_assembly_bit_equal(dev, kind):
+    """The order-fixed assembly of the normal equations: for the same
+    blocks the card's H and g equal the CPU's ``index_add_`` bit for bit,
+    and 50 calls of ``normal_equations`` on the card equal each other, on a
+    graph where many edges hit one node pair (float atomics would round
+    them differently from run to run).  The blocks themselves come from
+    batched products, which round otherwise on the card than on the CPU."""
+    from tinyslam_tpu_torch.backend.pose_graph import (
+        assembly_plan, normal_equations, normal_terms,
+    )
+    from tinyslam_tpu_torch.ops import scatter_cuda
+
+    n, D, r, Ji, Jj, w, bi, bj = P.dense_graph_terms(kind)
+    vals = normal_terms(r, Ji, Jj, w)
+    plan = assembly_plan(bi.to(dev), bj.to(dev), n, D)
+    want = scatter_cuda.ordered_scatter_add(assembly_plan(bi, bj, n, D), vals)
+    before = scatter_cuda.LAUNCHES
+    got = scatter_cuda.ordered_scatter_add(plan, vals.to(dev))
+    assert scatter_cuda.LAUNCHES == before + 1 and torch.equal(got.cpu(), want)
+    args = [x.to(dev) for x in (r, Ji, Jj, w)]
+    runs = [normal_equations(plan, n * D, *args) for _ in range(50)]
+    assert scatter_cuda.LAUNCHES == before + 51
+    for H, g in runs[1:]:
+        assert torch.equal(H, runs[0][0]) and torch.equal(g, runs[0][1])
 
 
 @pytest.mark.parametrize("keyframes", [False, True])

@@ -8,7 +8,12 @@ Tolerances: the same keyframes (count and ``kf_frame_of``), the same edges
 (i, j equal; s and w within 1e-3), the same ``loop_log`` decisions with
 at least one accepted closure, the corrected camera centres within 2e-3
 and the Sim(3)-aligned ATE within 1e-3.  The asynchronous back-end
-accepts the same number of closures.
+accepts the same number of closures.  ``tools/replay_closures.py``'s path:
+the port's run recorded by its ``ClosureRecorder``, every solve replayed
+by the JAX package's ``Slam._solve_graph`` and the port's ``solve_graph``
+and applied by each package's correction: the port's replay equal to the
+run's own solve and correction, the reference's solve within 1e-4 (R, t, s)
+and its corrected ATE within 1e-3 m, the same sign of the correction.
 """
 
 from __future__ import annotations
@@ -17,6 +22,9 @@ import dataclasses
 
 import numpy as np
 import pytest
+
+import importlib.util
+from pathlib import Path
 
 from tests import torch_parity as P
 from tinyslam_tpu.models.slam import DeviceSlam as JDeviceSlam
@@ -28,6 +36,12 @@ _FRAMES, _POSES, _ROOM = P.orbit(22)
 FRAMES = _FRAMES + _FRAMES[-2::-1]
 POSES = _POSES + _POSES[-2::-1]
 LOOP_MIN_GAP = 3
+
+
+_SPEC = importlib.util.spec_from_file_location(
+    "replay_closures", Path(__file__).resolve().parents[1] / "tools" / "replay_closures.py")
+REPLAY = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(REPLAY)
 
 
 def _configs():
@@ -47,9 +61,10 @@ def runs():
     jcfg, tcfg = _configs()
     jcam, tcam = P.cameras()
     sampler = P.JaxSampler()
-    return {"jax": _run(JDeviceSlam(jcfg, jcam, chunk=4)),
-            "torch": _run(DeviceSlam(tcfg, tcam, chunk=4, device="cpu", sampler=sampler)),
-            "sampler": sampler}
+    with REPLAY.ClosureRecorder() as rec:
+        torch_run = _run(DeviceSlam(tcfg, tcam, chunk=4, device="cpu", sampler=sampler))
+    return {"jax": _run(JDeviceSlam(jcfg, jcam, chunk=4)), "torch": torch_run,
+            "sampler": sampler, "records": rec.records}
 
 
 def test_device_slam_keyframes_and_edges_match_jax(runs):
@@ -102,3 +117,17 @@ def test_device_slam_async_backend_closes_the_same_loops(runs):
         assert n == slam.vo.num_keyframes == len(slam.kf_store)
     finally:
         slam.close()
+
+
+def test_replay_closures_through_both_packages(runs):
+    jcfg, tcfg = _configs()
+    gt = np.stack([-R.T @ t for R, t in POSES])
+    rows = [REPLAY.replay(rec, gt, jcfg, tcfg) for rec in runs["records"]]
+    assert len(rows) == runs["torch"].num_loop_closures >= 1
+    for r in rows:
+        assert r["solve_diff"]["card-port_cpu"] == {"R": 0.0, "t": 0.0, "s": 0.0}
+        assert r["card_reproduced_on_cpu"] == 0.0
+        for k in ("R", "t", "s"):
+            assert r["solve_diff"]["card-reference"][k] <= 1e-4, r["solve_diff"]
+        assert r["ate_card_vs_reference_m"] <= 1e-3, r["ate_sim3_m"]
+        assert r["signs_agree"], r["correction"]

@@ -222,6 +222,44 @@ def perturb(rng, d, flips=8):
     return out
 
 
+def dense_graph_terms(kind: str, seed: int = 0):
+    """Gauss-Newton terms of a pose graph whose edges pile onto a few node
+    pairs (half of them onto one), as ``normal_equations`` takes them:
+    (n, D, r (E, D), Ji, Jj (E, D, D), w (E,), bi, bj (E,)), float32 with
+    magnitudes spread over six decades, so that any change of the order of
+    the additions changes the rounding.  ``kind``: "se3" (D 6) or "sim3" (D
+    7) over 16 nodes; "coarse" and "fine", the block and window ids of
+    ``parallel/dist_pose_graph.py``'s node-sharded solver (64 nodes in 4
+    shards of 16, halo 8), with its Jacobian columns masked as it masks
+    them."""
+    rng = np.random.default_rng(seed)
+    E, n, D = 240, 16, 7 if kind == "sim3" else 6
+    if kind in ("coarse", "fine"):
+        n = 64
+    ei = rng.integers(0, n, E)
+    ej = np.minimum(ei + rng.integers(1, 4, E), n - 1)
+    ei[: E // 2], ej[: E // 2] = 3, 4
+    ei, ej = torch.from_numpy(ei), torch.from_numpy(ej)
+
+    def values(*shape):
+        x = rng.standard_normal(shape) * 10.0 ** rng.uniform(-3, 3, shape)
+        return torch.from_numpy(x.astype(np.float32))
+
+    r, Ji, Jj, w = values(E, D), values(E, D, D), values(E, D, D), values(E).abs()
+    if kind == "coarse":
+        B = n // 4
+        bi, bj = torch.clamp(ei // B, 0, 3), torch.clamp(ej // B, 0, 3)
+        Ji, Jj = Ji * (bi != 0)[:, None, None], Jj * (bj != 0)[:, None, None]
+        return 4, D, r, Ji, Jj, w, bi, bj
+    if kind == "fine":
+        W, win0 = 16 + 2 * 8, 16 - 8            # shard 1's window
+        wi, wj = ei - win0, ej - win0
+        Ji = Ji * ((wi >= 0) & (wi < W) & (ei != 0))[:, None, None]
+        Jj = Jj * ((wj >= 0) & (wj < W) & (ej != 0))[:, None, None]
+        return W, D, r, Ji, Jj, w, torch.clamp(wi, 0, W - 1), torch.clamp(wj, 0, W - 1)
+    return n, D, r, Ji, Jj, w, ei, ej
+
+
 def jax_native_library(directory):
     """The JAX package's native library (``tinyslam_tpu/native/``'s sources,
     its Makefile's flags) compiled into ``directory``.  Parity tests point

@@ -9,7 +9,8 @@ validity mask so the problem keeps its shape.  The residual of an edge is
 
 in se(3) (6) or, for monocular scale drift, in sim(3) (7).  Gauss-Newton
 with the edge Jacobians at xi = 0, the dense (nD x nD) normal equations
-assembled by a scatter-add of D x D blocks, node 0 and invalid nodes held
+assembled by a scatter-add of D x D blocks (in a fixed order, on the card
+too: ``ops/scatter_cuda.py``), node 0 and invalid nodes held
 by identity blocks, and a Cholesky solve, for a fixed number of
 iterations with nothing read back to the host.
 
@@ -45,6 +46,11 @@ from tinyslam_tpu_torch.geometry.sim3 import (
     sim3_exp,
     sim3_inverse,
     sim3_log,
+)
+from tinyslam_tpu_torch.ops.scatter_cuda import (
+    ScatterPlan,
+    ordered_scatter_add,
+    scatter_plan,
 )
 
 
@@ -131,18 +137,37 @@ def block_offsets(bi, bj, n: int, D: int):
     return h_at, g_at
 
 
-def normal_equations(h_at, g_at, m: int, r, Ji, Jj, w):
-    """H (m, m) and g (m,) of the edges' Gauss-Newton terms weighted by w,
-    scattered at ``block_offsets``: H += w J^T J, g -= w J^T r."""
+def assembly_plan(bi, bj, n: int, D: int) -> ScatterPlan:
+    """The scatter of ``normal_equations`` for the edges (bi, bj) of an
+    n-node graph: H's slots, then g's after them, in one plan, built once a
+    solve."""
+    h_at, g_at = block_offsets(bi, bj, n, D)
+    m = n * D
+    return scatter_plan(torch.cat([h_at, m * m + g_at]), m * m + m)
+
+
+def normal_terms(r, Ji, Jj, w) -> torch.Tensor:
+    """The values ``normal_equations`` scatters, flat in ``assembly_plan``'s
+    order: w Ji^T Ji, w Jj^T Jj, w Ji^T Jj and its transpose for every edge,
+    then -w Ji^T r and -w Jj^T r."""
     we = w[:, None, None]
     Hij = we * torch.einsum("eab,eac->ebc", Ji, Jj)
     blocks = torch.cat([we * torch.einsum("eab,eac->ebc", Ji, Ji),
                         we * torch.einsum("eab,eac->ebc", Jj, Jj),
                         Hij, Hij.transpose(-1, -2)])
-    H = r.new_zeros(m * m).index_add_(0, h_at, blocks.reshape(-1)).view(m, m)
     g_rows = torch.cat([-torch.einsum("eab,ea->eb", Ji * we, r),
                         -torch.einsum("eab,ea->eb", Jj * we, r)])
-    return H, r.new_zeros(m).index_add_(0, g_at, g_rows.reshape(-1))
+    return torch.cat([blocks.reshape(-1), g_rows.reshape(-1)])
+
+
+def normal_equations(plan: ScatterPlan, m: int, r, Ji, Jj, w):
+    """H (m, m) and g (m,) of the edges' Gauss-Newton terms weighted by w,
+    scattered by ``assembly_plan``: H += w J^T J, g -= w J^T r.  Each slot
+    adds its terms in the JAX package's order (the (i, i) blocks of every
+    edge, then (j, j), (i, j), (j, i); g's i-rows, then j-rows), on the card
+    too (``ops/scatter_cuda.py``), so a solve is the same every run."""
+    Hg = ordered_scatter_add(plan, normal_terms(r, Ji, Jj, w))
+    return Hg[:m * m].view(m, m), Hg[m * m:]
 
 
 def _gauss_newton(nodes: tuple, meas: tuple, edge_i, edge_j, edge_valid, edge_weight,
@@ -163,14 +188,14 @@ def _gauss_newton(nodes: tuple, meas: tuple, edge_i, edge_j, edge_valid, edge_we
     free = node_valid & (torch.arange(n, device=dev) != 0)
     fr = free.to(dt).repeat_interleave(D)                  # (nD,)
     held = torch.diag(1.0 - fr) + damping * torch.eye(n * D, dtype=dt, device=dev)
-    h_at, g_at = block_offsets(ei, ej, n, D)
+    plan = assembly_plan(ei, ej, n, D)
 
     costs = []
     for _ in range(iters):
         ni = tuple(x[ei] for x in nodes)
         nj = tuple(x[ej] for x in nodes)
         r, Ji, Jj = edge_jacobians(ni, nj, meas)
-        H, g = normal_equations(h_at, g_at, n * D, r, Ji, Jj, w_e)
+        H, g = normal_equations(plan, n * D, r, Ji, Jj, w_e)
         # Cross-shard reduction point (identity on a single device).
         H, g = preduce(H), preduce(g)
         Hm = H * fr[:, None] * fr[None, :] + held

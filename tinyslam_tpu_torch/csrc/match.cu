@@ -12,7 +12,8 @@
 //   col_idx[j]        the argmin over rows of column j (lowest row on ties),
 //                     for the cross-check.
 // An invalid row or column, or (if guided) a pair with
-// (xa-pu)^2 + (ya-pv)^2 >= r2, has distance BIG = 2^14.  That is the
+// (xa-pu)^2 + (ya-pv)^2 >= r2, or (if masked) a pair whose bit of an
+// explicit (N, M) pair mask is clear, has distance BIG = 2^14.  That is the
 // semantics of the plain version
 // tinyslam_tpu_torch/ops/hamming.py:match_reduce_plain, exactly.
 //
@@ -63,6 +64,12 @@
 //     z.  A CTA offsets every array by its sequence (rows by z * n,
 //     columns by z * m, its partials, counters and column codes by the
 //     sequence's share of each); B = 1 is the single launch.
+//   * An explicit pair mask (the third mode, beside unguided and guided)
+//     arrives bit-packed, ceil(M / 64) pairs of 32-bit words a row
+//     (tinyslam_pack_mask, one launch before the matcher): a thread loads
+//     its four rows' two words of a tile while the tile's product runs,
+//     and a clear bit turns the pair's dot into the failing one, as the
+//     guided gate does.  Validity is handled as unguided.
 // The guided gate rounds like the reference: __fmul_rn/__fadd_rn keep nvcc
 // from contracting it into an FMA, and r2 arrives rounded to float32.
 //
@@ -116,6 +123,8 @@ struct Args {
   const unsigned* desc_b;        // (m, 8)
   const unsigned char* valid_b;  // (m,)
   const float2* proj_b;          // (m,) guided only
+  const unsigned* mask;          // (n, mask_words) masked only: pair (i, j) at bit
+  int mask_words;                // j % 32 of word j / 32 of row i
   int n, m, nshift, cbits, tps;
   float r2;
   int* best;
@@ -300,7 +309,7 @@ __device__ __forceinline__ void reduce_scatter(unsigned (&v)[BN / 8], int lane, 
   }
 }
 
-template <bool GUIDED>
+template <bool GUIDED, bool MASKED>
 __global__ void __launch_bounds__(NT, MIN_CTAS) match_reduce_kernel(const Args args) {
   // This CTA's sequence, blockIdx.z: every array at the sequence's offset.
   Args a = args;
@@ -314,6 +323,7 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) match_reduce_kernel(const Args a
       a.xy_a += zn;
       a.proj_b += zm;
     }
+    if (MASKED) a.mask += zn * a.mask_words;
     a.best += zn;
     a.second += zn;
     a.idx += zn;
@@ -413,6 +423,19 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) match_reduce_kernel(const Args a
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 
+    // Masked: this thread's rows' two mask words of tile t (columns col0 ..
+    // col0 + 63), loaded while the product runs.
+    unsigned mw[4][2];
+    if (MASKED) {
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri) {
+        const int r = row0 + (ri >> 1) * 64 + warp * 16 + lq + (ri & 1) * 8;
+        const unsigned* p = a.mask + (size_t)min(r, n - 1) * a.mask_words + (col0 >> 5);
+        mw[ri][0] = __ldg(p);
+        mw[ri][1] = __ldg(p + 1);
+      }
+    }
+
     // Meanwhile: publish tile t-1's columns, unpack tile t+1 into the other
     // B buffer, and prefetch tile t+3 into the packed buffer it frees.
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");   // tile t+1
@@ -452,6 +475,11 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) match_reduce_kernel(const Args a
           du = __fsub_rn(rx[ri], cxy.z);
           dv = __fsub_rn(ry[ri], cxy.w);
           d1 = __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv)) < a.r2 ? d1 : FAIL16;
+        }
+        if (MASKED) {   // columns 8 j + 2 lr + e: word j / 4, bit 8 (j % 4) + 2 lr + e
+          const unsigned bits = mw[ri][j >> 2] >> (8 * (j & 3) + 2 * lr);
+          d0 = (bits & 1u) ? d0 : FAIL16;
+          d1 = (bits & 2u) ? d1 : FAIL16;
         }
         // K - 64 * (d0 + 65536 d1): each half stays in 0..65535, no borrow.
         const unsigned pd = (unsigned)d0 + ((unsigned)d1 << 16);
@@ -546,9 +574,9 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) match_reduce_kernel(const Args a
   }
 }
 
-template <bool GUIDED>
+template <bool GUIDED, bool MASKED>
 cudaError_t set_attributes() {
-  auto kernel = match_reduce_kernel<GUIDED>;
+  auto kernel = match_reduce_kernel<GUIDED, MASKED>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        SMEM_BYTES);
   if (e == cudaSuccess)
@@ -557,27 +585,70 @@ cudaError_t set_attributes() {
   return e;
 }
 
-template <bool GUIDED>
+template <bool GUIDED, bool MASKED>
 int launch(const Args& a, int slices, int row_tiles, int batch, cudaStream_t stream) {
-  const cudaError_t e = set_attributes<GUIDED>();
+  const cudaError_t e = set_attributes<GUIDED, MASKED>();
   if (e != cudaSuccess) return (int)e;
-  match_reduce_kernel<GUIDED><<<dim3(slices, row_tiles, batch), NT, SMEM_BYTES, stream>>>(a);
+  match_reduce_kernel<GUIDED, MASKED>
+      <<<dim3(slices, row_tiles, batch), NT, SMEM_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool GUIDED, bool MASKED>
+int ctas_per_sm() {
+  int ctas = 0;
+  if (set_attributes<GUIDED, MASKED>() != cudaSuccess) return 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, match_reduce_kernel<GUIDED, MASKED>, NT,
+                                                SMEM_BYTES);
+  return ctas;
+}
+
+// A bool (rows, m) mask to (rows, words) 32-bit words, column c at bit c % 32
+// of word c / 32, columns past m clear; one thread a word, reading its 32
+// bytes as two 16-byte vectors where the row's bytes allow it.
+__global__ void __launch_bounds__(256) pack_mask_kernel(const unsigned char* __restrict__ mask,
+                                                       int rows, int m, int words,
+                                                       unsigned* __restrict__ out) {
+  const long i = blockIdx.x * 256L + threadIdx.x;
+  if (i >= (long)rows * words) return;
+  const long r = i / words;
+  const int c0 = (int)(i % words) * 32;
+  const unsigned char* p = mask + r * m + c0;
+  unsigned w = 0;
+  if (c0 + 32 <= m && (reinterpret_cast<size_t>(p) & 15) == 0) {
+    const uint4 v[2] = {reinterpret_cast<const uint4*>(p)[0],
+                        reinterpret_cast<const uint4*>(p)[1]};
+    const unsigned* b = reinterpret_cast<const unsigned*>(v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {   // bytes 0/1 -> bits 4k .. 4k + 3
+      const unsigned x = b[k];
+      w |= ((x & 1u) | ((x >> 7) & 2u) | ((x >> 14) & 4u) | ((x >> 21) & 8u)) << (4 * k);
+    }
+  } else {
+    for (int k = 0; k < 32 && c0 + k < m; ++k) w |= (p[k] != 0 ? 1u : 0u) << k;
+  }
+  out[i] = w;
 }
 
 }  // namespace
 
 // CTAs of the kernel that fit on one SM at once (registers and shared
-// memory), for the wrapper's grid; 0 on an error.
-extern "C" int tinyslam_match_ctas_per_sm(int guided) {
-  int ctas = 0;
-  const cudaError_t e = guided ? set_attributes<true>() : set_attributes<false>();
-  if (e != cudaSuccess) return 0;
-  if (guided)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, match_reduce_kernel<true>, NT, SMEM_BYTES);
-  else
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, match_reduce_kernel<false>, NT, SMEM_BYTES);
-  return ctas;
+// memory), for the wrapper's grid, by mode (0 unguided, 1 guided, 2
+// masked); 0 on an error.
+extern "C" int tinyslam_match_ctas_per_sm(int mode) {
+  return mode == 1 ? ctas_per_sm<true, false>()
+                   : mode == 2 ? ctas_per_sm<false, true>() : ctas_per_sm<false, false>();
+}
+
+// The pair mask of `rows` rows (all sequences' back to back) of m bool
+// bytes, packed into `words` 32-bit words a row for the masked mode.
+extern "C" int tinyslam_pack_mask(const void* mask, int rows, int m, int words, void* out,
+                                  cudaStream_t stream) {
+  if (rows < 1 || m < 1 || words * 32L < m) return (int)cudaErrorInvalidValue;
+  const long total = (long)rows * words;
+  pack_mask_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      static_cast<const unsigned char*>(mask), rows, m, words, static_cast<unsigned*>(out));
+  return (int)cudaGetLastError();
 }
 
 // `batch` sequences of n rows against m columns each, every array the
@@ -588,11 +659,14 @@ extern "C" int tinyslam_match_ctas_per_sm(int guided) {
 // by `batch`.  row_part holds batch * slices * n int2; colcode batch * m
 // ints, INT_MAX before the first launch, and counters batch * (ceil(n /
 // 128) + slices) ints, 0 before the first launch (each launch leaves both
-// so).
+// so).  `mode` 0 is unguided, 1 guided (xy_a, proj_b, r2), 2 masked (mask:
+// batch * n rows of mask_words >= 2 * ceil(m / 64) words, from
+// tinyslam_pack_mask).
 extern "C" int tinyslam_match_reduce(const void* desc_a, const void* valid_a,
                                      const void* xy_a, const void* desc_b,
                                      const void* valid_b, const void* proj_b,
-                                     int batch, int n, int m, int guided, float r2,
+                                     const void* mask, int mask_words,
+                                     int batch, int n, int m, int mode, float r2,
                                      int nshift, int cbits, int slices, int tps, int* best,
                                      int* second, int* idx, int* col_idx, void* row_part,
                                      int* colcode, int* counters, cudaStream_t stream) {
@@ -603,6 +677,8 @@ extern "C" int tinyslam_match_reduce(const void* desc_a, const void* valid_a,
   a.desc_b = static_cast<const unsigned*>(desc_b);
   a.valid_b = static_cast<const unsigned char*>(valid_b);
   a.proj_b = static_cast<const float2*>(proj_b);
+  a.mask = static_cast<const unsigned*>(mask);
+  a.mask_words = mask_words;
   a.n = n;
   a.m = m;
   a.nshift = nshift;
@@ -617,8 +693,10 @@ extern "C" int tinyslam_match_reduce(const void* desc_a, const void* valid_a,
   a.colcode = colcode;
   a.counters = counters;
   const int row_tiles = (n + BM - 1) / BM;
-  if (batch < 1 || batch > 65535 || (batch > 1 && m % 16 != 0))
+  if (batch < 1 || batch > 65535 || (batch > 1 && m % 16 != 0) || mode < 0 || mode > 2 ||
+      (mode == 2 && (mask == nullptr || mask_words < 2 * ((m + BN - 1) / BN))))
     return (int)cudaErrorInvalidValue;
-  return guided ? launch<true>(a, slices, row_tiles, batch, stream)
-                : launch<false>(a, slices, row_tiles, batch, stream);
+  return mode == 1 ? launch<true, false>(a, slices, row_tiles, batch, stream)
+         : mode == 2 ? launch<false, true>(a, slices, row_tiles, batch, stream)
+                     : launch<false, false>(a, slices, row_tiles, batch, stream);
 }

@@ -41,13 +41,19 @@ _SIGNATURES = {
     ],
     "tinyslam_match_reduce": [
         _P, _P, _P, _P, _P, _P,            # desc_a, valid_a, xy_a, desc_b, valid_b, proj_b
-        _I, _I, _I, _I, _F, _I, _I, _I, _I,  # batch, n, m, guided, r2, nshift, cbits,
+        _P, _I,                            # packed pair mask, its words a row
+        _I, _I, _I, _I, _F, _I, _I, _I, _I,  # batch, n, m, mode, r2, nshift, cbits,
                                              # slices, tps
         _P, _P, _P, _P,                    # best, second, idx, col_idx
         _P, _P, _P,                        # row_part, colcode, counters
         _P,                                # stream
     ],
-    "tinyslam_match_ctas_per_sm": [_I],   # guided
+    "tinyslam_match_ctas_per_sm": [_I],   # mode
+    "tinyslam_pack_mask": [_P, _I, _I, _I, _P, _P],   # mask, rows, m, words, out, stream
+    "tinyslam_ordered_scatter": [
+        _P, _P, _P, _P, _I, _I,            # vals, perm, ptr, out, size, float64
+        _P,                                # stream
+    ],
     "tinyslam_cuda_error_string": [_I],
 }
 

@@ -73,12 +73,12 @@ def match_descriptors(desc_a, valid_a, desc_b, valid_b, max_distance: int = 64,
     """Mutual-nearest Hamming matching with Lowe ratio test.
 
     Guided matching (map points eligible only near their predicted
-    projection) is either ``pair_mask`` (N, M) bool, CPU only, or
-    ``xy_a`` (N, 2) + ``proj_b`` (M, 2) + ``radius_px``, computed on the fly
-    (park ineligible B entries at a far-away projection).  On CUDA tensors
-    the reduction is the streaming kernel; on CPU tensors its plain version.
-    A leading B on every input matches B independent pairs of sets, each
-    gated by its own xy_a and proj_b, in one launch.
+    projection) is either ``pair_mask`` (N, M) bool or ``xy_a`` (N, 2) +
+    ``proj_b`` (M, 2) + ``radius_px``, computed on the fly (park ineligible
+    B entries at a far-away projection).  On CUDA tensors the reduction is
+    the streaming kernel; on CPU tensors its plain version.  A leading B on
+    every input matches B independent pairs of sets, each gated by its own
+    xy_a and proj_b or its own mask, in one launch.
 
     Returns dict with idx_b (N,) int32, dist (N,) int32 and valid (N,) bool
     (distance bound, ratio test and cross-check passed), (B, N) with a B.

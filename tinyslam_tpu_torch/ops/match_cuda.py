@@ -6,9 +6,9 @@ match_reduce_streaming``.  All-pairs Hamming distances between N features
 and M map points are reduced without ever storing the (N, M) matrix: per
 row the best distance, its argmin and the second best excluding exactly
 the argmin column; per column the argmin over rows, for the cross-check.
-An invalid row or column, or a pair outside the guided gate
-``|xy - proj|^2 < r^2``, is replaced by ``BIG`` = 2^14, which is the plain
-version's (``ops/hamming.py:match_reduce_plain``) semantics for every shape
+An invalid row or column, a pair outside the guided gate
+``|xy - proj|^2 < r^2``, or a pair an explicit ``pair_mask`` clears, is
+replaced by ``BIG`` = 2^14, which is the plain version's (``ops/hamming.py:match_reduce_plain``) semantics for every shape
 and every ``MatcherConfig``, so the two agree exactly (integers).
 
 Each distance is (256 - sa.sb) / 2 over the +-1 unpacking of the
@@ -22,7 +22,9 @@ row tile merges the per-slice partials from a scratch, and the last CTA of
 a slice reads its columns' codes (merged by ``atomicMin``) and resets them,
 so one launch does everything and nothing is filled beforehand.  B
 sequences (camera streams, each its own features, map and gate) go in one
-launch, the sequence the grid's z.
+launch, the sequence the grid's z.  An explicit (N, M) ``pair_mask`` is
+bit-packed on the card (one launch of ``tinyslam_pack_mask``) and read in
+the epilogue beside the codes.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise.  ``LAUNCHES`` counts kernel launches.
@@ -43,7 +45,7 @@ _INT32_MAX = 2**31 - 1
 ROW_TILE, COL_TILE = 128, 64       # csrc/match.cu: BM, BN
 MAX_TPS = 16                       # csrc/match.cu: MAX_TPS, column tiles a slice
 _SCRATCH: dict = {}                # per device: the kernel's counters and column codes
-_OCCUPANCY: dict = {}              # per (device, guided): SMs, CTAs resident an SM
+_OCCUPANCY: dict = {}              # per (device, mode): SMs, CTAs resident an SM
 
 
 def _shift_for(n: int) -> int:
@@ -66,10 +68,10 @@ def match_reduce(desc_a, valid_a, desc_b, valid_b, xy_a=None, proj_b=None,
     the outputs (best, second, idx_b, col_idx), all int32.
 
     desc_* (N|M, 8) int32 packed; valid_* bool; xy_a (N, 2) / proj_b (M, 2)
-    float32 enable the guided gate.  Every input may carry a leading B:
-    B sequences, each its own rows, columns and gate, in one launch (the
-    sequence is the grid's z); the outputs are then (B, N) and (B, M).  An
-    explicit ``pair_mask`` is CPU only.
+    float32 enable the guided gate; ``pair_mask`` (N, M) bool, when
+    given, replaces it.  Every input may carry a leading B: B sequences,
+    each its own rows, columns and gate or mask, in one launch (the
+    sequence is the grid's z); the outputs are then (B, N) and (B, M).
     """
     if desc_a.device.type == "cpu":
         return match_reduce_plain(desc_a, valid_a, desc_b, valid_b, xy_a=xy_a,
@@ -77,10 +79,6 @@ def match_reduce(desc_a, valid_a, desc_b, valid_b, xy_a=None, proj_b=None,
                                   pair_mask=pair_mask)
     if desc_a.device.type != "cuda":
         raise ValueError(f"match_reduce: unsupported device {desc_a.device}")
-    if pair_mask is not None:
-        raise NotImplementedError(
-            "match_reduce: an explicit pair_mask has no CUDA kernel; pass "
-            "xy_a/proj_b/radius_px for guided matching")
     global LAUNCHES
     batched = desc_a.dim() == 3
     lead = desc_a.shape[:1] if batched else ()
@@ -95,9 +93,12 @@ def match_reduce(desc_a, valid_a, desc_b, valid_b, xy_a=None, proj_b=None,
             and ((BIG << cbits) | ((1 << cbits) - 1)) < _INT32_MAX):
         raise ValueError(f"match_reduce: unsupported shape B={batch}, N={n}, M={m}: the "
                          f"packed codes do not fit in int32")
-    guided = xy_a is not None and proj_b is not None
+    masked = pair_mask is not None
+    guided = not masked and xy_a is not None and proj_b is not None
+    mode = 2 if masked else int(guided)
     dev = desc_a.device
-    tensors = [desc_a, valid_a, desc_b, valid_b] + ([xy_a, proj_b] if guided else [])
+    tensors = ([desc_a, valid_a, desc_b, valid_b] + ([xy_a, proj_b] if guided else [])
+               + ([pair_mask] if masked else []))
     if any(x.device != dev for x in tensors):
         raise ValueError("match_reduce: all inputs must be on one device")
     if desc_a.shape != (*lead, n, 8) or desc_b.shape != (*lead, m, 8) \
@@ -109,6 +110,8 @@ def match_reduce(desc_a, valid_a, desc_b, valid_b, xy_a=None, proj_b=None,
     if guided and (xy_a.shape != (*lead, n, 2) or proj_b.shape != (*lead, m, 2)
                    or xy_a.dtype != torch.float32 or proj_b.dtype != torch.float32):
         raise ValueError("match_reduce: xy_a/proj_b must be ([B,] N|M, 2) float32")
+    if masked and (pair_mask.shape != (*lead, n, m) or pair_mask.dtype != torch.bool):
+        raise ValueError("match_reduce: pair_mask must be ([B,] N, M) bool")
     # A sequence's columns start 16-byte aligned (valid bytes, projections):
     # more than one sequence pads M to a multiple of 16 with invalid
     # columns, which lose to every real one, as the kernel's own padding.
@@ -123,7 +126,9 @@ def match_reduce(desc_a, valid_a, desc_b, valid_b, xy_a=None, proj_b=None,
     if guided:
         xy_a, proj_b = _aligned(xy_a), _aligned(proj_b)
     lib = cuda_build.load_library()
-    slices, tps = grid_split(batch * row_tiles, col_tiles, *_occupancy(lib, dev, guided))
+    mask_words = 2 * -(-mp // COL_TILE)
+    mask = _pack_mask(lib, pair_mask, batch * n, m, mask_words) if masked else None
+    slices, tps = grid_split(batch * row_tiles, col_tiles, *_occupancy(lib, dev, mode))
     out = torch.empty((3, *lead, n), dtype=torch.int32, device=dev)
     col_idx = torch.empty((*lead, mp), dtype=torch.int32, device=dev)
     row_part = torch.empty((batch, slices, n, 2), dtype=torch.int32, device=dev)
@@ -134,7 +139,8 @@ def match_reduce(desc_a, valid_a, desc_b, valid_b, xy_a=None, proj_b=None,
             xy_a.data_ptr() if guided else None,
             desc_b.data_ptr(), valid_b.data_ptr(),
             proj_b.data_ptr() if guided else None,
-            batch, n, mp, int(guided), gate_radius2(radius_px), nshift, cbits, slices, tps,
+            mask.data_ptr() if masked else None, mask_words,
+            batch, n, mp, mode, gate_radius2(radius_px), nshift, cbits, slices, tps,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), col_idx.data_ptr(),
             row_part.data_ptr(), colcode.data_ptr(), counters.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -162,12 +168,25 @@ def grid_split(row_tiles: int, col_tiles: int, sms: int, per_sm: int) -> tuple[i
     return slices, tps
 
 
-def _occupancy(lib, dev: torch.device, guided: bool) -> tuple[int, int]:
-    """(SMs, CTAs of the kernel resident on one SM at once)."""
-    key = (dev, guided)
+def _pack_mask(lib, pair_mask: torch.Tensor, rows: int, m: int, words: int) -> torch.Tensor:
+    """The ([B,] N, M) bool mask as (rows, words) int32 words on its device,
+    column c at bit c % 32 of word c // 32 (the rest clear): one launch."""
+    pair_mask = pair_mask.contiguous()
+    out = torch.empty((rows, words), dtype=torch.int32, device=pair_mask.device)
+    with torch.cuda.device(pair_mask.device):
+        err = lib.tinyslam_pack_mask(pair_mask.data_ptr(), rows, m, words, out.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "tinyslam_pack_mask")
+    return out
+
+
+def _occupancy(lib, dev: torch.device, mode: int) -> tuple[int, int]:
+    """(SMs, CTAs of the kernel resident on one SM at once), by mode: 0
+    unguided, 1 guided, 2 masked."""
+    key = (dev, mode)
     if key not in _OCCUPANCY:
         with torch.cuda.device(dev):
-            per_sm = lib.tinyslam_match_ctas_per_sm(int(guided))
+            per_sm = lib.tinyslam_match_ctas_per_sm(mode)
         if per_sm < 1:
             raise RuntimeError("match_reduce: the kernel does not fit on an SM")
         _OCCUPANCY[key] = torch.cuda.get_device_properties(dev).multi_processor_count, per_sm

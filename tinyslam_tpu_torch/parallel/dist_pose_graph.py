@@ -44,7 +44,7 @@ import torch
 
 from tinyslam_tpu_torch.backend.pose_graph import (
     _pose_graph_core,
-    block_offsets,
+    assembly_plan,
     edge_jacobians,
     edge_residual,
     normal_equations,
@@ -160,21 +160,21 @@ def optimize_pose_graph_node_sharded(mesh, R, t, edge_i, edge_j, edge_R, edge_t,
     bi, bj = torch.clamp(ei // B, 0, D - 1), torch.clamp(ej // B, 0, D - 1)
     coarse_i = (bi != 0)[:, None, None].to(dt)
     coarse_j = (bj != 0)[:, None, None].to(dt)
-    coarse_at = block_offsets(bi, bj, D, 6)
+    coarse_plan = assembly_plan(bi, bj, D, 6)
     node_block = torch.arange(n, device=dev) // B
     # Fine level: window-local ids; endpoints outside the window, and the
     # gauge node 0, are fixed (their Jacobian columns dropped).
     wi, wj = ei - win0, ej - win0
     fine_i = ((wi >= 0) & (wi < W) & (ei != 0))[:, None, None].to(dt)
     fine_j = ((wj >= 0) & (wj < W) & (ej != 0))[:, None, None].to(dt)
-    fine_at = block_offsets(torch.clamp(wi, 0, W - 1), torch.clamp(wj, 0, W - 1), W, 6)
+    fine_plan = assembly_plan(torch.clamp(wi, 0, W - 1), torch.clamp(wj, 0, W - 1), W, 6)
 
     def jacobians(R_cur, t_cur):
         return edge_jacobians((R_cur[ei], t_cur[ei]), (R_cur[ej], t_cur[ej]), (eR, et))
 
     def coarse_phase(R_cur, t_cur):
         r, Ji, Jj = jacobians(R_cur, t_cur)
-        Hc, gc = normal_equations(*coarse_at, 6 * D, r, Ji * coarse_i, Jj * coarse_j, w_p)
+        Hc, gc = normal_equations(coarse_plan, 6 * D, r, Ji * coarse_i, Jj * coarse_j, w_p)
         dxc = _damped_step(psum(Hc), psum(gc), damping)
         # The block correction applied to every node: the same inputs on
         # every rank after the sums, so the ranks stay equal.
@@ -182,7 +182,7 @@ def optimize_pose_graph_node_sharded(mesh, R, t, edge_i, edge_j, edge_R, edge_t,
 
     def fine_phase(R_cur, t_cur, parity: int, it: int):
         r, Ji, Jj = jacobians(R_cur, t_cur)
-        H, g = normal_equations(*fine_at, 6 * W, r, Ji * fine_i, Jj * fine_j, w_e)
+        H, g = normal_equations(fine_plan, 6 * W, r, Ji * fine_i, Jj * fine_j, w_e)
         dx = _damped_step(H, g, damping)
         # Only the own block (Schwarz restriction), and only on this
         # half-sweep's parity (red/black block Gauss-Seidel across the ring).

@@ -62,7 +62,7 @@ def main() -> None:
                 rows.append((tps, slices, round(us, 2), exact))
         finally:
             match_cuda.grid_split = pick
-        per_sm = match_cuda._occupancy(match_cuda.cuda_build.load_library(), dev, True)[1]
+        per_sm = match_cuda._occupancy(match_cuda.cuda_build.load_library(), dev, 1)[1]
         print(f"B={B}: grid_split picks {pick(B * 16, 128, sms, per_sm)} (slices, tiles a "
               f"slice); (tiles a slice, slices, device us, exact): {rows}", flush=True)
         if not all(r[3] for r in rows):

@@ -67,8 +67,8 @@ def _build() -> dict:
         cu.write_text(text)
         procs[name] = (so, subprocess.Popen(
             [cuda_build._find_nvcc(), *cuda_build.NVCC_FLAGS, "-shared", "-o", str(so), str(cu),
-             str(cuda_build.CSRC / "fast.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+             *(str(p) for p in cuda_build._sources() if p.name != "match.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
         log = proc.communicate()[0]

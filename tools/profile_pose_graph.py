@@ -1,6 +1,6 @@
 """Where a pose-graph solve's time goes on the card.
 
-    python tools/profile_pose_graph.py [--nodes 11] [--device cuda]
+    python tools/profile_pose_graph.py [--nodes 11] [--device cuda] [--root DIR]
 
 Builds a Sim(3) keyframe chain of ``--nodes`` poses on an arc (odometry
 edges with 1 cm of noise) and one loop edge at scale 1.3, as phase 9 of
@@ -9,7 +9,9 @@ the default ``SlamConfig()`` (padded to 32 nodes and 128 edges, 20
 Gauss-Newton iterations).  Prints the wall time of the process's first
 solve and of three warm ones, the device time and kernel launches of one
 warm solve from ``torch.profiler``, and the operators that take the most
-host time.
+host time.  ``--root`` imports ``tinyslam_tpu_torch`` from another tree (a
+parent commit unpacked with ``git archive``), to set its solve beside
+this tree's in one call.
 """
 
 from __future__ import annotations
@@ -49,11 +51,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=11)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--root", type=Path, default=None,
+                    help="import tinyslam_tpu_torch from this tree")
     args = ap.parse_args()
+    if args.root is not None:
+        sys.path.insert(0, str(args.root.resolve()))
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    import tinyslam_tpu_torch
     from tinyslam_tpu_torch import SlamConfig
     from tinyslam_tpu_torch.models.slam import solve_graph
 
@@ -85,7 +92,8 @@ def main() -> None:
         card = f"device {device_us / 1e3:.3f} ms, {launches} kernel launches  [{_smi()}]"
     else:
         card = "device time and launches not measured (no card)  [cpu]"
-    print(f"solve_graph, {args.nodes} nodes: wall ms first {wall[0]:.1f}, warm "
+    print(f"solve_graph ({Path(tinyslam_tpu_torch.__file__).parents[1]}), {args.nodes} "
+          f"nodes: wall ms first {wall[0]:.1f}, warm "
           f"{[round(w, 1) for w in wall[1:]]}; one warm solve: {card}")
     print(ka.table(sort_by="cpu_time_total", row_limit=15))
 
