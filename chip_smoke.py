@@ -186,7 +186,16 @@ Phases, in order; any failure raises and the script exits nonzero:
      phase 14's ``Sampler(0)`` run again and must equal it bit for bit: raw
      and corrected trajectories, closures, keyframes and edges (runs on the
      card are reproducible since the pose graph adds its normal equations
-     in a fixed order).
+     in a fixed order);
+ 16. the bench (``tinyslam_tpu_torch.bench``, ``python -m
+     tinyslam_tpu_torch.bench``'s path): ``bench_tracked`` on the first 110
+     of phase 2's orbit frames (bootstrap, a warm-up chunk of 32, two timed
+     chunks of 32, one round) and ``bench_frontend`` on four of them, each
+     with its untimed instrumented rounds: the bootstrap within 14 frames,
+     every timed frame tracked, K1 once a timed frame in both rows and K2 at
+     least once a tracked frame; it prints frames/s, syncs and launches a
+     frame and the card's busy share (not gates; the profiler of phase 11
+     has already slowed this process's launches).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -284,6 +293,10 @@ REF_EUROC_ATE = 0.3265627921063381
 N_LOOP = 300
 REF_LOOP_TRACKED, REF_LOOP_KEYFRAMES, REF_LOOP_CLOSURES = 267, 64, 1
 REF_LOOP_ATE = 1.3399
+# Phase 16: tinyslam_tpu_torch.bench's tracked row on phase 2's orbit frames
+# (14 + BENCH_CHUNK * (BENCH_CHUNKS_TIMED + 1) = 110 of its 189) and its
+# front-end row on BENCH_FE_FRAMES of them.
+BENCH_CHUNK, BENCH_CHUNKS_TIMED, BENCH_FE_FRAMES = 32, 2, 4
 # Published H100 SXM peaks (NVIDIA's data sheet, dense rates at 700 W): the
 # bounds of phase 7.
 HBM_BYTES_PER_S = 3.35e12
@@ -434,20 +447,10 @@ def _seeded(cfg, feats, room, cam, pose):
 
 def _with_sync_count(fn):
     """Run fn with PyTorch's sync debug mode on; returns (result, number of
-    synchronizing CUDA calls it made).  PyTorch calls the mode a prototype
-    that may miss some syncs."""
-    import warnings
+    synchronizing CUDA calls it made), as the bench counts them."""
+    from tinyslam_tpu_torch.bench import _with_sync_count as counted
 
-    import torch
-
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return counted(fn)
 
 
 def _keyframe_phase(cam, room, poses, frames, dev, smi):
@@ -1524,6 +1527,55 @@ def _loop_phase(dev, smi):
     if failures:
         raise AssertionError("loop eval phase: " + "; ".join(failures))
     return launches, runs, first
+
+
+def _bench_phase(frames, smi):
+    """Phase 16: ``tinyslam_tpu_torch.bench`` on the card, its tracked row
+    on phase 2's orbit frames and its front-end row on four of them.
+    Returns the kernels' launch counts of the phase."""
+    import torch
+
+    from tinyslam_tpu_torch import bench
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    fast_cuda.LAUNCHES = 0
+    match_cuda.LAUNCHES = 0
+    tr = bench.bench_tracked(chunk=BENCH_CHUNK, chunks_timed=BENCH_CHUNKS_TIMED, rounds=1,
+                             frames=frames)
+    fe = bench.bench_frontend(frames=frames[:BENCH_FE_FRAMES])
+    torch.cuda.synchronize()
+    launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
+                "match_reduce_streaming": match_cuda.LAUNCHES}
+    for row, res, fps in (("tracked", tr, tr["tracked_fps"]),
+                          ("front-end", fe, fe["frontend_fps"])):
+        pf = res["per_frame"]
+        top = ", ".join(f"{op['name'][:48]} {op['ms']:.2f} ms x{op['calls']}"
+                        for op in pf["top_device_ops"])
+        print(f"phase 16 {row}: {fps:.2f} frames/s; per frame {pf['syncs_per_frame']:.2f} "
+              f"syncs, K1 {pf['k1_per_frame']:.2f}, K2 {pf['k2_per_frame']:.2f}, "
+              f"{pf['device_ops_per_frame']:.0f} device operations, card busy "
+              f"{pf['device_ms_per_frame']:.3f} ms ({100 * pf['busy_share']:.1f}% of a timed "
+              f"round); longest device operations: {top}  [{smi}]")
+    print(f"phase 16 tracked: bootstrap at frame {tr['boot_frame']}, tracked "
+          f"{tr['tracked_frac']:.4f} of {tr['frames_timed']} timed frames; seconds "
+          f"{ {k: round(v, 2) for k, v in tr['seconds'].items()} }; launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    failures = []
+    if not tr["boot_frame"] < BOOT_BUDGET:
+        failures.append(f"bootstrap at frame {tr['boot_frame']}")
+    if tr["tracked_frac"] != 1.0:
+        failures.append(f"tracked {tr['tracked_frac']} of the timed frames, not all")
+    if tr["frames_timed"] != BENCH_CHUNK * BENCH_CHUNKS_TIMED:
+        failures.append(f"{tr['frames_timed']} frames timed")
+    if tr["per_frame"]["k1_per_frame"] != 1.0 or fe["per_frame"]["k1_per_frame"] != 1.0:
+        failures.append("K1 not launched once a timed frame")
+    if not tr["per_frame"]["k2_per_frame"] >= 1.0:
+        failures.append("K2 launched less than once a timed frame")
+    if failures:
+        raise AssertionError("bench phase: " + "; ".join(failures))
+    return launches
 
 
 # The keys of tools/error_budget.py's report, stage by stage.
@@ -2717,6 +2769,9 @@ def main() -> None:
     # ---- 15. the error budget on fr1_loop-like under Sampler(0) ----------------
     budget_launches = _budget_phase(dev, smi, loop_runs[0])
 
+    # ---- 16. the bench: its tracked row on the orbit, its front-end row --------
+    bench_launches = _bench_phase(frames, smi)
+
     # ---- 7. kernel times -----------------------------------------------------
     # Last: once the profiler has run in a process, every later launch
     # costs more on the host, which would distort the tracked fps above.
@@ -2819,7 +2874,7 @@ def main() -> None:
          "launches": sum(x["fast_score_map_fused"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
                                    data_launches, rec_launches, dist_launches, ms_launches,
-                                   loop_launches, budget_launches)),
+                                   loop_launches, budget_launches, bench_launches)),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "match_reduce_streaming", "route": "cuda",
@@ -2828,7 +2883,7 @@ def main() -> None:
          "launches": sum(x["match_reduce_streaming"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
                                    data_launches, rec_launches, dist_launches, ms_launches,
-                                   loop_launches, budget_launches)),
+                                   loop_launches, budget_launches, bench_launches)),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["K2 real guided r=20"][0],
          "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},

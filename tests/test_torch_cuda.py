@@ -478,3 +478,20 @@ def test_gray_pyramid_blur_card_equals_cpu(dev, kind):
     for a, b in zip(build_pyramid(gray_gpu, 3), build_pyramid(gray_cpu, 3)):
         assert torch.equal(a.cpu(), b)
         assert torch.equal(gaussian_blur(a).cpu(), gaussian_blur(b))
+
+
+def test_bench_rounds_repeat_on_the_card(dev):
+    """``tinyslam_tpu_torch.bench``'s tracked row at full width on the
+    rendered orbit, two rounds of one chunk of 8: both rounds' summaries
+    bit-equal (the same state, the same draws), every timed frame tracked,
+    K1 once a timed frame and K2 at least once."""
+    from tinyslam_tpu_torch import bench
+
+    got = bench.bench_tracked(chunk=8, chunks_timed=1, rounds=2, device=dev)
+    first, second = got["round_summaries"]
+    assert first.tobytes() == second.tobytes()
+    assert got["boot_frame"] < bench.BOOT_FRAMES
+    assert got["frames_timed"] == 16 and got["tracked_frac"] == 1.0
+    assert got["per_frame"]["k1_per_frame"] == 1.0
+    assert got["per_frame"]["k2_per_frame"] >= 1.0
+    assert 0.0 < got["per_frame"]["busy_share"] <= 1.0

@@ -55,3 +55,14 @@ def test_trace_without_a_device_needs_the_card(tmp_path, monkeypatch):
         with trace(tmp_path / "tr"):
             pass
     assert not (tmp_path / "tr").exists()
+
+
+def test_trace_of_nothing_raises(tmp_path):
+    """``cpu=False`` on a CPU device would trace nothing: it raises and
+    writes nothing."""
+    import pytest
+
+    with pytest.raises(ValueError, match="traces nothing"):
+        with trace(tmp_path / "tr", device="cpu", cpu=False):
+            pass
+    assert not (tmp_path / "tr").exists()

@@ -26,7 +26,7 @@ named_scope = torch.profiler.record_function
 
 
 @contextmanager
-def trace(log_dir=None, device=None):
+def trace(log_dir=None, device=None, *, cpu: bool = True):
     """Profile the enclosed block and write ``trace.json`` (Chrome format)
     into ``log_dir`` (a new temporary directory if None), which the block
     receives::
@@ -34,9 +34,11 @@ def trace(log_dir=None, device=None):
         with profiling.trace("build/trace") as d:
             feats = frontend.extract(frame)
 
-    CPU activity always; CUDA activity where ``device`` is CUDA, with a
-    synchronize before the trace stops.  ``device`` None means the card:
-    without one it raises; a trace of the CPU alone asks for ``"cpu"``.
+    CPU activity unless ``cpu`` is False (a trace of the card alone is
+    smaller and slows the host's launches less); CUDA activity where
+    ``device`` is CUDA, with a synchronize before the trace stops.
+    ``device`` None means the card: without one it raises; a trace of the
+    CPU alone asks for ``"cpu"``.
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -44,9 +46,11 @@ def trace(log_dir=None, device=None):
                                "device='cpu' to trace the CPU alone")
         device = "cuda"
     cuda = torch.device(device).type == "cuda"
+    activities = ([ProfilerActivity.CPU] if cpu else []) + ([ProfilerActivity.CUDA] if cuda else [])
+    if not activities:
+        raise ValueError("profiling.trace: cpu=False traces nothing on a CPU device")
     log_dir = Path(tempfile.mkdtemp(prefix="tinyslam_trace_") if log_dir is None else log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities) as prof:
         try:
             yield log_dir
