@@ -47,7 +47,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      whichever is faster; a bf16 bmm for 4 sequences: the distance matrices
      alone, never called by the port), K2 with a pair mask (the mask's bytes
      in its bound), the order-fixed assembly kernel of the pose graph's
-     normal equations at phases 9's and 14's first solve (its order in
+     normal equations at phases 9's and 14's first solve and at the first
+     solve of tools/profile_pose_graph.py's 200-node chain (224 nodes x 7,
+     256 edges padded; each shape's longest segment printed; its order in
      PyTorch as the plain version, one ``index_add_`` on the card as the
      library call), each kernel's bound from this run's shapes, and the
      device time (profiler) of one keyframe insertion, one relocalization
@@ -297,6 +299,9 @@ REF_LOOP_ATE = 1.3399
 # (14 + BENCH_CHUNK * (BENCH_CHUNKS_TIMED + 1) = 110 of its 189) and its
 # front-end row on BENCH_FE_FRAMES of them.
 BENCH_CHUNK, BENCH_CHUNKS_TIMED, BENCH_FE_FRAMES = 32, 2, 4
+# Phase 7's third assembly shape: a solve of tools/profile_pose_graph.py's
+# chain of this many keyframes (padded to 224 nodes and 256 edges).
+N_CHAIN = 200
 # Published H100 SXM peaks (NVIDIA's data sheet, dense rates at 700 W): the
 # bounds of phase 7.
 HBM_BYTES_PER_S = 3.35e12
@@ -347,9 +352,11 @@ def _time_ms(fn, reps: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int = 20) -> float:
+def _device_ms(fn, reps: int = 20) -> float | None:
     """Device time of one call: the summed duration of every kernel (and
-    memset/copy) it runs, from the profiler's CUDA trace, over `reps` calls."""
+    memset/copy) it runs, from the profiler's CUDA trace, over `reps` calls;
+    None when three traces in a row record no device time (late in a long
+    process the profiler now and then returns only empty traces)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -363,7 +370,16 @@ def _device_ms(fn, reps: int = 20) -> float:
         us = sum(e.self_device_time_total for e in prof.key_averages())
         if us > 0:
             return us / reps / 1e3
-    raise RuntimeError("the profiler recorded no device time in three traces")
+    return None
+
+
+def _shown(ms: float | None, digits: int = 3) -> str:
+    """A time from ``_device_ms`` as printed: ms, or why it is missing."""
+    return "not measured (empty profiler traces)" if ms is None else f"{ms:.{digits}f} ms"
+
+
+def _busy(device: float | None, wall: float) -> str:
+    return "not measured" if device is None else f"{100 * device / wall:.1f}%"
 
 
 def _queued_ms(fn, reps: int = 20) -> float:
@@ -949,10 +965,10 @@ class _FirstAssembly:
 def _assembly_check(label: str, first, smi) -> tuple:
     """The assembly kernel on the main path's inputs ``first`` (plan,
     values) against its plain version, ``index_add_`` on the CPU: bit-equal.
-    Returns (label, kernel call, plain call, library call, bytes, terms)
-    for phase 7: the plain call is the kernel's order in PyTorch on the
-    card (``ordered_scatter_segments``), the library call one ``index_add_``
-    on the card (atomics)."""
+    Returns (label, kernel call, plain call, library call, bytes, terms,
+    longest segment) for phase 7: the plain call is the kernel's order in
+    PyTorch on the card (``ordered_scatter_segments``), the library call
+    one ``index_add_`` on the card (atomics)."""
     import torch
 
     from tinyslam_tpu_torch.ops import scatter_cuda
@@ -971,14 +987,32 @@ def _assembly_check(label: str, first, smi) -> tuple:
         raise AssertionError(f"assembly {label}: the kernel differs from its order in PyTorch")
     atomics = float((library().cpu() - want).abs().max())
     m = int(round((-1 + (1 + 4 * plan.size) ** 0.5) / 2))
-    # The terms, the plan's sort and segments (int32) and H and g.
-    nbytes = (vals.numel() * (vals.element_size() + 4) + (plan.size + 1) * 4
+    count = plan.ptr[1:] - plan.ptr[:-1]
+    longest, hit = int(count.max()), int((count > 0).sum())
+    # The terms and their sorted positions, the segment ends of the slots
+    # that hold a term (and the first start), H and g: what this run needs.
+    nbytes = (vals.numel() * (vals.element_size() + 4) + (hit + 1) * 4
               + plan.size * vals.element_size())
-    print(f"assembly kernel {label}: {vals.numel()} terms into H ({m}x{m}) and g, bit-equal to "
-          f"index_add_ on the CPU; index_add_ on the card (atomics) differs by {atomics:.3g}"
-          f"  [{smi}]")
+    print(f"assembly kernel {label}: {vals.numel()} terms into H ({m}x{m}) and g, {hit} slots "
+          f"hit, longest segment {longest} terms; bit-equal to index_add_ on the CPU; "
+          f"index_add_ on the card (atomics) differs by {atomics:.3g}  [{smi}]")
     return (f"assembly {label}", lambda: scatter_cuda.ordered_scatter_add(plan, vals), plain,
-            library, nbytes, vals.numel())
+            library, nbytes, vals.numel(), longest)
+
+
+def _chain_assembly(nodes: int, dev):
+    """The first assembly's inputs (plan, values) of a solve of
+    ``tools/profile_pose_graph.py``'s chain of ``nodes`` keyframes under
+    ``SlamConfig()``, padded as ``solve_graph`` pads it."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import profile_pose_graph
+
+    from tinyslam_tpu_torch import SlamConfig
+    from tinyslam_tpu_torch.models.slam import solve_graph
+
+    with _FirstAssembly() as assembly:
+        solve_graph(SlamConfig(), profile_pose_graph.snapshot(nodes), dev)
+    return assembly.first
 
 
 def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
@@ -2778,7 +2812,7 @@ def main() -> None:
     ins_wall = _time_ms(kf_insert, reps=5, warmup=1)
     ins_dev = _device_ms(kf_insert, reps=5)
     print(f"one keyframe insertion (window full, BA included): wall {ins_wall:.3f} ms, "
-          f"device {ins_dev:.3f} ms, card busy {100 * ins_dev / ins_wall:.1f}%  [{smi}]")
+          f"device {_shown(ins_dev)}, card busy {_busy(ins_dev, ins_wall)}  [{smi}]")
     ms = {}
     for label, run_k, run_p in timed:
         # Device time from queued launches between CUDA events; the
@@ -2786,8 +2820,8 @@ def main() -> None:
         # over four sequences once read below its operations bound).
         ms[label] = (_queued_ms(run_k), _queued_ms(run_p, reps=3))
         print(f"{label}: device kernel {ms[label][0]:.4f} ms (profiler "
-              f"{_device_ms(run_k):.4f}), plain {ms[label][1]:.4f} ms; wall per call kernel "
-              f"{_time_ms(run_k):.4f} ms, plain {_time_ms(run_p, reps=5, warmup=1):.4f} ms  "
+              f"{_shown(_device_ms(run_k), 4)}), plain {ms[label][1]:.4f} ms; wall per call "
+              f"kernel {_time_ms(run_k):.4f} ms, plain {_time_ms(run_p, reps=5, warmup=1):.4f} ms  "
               f"[{smi}]")
     k1_ms, k1_plain_ms = ms["K1 pyramid"]
     # K1 bound: each level read once and five maps written, or its flops.
@@ -2848,24 +2882,28 @@ def main() -> None:
     rel_wall = _time_ms(reloc_frame, reps=5, warmup=1)
     rel_dev = _device_ms(reloc_frame, reps=5)
     print(f"one relocalization frame (phase 8d, guided): wall {rel_wall:.3f} ms, device "
-          f"{rel_dev:.3f} ms, card busy {100 * rel_dev / rel_wall:.1f}%  [{smi}]")
+          f"{_shown(rel_dev)}, card busy {_busy(rel_dev, rel_wall)}  [{smi}]")
     solve_wall = _time_ms(graph_solve, reps=3, warmup=1)
     solve_dev = _device_ms(graph_solve, reps=2)
     print(f"one graph solve (phase 9's first, 20 Gauss-Newton iterations, upload and "
-          f"readback included): wall {solve_wall:.3f} ms, device {solve_dev:.3f} ms, card "
-          f"busy {100 * solve_dev / solve_wall:.1f}%  [{smi}]")
-    # The assembly kernel at the main path's shapes: one Gauss-Newton
-    # iteration's H and g; bound by the bytes of the terms, the plan and H.
+          f"readback included): wall {solve_wall:.3f} ms, device {_shown(solve_dev)}, card "
+          f"busy {_busy(solve_dev, solve_wall)}  [{smi}]")
+    # The assembly kernel at the main path's shapes and at a large graph's:
+    # one Gauss-Newton iteration's H and g; bound by the bytes of the terms,
+    # the plan and H.
+    assembly.append(_assembly_check(f"{N_CHAIN} nodes", _chain_assembly(N_CHAIN, dev), smi))
     pg_ms = {}
-    for label, run_k, run_p, run_lib, nbytes, terms in assembly:
+    for label, run_k, run_p, run_lib, nbytes, terms, longest in assembly:
         pg_ms[label] = (_queued_ms(run_k), _queued_ms(run_p, reps=3), _queued_ms(run_lib),
                         _bound_ms(nbytes, terms, FP32_FLOPS_PER_S))
         k_ms, p_ms, l_ms, (b_ms, b_by) = pg_ms[label]
-        print(f"{label}: device kernel {k_ms:.4f} ms (profiler {_device_ms(run_k):.4f}), plain "
-              f"(its order in PyTorch) {p_ms:.4f} ms, library (index_add_, atomics) "
-              f"{l_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {nbytes} B), kernel at "
-              f"{100 * b_ms / k_ms:.1f}% of it  [{smi}]")
-    pg_label = assembly[-1][0]
+        print(f"{label}: device kernel {k_ms:.4f} ms (profiler "
+              f"{_shown(_device_ms(run_k), 4)}), plain (its order in PyTorch) {p_ms:.4f} ms, "
+              f"library (index_add_, atomics) "
+              f"{l_ms:.4f} ms, kernel / library {k_ms / l_ms:.2f}; bound {b_ms:.5f} ms "
+              f"({b_by}, {nbytes} B), kernel at {100 * b_ms / k_ms:.1f}% of it; longest "
+              f"segment {longest} terms  [{smi}]")
+    pg_label = "assembly phase 14 fr1_loop"
 
     kernels = [
         {"name": "fast_score_map_fused", "route": "cuda",

@@ -278,7 +278,7 @@ def test_explicit_pair_mask_equal_on_cuda(dev, batch, n, m):
         assert g.shape == w.shape and torch.equal(g, w.to(g.dtype)), name
 
 
-@pytest.mark.parametrize("kind", ["se3", "sim3", "coarse", "fine"])
+@pytest.mark.parametrize("kind", ["se3", "sim3", "coarse", "fine", "padded"])
 def test_pose_graph_assembly_bit_equal(dev, kind):
     """The order-fixed assembly of the normal equations: for the same
     blocks the card's H and g equal the CPU's ``index_add_`` bit for bit,
@@ -303,6 +303,104 @@ def test_pose_graph_assembly_bit_equal(dev, kind):
     assert scatter_cuda.LAUNCHES == before + 51
     for H, g in runs[1:]:
         assert torch.equal(H, runs[0][0]) and torch.equal(g, runs[0][1])
+
+
+# Segment lengths of the order-fixed scatter's cases: (slot, length).  The
+# kernel stages a tile's run of 128 slots in 24 KB (6,144 float32 or 3,072
+# float64 terms), or in chunks of that when the run is longer.  Slots 0-7
+# put long lengths in one warp beside short ones and, with slot 40, overflow
+# the stage (chunks); slots 130-136 are seven segments of 350 with three
+# more long ones (33, 64, 100) and short ones in a tile that fits (the block
+# gathers segments over 32 terms together); slots 300 and 301 two of 5,000
+# in one tile (a chunk boundary inside a segment); the last slot the ragged
+# end.
+SEGMENTS = ((0, 5000), (1, 0), (2, 1), (3, 31), (4, 32), (5, 33), (6, 64), (7, 500),
+            (40, 500), *((130 + k, 350) for k in range(7)), (140, 33), (150, 64), (160, 100),
+            (200, 32), (300, 5000), (301, 5000), (302, 33), (699, 64))
+SEG_SLOTS = 700
+
+
+def _segment_case(dtype, seed=0):
+    """(at (K,) int64, vals (K,) dtype) on the CPU: ``SEGMENTS`` plus 0-3
+    terms at every other slot, listed in a random order, magnitudes over
+    six decades."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 4, SEG_SLOTS)
+    for slot, n in SEGMENTS:
+        lengths[slot] = n
+    at = rng.permutation(np.repeat(np.arange(SEG_SLOTS), lengths))
+    vals = rng.standard_normal(at.size) * 10.0 ** rng.uniform(-3, 3, at.size)
+    return torch.from_numpy(at), torch.from_numpy(vals).to(dtype)
+
+
+def _scatter_on_card(dev, at, vals):
+    from tinyslam_tpu_torch.ops import scatter_cuda
+
+    plan = scatter_cuda.scatter_plan(at.to(dev), SEG_SLOTS)
+    return plan, scatter_cuda.ordered_scatter_add(plan, vals.to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ordered_scatter_segment_lengths(dev, dtype):
+    """The assembly kernel at segment lengths 0, 1, 31, 32, 33, 64, 100,
+    350, 500 and 5,000, long ones in a warp with short ones, tiles whose
+    terms fit the stage and tiles that overflow it: bit-equal to
+    ``index_add_`` on the CPU, and 50 calls bit-equal to each other.  The
+    case can see an order change: the same terms added in the reverse order
+    differ in the long slots of either kind of tile."""
+    from tinyslam_tpu_torch.ops import scatter_cuda
+
+    at, vals = _segment_case(dtype)
+    want = torch.zeros(SEG_SLOTS, dtype=dtype).index_add_(0, at, vals)
+    reverse = torch.zeros(SEG_SLOTS, dtype=dtype).index_add_(0, at.flip(0), vals.flip(0))
+    for slots in ([0, 7, 300, 301], [130, 131, 132, 133, 134, 135, 136]):
+        assert not torch.equal(reverse[slots], want[slots])
+    plan, got = _scatter_on_card(dev, at, vals)
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+    assert torch.equal(torch.signbit(got.cpu()), torch.signbit(want))
+    before = scatter_cuda.LAUNCHES
+    runs = [scatter_cuda.ordered_scatter_add(plan, vals.to(dev)) for _ in range(50)]
+    assert scatter_cuda.LAUNCHES == before + 50
+    assert all(torch.equal(x, got) for x in runs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ordered_scatter_special_values(dev, dtype):
+    """-0.0 terms are added (a slot of -0.0 terms only sums to +0.0, as
+    +0.0 + -0.0 does), inf and NaN propagate, also in long segments made of
+    zeros of either sign but for one term: the finite slots bit-equal to
+    ``index_add_`` on the CPU, sign of zero included; the others equal with
+    NaN taken as equal to NaN (the card's NaN payload may differ)."""
+    at, vals = _segment_case(dtype, seed=1)
+    vals[at == 1] = -0.0                         # slot 1 of SEGMENTS holds none
+    extra = {1: [-0.0] * 40, 2: [float("inf")], 3: [float("nan")]}
+    # Tile 1 (its terms fit the stage): slot 160's 100 terms all zeros of
+    # either sign; 131's zeros but one -5.0; 133's zeros but one NaN; 135's
+    # zeros but one inf.
+    signs = np.random.default_rng(2).integers(0, 2, vals.numel()).astype(bool)
+    zeros = torch.where(torch.from_numpy(signs), -0.0, 0.0).to(dtype)
+    for slot in (160, 131, 133, 135):
+        vals[at == slot] = zeros[at == slot]
+    vals[(at == 131).nonzero()[200, 0]] = -5.0
+    vals[(at == 133).nonzero()[70, 0]] = float("nan")
+    vals[(at == 135).nonzero()[333, 0]] = float("inf")
+    long0 = (at == 0).nonzero()[:, 0]
+    vals[long0[[10, 20]]] = -0.0
+    vals[long0[100]] = float("inf")
+    vals[long0[200]] = -float("inf")             # slot 0: inf - inf = NaN
+    vals[(at == 7).nonzero()[150, 0]] = float("inf")
+    vals[(at == 300).nonzero()[4500, 0]] = float("nan")
+    at = torch.cat([at, torch.tensor([k for k, v in extra.items() for _ in v])])
+    vals = torch.cat([vals, torch.tensor([x for v in extra.values() for x in v], dtype=dtype)])
+    want = torch.zeros(SEG_SLOTS, dtype=dtype).index_add_(0, at, vals)
+    assert want[1] == 0 and not torch.signbit(want[1])
+    assert want[160] == 0 and not torch.signbit(want[160]) and want[131] == -5.0
+    assert torch.isnan(want[[0, 3, 300, 133]]).all() and torch.isinf(want[[2, 7, 135]]).all()
+    got = _scatter_on_card(dev, at, vals)[1].cpu()
+    fin = torch.isfinite(want)
+    assert torch.equal(got[fin], want[fin])
+    assert torch.equal(torch.signbit(got[fin]), torch.signbit(want[fin]))
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("keyframes", [False, True])

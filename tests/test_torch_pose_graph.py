@@ -15,7 +15,8 @@ is zeroed as the reference's NaN Cholesky zeroes it, with no NaN.  The
 normal equations' assembly (``assembly_plan`` + ``normal_equations``)
 equals, bit for bit, two serial ``index_add_`` calls, numpy's ``add.at``,
 the JAX package's four ``.at[].add`` calls and the kernel's segment order
-(``ops/scatter_cuda.py:ordered_scatter_segments``), for the same blocks.
+(``ops/scatter_cuda.py:ordered_scatter_segments``), for the same blocks,
+also on a graph padded as ``models/slam.py:solve_graph`` pads it.
 """
 
 from __future__ import annotations
@@ -217,7 +218,7 @@ def test_singular_system_zeroes_the_step(kind):
     np.testing.assert_allclose(got["costs"], want["costs"], rtol=1e-4)
 
 
-@pytest.mark.parametrize("kind", ["se3", "sim3", "coarse", "fine"])
+@pytest.mark.parametrize("kind", ["se3", "sim3", "coarse", "fine", "padded"])
 def test_assembly_equals_serial_index_add(kind):
     """The assembly of H and g in one ordered scatter equals, bit for bit,
     H and g added in their listed order: two serial ``index_add_`` (the
@@ -225,7 +226,9 @@ def test_assembly_equals_serial_index_add(kind):
     package's ``.at[].add`` in its order (the (i, i) blocks of every edge,
     then (j, j), (i, j), (j, i); g's i-rows, then j-rows), and the kernel's
     own arithmetic (segments of a stable sort, each summed from 0), on
-    graphs where 120 of 240 edges hit one node pair."""
+    graphs where 120 of 240 edges hit one node pair, and on a 32-node graph
+    padded to 128 edges as ``solve_graph`` pads it (node 0's slots hold
+    segments of ~400 terms, most of them +-0)."""
     from tinyslam_tpu_torch.ops import scatter_cuda
 
     n, D, r, Ji, Jj, w, bi, bj = P.dense_graph_terms(kind)

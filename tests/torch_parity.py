@@ -231,7 +231,10 @@ def dense_graph_terms(kind: str, seed: int = 0):
     7) over 16 nodes; "coarse" and "fine", the block and window ids of
     ``parallel/dist_pose_graph.py``'s node-sharded solver (64 nodes in 4
     shards of 16, halo 8), with its Jacobian columns masked as it masks
-    them."""
+    them; "padded" (D 7), a 32-node graph padded to 128 edges as
+    ``models/slam.py:solve_graph`` pads it (``padded_graph_terms``)."""
+    if kind == "padded":
+        return padded_graph_terms(seed)
     rng = np.random.default_rng(seed)
     E, n, D = 240, 16, 7 if kind == "sim3" else 6
     if kind in ("coarse", "fine"):
@@ -258,6 +261,37 @@ def dense_graph_terms(kind: str, seed: int = 0):
         Jj = Jj * ((wj >= 0) & (wj < W) & (ej != 0))[:, None, None]
         return W, D, r, Ji, Jj, w, torch.clamp(wi, 0, W - 1), torch.clamp(wj, 0, W - 1)
     return n, D, r, Ji, Jj, w, ei, ej
+
+
+def padded_graph_terms(seed: int = 0, n: int = 32, valid: int = 30, E: int = 128):
+    """``dense_graph_terms``'s tuple for a Sim(3) graph of ``n`` nodes whose
+    ``valid`` edges (a chain from node 0 and two loop edges onto it; terms
+    over six decades) are padded to ``E`` as ``solve_graph`` pads them:
+    i = j = 0 and an identity measurement, weighted by valid = 0, with the
+    residual and Jacobians the solver computes for them at a node-0 pose.
+    Every padded edge adds four terms (+-0) to each slot of H's (0, 0)
+    block and two to node 0's rows of g: segments of 4 (E - valid) + a few."""
+    from tinyslam_tpu_torch.backend.pose_graph import edge_jacobians
+    from tinyslam_tpu_torch.geometry.sim3 import sim3_exp
+
+    rng = np.random.default_rng(seed)
+    D, pad = 7, E - valid
+    ei = np.concatenate([np.arange(valid - 2), [0, 0], np.zeros(pad, np.int64)])
+    ej = np.concatenate([np.arange(1, valid - 1), [valid // 2, n - 1], np.zeros(pad, np.int64)])
+
+    def values(*shape):
+        x = rng.standard_normal(shape) * 10.0 ** rng.uniform(-3, 3, shape)
+        return torch.from_numpy(x.astype(np.float32))
+
+    r, Ji, Jj = values(valid, D), values(valid, D, D), values(valid, D, D)
+    R0, t0, s0 = sim3_exp(torch.from_numpy(rng.normal(0, 0.5, (1, 7)).astype(np.float32)))
+    node0 = (R0.expand(pad, 3, 3), t0.expand(pad, 3), s0.expand(pad))
+    eye = (torch.eye(3).expand(pad, 3, 3), torch.zeros(pad, 3), torch.ones(pad))
+    r_pad, Ji_pad, Jj_pad = edge_jacobians(node0, node0, eye)
+    w = torch.cat([values(valid).abs(), torch.ones(pad)]) * torch.from_numpy(
+        np.arange(E) < valid).float()
+    return (n, D, torch.cat([r, r_pad]), torch.cat([Ji, Ji_pad]), torch.cat([Jj, Jj_pad]), w,
+            torch.from_numpy(ei).long(), torch.from_numpy(ej).long())
 
 
 def jax_native_library(directory):

@@ -116,7 +116,8 @@ def main() -> None:
     head = " | ".join(f"{n}x{m} {'guided r=%g' % r if r else 'unguided'}" for n, m, r in SHAPES)
     print(f"K2 device us, {head}  [{smi}]")
     for name, row in ms.items():
-        print(f"  {name:15s} " + " | ".join(f"{1e3 * v:.2f}" for v in row))
+        print(f"  {name:15s} " + " | ".join("not measured" if v is None else f"{1e3 * v:.2f}"
+                                             for v in row))
 
 
 if __name__ == "__main__":

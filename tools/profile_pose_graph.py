@@ -9,9 +9,13 @@ the default ``SlamConfig()`` (padded to 32 nodes and 128 edges, 20
 Gauss-Newton iterations).  Prints the wall time of the process's first
 solve and of three warm ones, the device time and kernel launches of one
 warm solve from ``torch.profiler``, and the operators that take the most
-host time.  ``--root`` imports ``tinyslam_tpu_torch`` from another tree (a
-parent commit unpacked with ``git archive``), to set its solve beside
-this tree's in one call.
+host time.  On the card it also times the order-fixed assembly kernel
+(``ops/scatter_cuda.py``) on the solve's first Gauss-Newton iteration's
+terms, from launches queued between CUDA events, beside one
+``index_add_`` of the same terms (atomics), with the longest segment (the
+gauge node's slots).  ``--root`` imports ``tinyslam_tpu_torch`` from
+another tree (a parent commit unpacked with ``git archive``), to set its
+solve beside this tree's in one call.
 """
 
 from __future__ import annotations
@@ -95,7 +99,29 @@ def main() -> None:
     print(f"solve_graph ({Path(tinyslam_tpu_torch.__file__).parents[1]}), {args.nodes} "
           f"nodes: wall ms first {wall[0]:.1f}, warm "
           f"{[round(w, 1) for w in wall[1:]]}; one warm solve: {card}")
+    if dev.type == "cuda":
+        print(assembly_line(cfg, snap, dev))
     print(ka.table(sort_by="cpu_time_total", row_limit=15))
+
+
+def assembly_line(cfg, snap, dev) -> str:
+    """The assembly kernel's and one ``index_add_``'s device time on the
+    first Gauss-Newton iteration's terms of a solve of ``snap``."""
+    import torch
+
+    from chip_smoke import _FirstAssembly, _queued_ms, _smi
+    from tinyslam_tpu_torch.models.slam import solve_graph
+
+    with _FirstAssembly() as assembly:
+        solve_graph(cfg, snap, dev)
+    (plan, vals), kernel = assembly.first, assembly.real
+    kernel_us = _queued_ms(lambda: kernel(plan, vals)) * 1e3
+    library_us = _queued_ms(lambda: torch.zeros(plan.size, dtype=vals.dtype, device=dev)
+                            .index_add_(0, plan.at, vals)) * 1e3
+    longest = int((plan.ptr[1:] - plan.ptr[:-1]).max())
+    return (f"assembly, first iteration: {vals.numel()} terms into {plan.size} slots, longest "
+            f"segment {longest}; kernel {kernel_us:.2f} us, index_add_ {library_us:.2f} us, "
+            f"kernel / index_add_ {kernel_us / library_us:.2f} (queued CUDA events)  [{_smi()}]")
 
 
 if __name__ == "__main__":
