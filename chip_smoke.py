@@ -27,7 +27,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      CPU with the plain versions, and both kernels' launch counters must
      show the main path went through them (K1 once a frame);
   6. the default ``SlamConfig()`` at full width, keyframes and windowed BA
-     on: the same seed, DeviceVO tracks frames 1-188 of the orbit (the
+     on: the same seed, DeviceVO (its captured graph, as on every phase's
+     card run but 8's) tracks frames 1-188 of the orbit (the
      longest prefix the JAX reference tracks wholly: a keyframe comes about
      every 16 frames at this width, and the 11th, which rolls the 10-slot
      window and starts the culling, near frame 172); every frame must
@@ -35,8 +36,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      camera-centre error must stay within 2 cm of the JAX reference's own
      on this sequence, frames 1-53 (three keyframes, the first BA) must
      agree with the CPU plain path, the launch counters must show K1 and K2
-     on the path, and a frame may synchronize with the host at most 3 times
-     (4 on a keyframe);
+     on the path, and a frame of the plain ``track_step`` may synchronize
+     with the host at most 3 times (4 on a keyframe);
   7. the kernels and their plain versions timed at the shapes of phases
      3, 4, 12 and 13 (device time from launches queued behind a sleep
      kernel between CUDA events, the profiler's kernel time beside it, wall
@@ -55,7 +56,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      device time (profiler) of one keyframe insertion, one relocalization
      frame and one graph solve;
   8. DeviceVO from frame 0 under the default ``SlamConfig()``, no state
-     handed over: (a) the host-phase two-view bootstrap must succeed within
+     handed over, on the plain path (``graph=False``: (d) and (g) read its
+     Python calls per attempt; phase 17 runs the same frames through the
+     graph): (a) the host-phase two-view bootstrap must succeed within
      14 frames; (b) every later frame to 100 must track, the Sim(3)-aligned
      ATE over frames 14-100 within 2 cm of the JAX reference's own
      (``REF_BOOT_ATE``); (c) the same run on the CPU plain path with the same
@@ -79,8 +82,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      ingest and 1 + ``loop_candidates`` times per loop probe on top of the
      tracking path, the assembly kernel once a Gauss-Newton iteration of
      each graph solve (its first inputs bit-equal to ``index_add_`` on the
-     CPU), and a tracked frame synchronizes at most 3 times (4 on
-     a keyframe, one more after a lost frame); it prints the SLAM layer's
+     CPU), and a tracked frame's ``process`` call synchronizes at most 3
+     times (4 on a keyframe, one more after a lost frame; through the
+     graph none, one where it dispatches a chunk); it prints the SLAM layer's
      syncs per chunk, its timings per stage and its tracked fps against
      ``DeviceVO`` on the same frames; (b) the first probe, the one that
      accepted the first closure, and the first graph solve replayed on the
@@ -88,8 +92,11 @@ Phases, in order; any failure raises and the script exits nonzero:
      counts equal and, for the candidates at the inlier gate (at least
      one), poses within 2e-3 and RMSE and both scale estimates within 2e-3
      relative; (c) the
-     asynchronous back-end applies a closure, its watchdog restarts
-     nothing, its ATE stays within 2 cm of the reference's; (d) the host
+     asynchronous back-end, with the frames fed at once and again at a
+     camera's 30 a second, applies a closure, its watchdog restarts
+     nothing, and its ATE stays within 2 cm of the reference's each time
+     (fed at once, tracking outruns the solve and waits for it once it is
+     16 frames old); (d) the host
      ``Slam`` on frames 0-40 bootstraps on ``DeviceVO``'s frame and tracks
      every later frame, K1 once a frame; (e) the command line (``python -m
      tinyslam_tpu_torch.run --dataset synthetic --frames 60``) exits 0 on
@@ -125,7 +132,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      front-end's ms a frame binned and continuous, ``DeviceVO`` under
      bilinear BRIEF on phase 5's 24 frames, ``dispatch_slope`` of one
      ``track_step`` beside phase 5's ms a frame, and a ``profiling.trace``
-     of one chunk naming ``orb_level0``-``3`` and both kernels; (f) the
+     of one chunk on the plain path naming ``orb_level0``-``3`` and both
+     kernels; (f) the
      card/CPU differences that remain, pinned: in lockstep on identical
      frames and draws the front-end agrees bit for bit and the first
      quantity that differs is the one ROADMAP names (the two-view estimate
@@ -197,7 +205,26 @@ Phases, in order; any failure raises and the script exits nonzero:
      every timed frame tracked, K1 once a timed frame in both rows and K2 at
      least once a tracked frame; it prints frames/s, syncs and launches a
      frame and the card's busy share (not gates; the profiler of phase 11
-     has already slowed this process's launches).
+     has already slowed this process's launches);
+ 17. (run right after phase 8, before any profiler) the captured graph,
+     ``DeviceVO``'s path on the card, against the plain ``track_chunk`` on
+     the card: (a) phase 6's frames 1-188 on the plain path, poses,
+     summaries, the final state and map bit-equal to phase 6's graph run,
+     launch counts equal, tracked frames/s both ways; (b) phase 8's script
+     (bootstrap, the forced relocalization, the kidnap, the blank frames,
+     the reboot and the second submap) through the graph, bit-equal to
+     phase 8's plain run, launch counts (the graph's from its branch tally)
+     equal, no sync in a tracked frame's ``process`` but the chunk's one
+     readback where it dispatches; (c) phase 6's frames chunk by chunk
+     through ``ChunkGraph.track_chunk``: no sync in any chunk, the results
+     of phase 6; the branch bodies run, the capture and instantiation
+     seconds, the graph's pool bytes and the launches a body makes; (e)
+     the second pass's body's card time (replays of a graph of it), which
+     a select over both sides would add to every frame that skips it; (f)
+     (after phase 11, whose trace has already slowed later launches) one
+     chunk of (c), the third keyframe's, replayed under the profiler: its
+     K1 and K2 kernel events must equal the launches ``ChunkGraph`` works
+     out for it from the graph and its branch tally.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -236,6 +263,7 @@ N_SLAM = 101           # phase 9: orbit frames 0..100, then 99..0
 # use 6 (tests/test_slam.py:29); the default 30 keyframes would take about
 # 450 frames at a keyframe every 12-16.
 SLAM_LOOP_MIN_GAP = 6
+CAMERA_HZ = 30         # phase 9c: frames a second of a live camera (TUM's fr1)
 N_SLAM_HOST = 41       # phase 9d: the host Slam on frames 0-40
 N_CLI_FRAMES = 60      # phase 9e
 # The JAX reference's DeviceSlam on phase 9's sequence: accepted closures
@@ -408,6 +436,33 @@ def _queued_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` (which must not synchronize) from
+    CUDA events around replays of a CUDA graph of it: a function of
+    hundreds of small launches fills the launch queue that ``_queued_ms``
+    relies on, a replay queues one."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _bound_ms(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
     operations over the peak rate of their type, whichever is larger."""
@@ -469,6 +524,252 @@ def _with_sync_count(fn):
     return counted(fn)
 
 
+def _run_record(vo, launches, chunk_s=None, **extra) -> dict:
+    """What a DeviceVO run leaves, for phase 17 to hold another run against
+    bit for bit: poses, summaries, the final state (its map included) and
+    the submaps, the launch counts and the chunks' seconds."""
+    return {"R": np.stack([R for R, _ in vo.trajectory]),
+            "t": np.stack([t for _, t in vo.trajectory]),
+            "stats": [(s.num_features, s.num_matches, s.num_inliers, s.tracking,
+                       s.is_keyframe, s.num_landmarks, s.rmse_px) for s in vo.stats],
+            "state": vo.state.to_numpy() if vo.state is not None else None,
+            "events": [(e["frame"], np.asarray(e["base"][0]).tobytes(),
+                        np.asarray(e["base"][1]).tobytes()) for e in vo.submap_events],
+            "launches": dict(launches), "chunk_s": chunk_s, **extra}
+
+
+def _run_differences(a: dict, b: dict) -> list[str]:
+    """The quantities in which two ``_run_record``s differ, each with the
+    first frame (or state field) where it does."""
+    out = []
+    for key in ("R", "t"):
+        if a[key].shape != b[key].shape:
+            out.append(f"{key}: {a[key].shape} vs {b[key].shape} frames")
+        elif not np.array_equal(a[key], b[key]):
+            bad = np.flatnonzero((a[key] != b[key]).reshape(len(a[key]), -1).any(1))
+            out.append(f"{key} from frame {int(bad[0])} ({len(bad)} frames)")
+    if a["stats"] != b["stats"]:
+        i = next((j for j, (x, y) in enumerate(zip(a["stats"], b["stats"])) if x != y),
+                 min(len(a["stats"]), len(b["stats"])))
+        out.append(f"summaries from frame {i}: "
+                   f"{a['stats'][i] if i < len(a['stats']) else None} vs "
+                   f"{b['stats'][i] if i < len(b['stats']) else None}")
+    if (a["state"] is None) != (b["state"] is None):
+        out.append("one run ends without a state")
+    elif a["state"] is not None:
+        out += [f"state {k}" for k in a["state"] if not np.array_equal(a["state"][k],
+                                                                        b["state"][k])]
+    if a["events"] != b["events"]:
+        out.append("submap events")
+    return out
+
+
+def _graph_phase(cam, frames, dev, smi, kf_run, boot_run):
+    """Phase 17: the captured graph (``DeviceVO``'s path on the card) against
+    the plain ``track_chunk`` on the card, on phase 6's and phase 8's frames,
+    bit for bit, with no sync in a chunk's replays and one readback a chunk.
+    Returns the kernels' launch counts of its runs."""
+    import torch
+
+    from tinyslam_tpu_torch import SlamConfig
+    from tinyslam_tpu_torch.models import vo_device as vd
+    from tinyslam_tpu_torch.models.vo_device import BRANCHES, DeviceVO, VOState
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.utils.draws import Sampler
+
+    cfg = SlamConfig()
+    failures = []
+    total = {"fast_score_map_fused": 0, "match_reduce_streaming": 0}
+
+    def counted():
+        out = {"fast_score_map_fused": fast_cuda.LAUNCHES,
+               "match_reduce_streaming": match_cuda.LAUNCHES}
+        for k, v in out.items():
+            total[k] += v
+        return out
+
+    # a. Phase 6's seeded frames 1-188 on the plain path (phase 6 ran them
+    # through the graph).
+    torch.cuda.synchronize()
+    fast_cuda.LAUNCHES = match_cuda.LAUNCHES = 0
+    vo = DeviceVO(cfg, cam, chunk=CHUNK, device=dev, graph=False)
+    vo.state = VOState.from_numpy(kf_run["seed"], dev)
+    n = N_KF_FRAMES - 1
+    chunk_s = []
+    for c in range(n // CHUNK):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for im in frames[1 + c * CHUNK: 1 + (c + 1) * CHUNK]:
+            vo.process(im)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t_start)
+    for im in frames[1 + len(chunk_s) * CHUNK:]:
+        vo.process(im)
+    vo.flush()
+    eager6 = _run_record(vo, counted(), chunk_s)
+    diff6 = _run_differences(kf_run, eager6)
+    fps = lambda cs: (len(cs) - 1) * CHUNK / sum(cs[1:])  # noqa: E731  (after the warm-up)
+    kf6 = sum(s[4] for s in eager6["stats"])
+    print(f"17a phase 6's frames 1-{n} ({kf6} keyframes), graph (phase 6) against the plain "
+          f"path: {'bit-equal' if not diff6 else diff6}; launches graph "
+          f"{kf_run['launches']}, plain {eager6['launches']}; tracked fps (frames "
+          f"{CHUNK + 1}-{len(chunk_s) * CHUNK}) graph {fps(kf_run['chunk_s']):.2f}, plain "
+          f"{fps(chunk_s):.2f}  [{smi}]")
+    if diff6:
+        failures.append(f"phase 6's frames: the graph and the plain path differ: {diff6}")
+    if kf_run["launches"] != eager6["launches"]:
+        failures.append(f"phase 6's launches: graph {kf_run['launches']}, plain "
+                        f"{eager6['launches']}")
+
+    # b. Phase 8's script (bootstrap, the forced relocalization at frame 60,
+    # the kidnap, the blank frames and the reboot, the second submap)
+    # through the graph; syncs counted per tracked frame fed.
+    fast_cuda.LAUNCHES = match_cuda.LAUNCHES = 0
+    vo = DeviceVO(cfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
+    fed_syncs = []                # (dispatched a chunk, syncs) per tracked frame fed
+    rebooted = []                 # syncs of the frames that rebooted the tracker
+    t_start = time.perf_counter()
+    for op in boot_run["script"]:
+        if op[0] == "flush":
+            vo.flush()
+        elif op[0] == "force":
+            vo.force_reloc = True
+        else:
+            image = frames[op[1]] if op[1] is not None else np.zeros_like(frames[0])
+            if not vo.initialized:
+                vo.process(image)
+                continue
+            pending, reboots = len(vo._pending), vo.num_reboots
+            _, k = _with_sync_count(lambda: vo.process(image))
+            if vo.num_reboots != reboots:
+                rebooted.append(k)    # the reboot drains the pending chunks
+            else:
+                fed_syncs.append((len(vo._pending) != pending, k))
+    torch.cuda.synchronize()
+    seconds8 = time.perf_counter() - t_start
+    graph8 = _run_record(vo, counted())
+    diff8 = _run_differences(boot_run, graph8)
+    dispatch = [k for d, k in fed_syncs if d]
+    quiet = [k for d, k in fed_syncs if not d]
+    print(f"17b phase 8's {len(boot_run['stats'])} frames (bootstrap, forced "
+          f"relocalization, kidnap, reboot) through the graph against phase 8's plain "
+          f"run: {'bit-equal' if not diff8 else diff8}; launches graph "
+          f"{graph8['launches']}, plain {boot_run['launches']}; syncs per tracked frame "
+          f"fed: {sorted(set(quiet))} where no chunk was dispatched, "
+          f"{sorted(set(dispatch))} where one was ({len(dispatch)} chunks), {rebooted} "
+          f"where one rebooted the tracker; {seconds8:.2f} s  [{smi}]")
+    if diff8:
+        failures.append(f"phase 8's frames: the graph and the plain path differ: {diff8}")
+    if graph8["launches"] != boot_run["launches"]:
+        failures.append(f"phase 8's launches: graph {graph8['launches']}, plain "
+                        f"{boot_run['launches']}")
+    if any(quiet) or any(k != 1 for k in dispatch) or not dispatch:
+        failures.append(f"syncs per tracked frame {fed_syncs}: 0 expected, 1 (the "
+                        f"chunk's readback) where a chunk is dispatched")
+
+    # c. Phase 6's frames again, chunk by chunk through the captured graph:
+    # no sync in any chunk's replays, and the results of phase 6's run.
+    graph = vd.chunk_graph(cam, cfg, VOState.from_numpy(kf_run["seed"], dev),
+                           torch.from_numpy(frames[1]).to(dev), Sampler(0))
+    state = VOState.from_numpy(kf_run["seed"], dev)
+    chunk_syncs, Rs, ts, sums = [], [], [], []
+    images = torch.from_numpy(np.stack(frames[1:N_KF_FRAMES])).to(dev)
+    # The chunk that phase 17f traces: the third keyframe's, with its BA.
+    kf_chunk = [i for i, s in enumerate(kf_run["stats"]) if s[4]][2] // CHUNK * CHUNK
+    before = graph.tally.tolist()
+    fast_cuda.LAUNCHES = match_cuda.LAUNCHES = 0
+    for c in range(0, n, CHUNK):
+        part = images[c:c + CHUNK]
+        if c == kf_chunk:
+            replay = (graph, state, part)
+        (state, ys), k = _with_sync_count(
+            lambda part=part: graph.track_chunk(state, part, [True] * len(part)))
+        chunk_syncs.append(k)
+        Rs.append(ys["R"])
+        ts.append(ys["t"])
+        sums.append(ys["summary"])
+    runs = dict(zip(BRANCHES, (a - b for a, b in zip(graph.tally.tolist(), before))))
+    same = (np.array_equal(torch.cat(Rs).cpu().numpy(), kf_run["R"])
+            and np.array_equal(torch.cat(ts).cpu().numpy(), kf_run["t"]))
+    col = np.array([s[:7] for s in kf_run["stats"]], np.float32)
+    same &= np.array_equal(torch.cat(sums)[:, :7].cpu().numpy(), col)
+    graph.account(graph.tally.tolist())
+    counted()
+    c = graph.captured
+    print(f"17c phase 6's frames in {len(chunk_syncs)} chunks of {CHUNK} through "
+          f"ChunkGraph.track_chunk: syncs per chunk {sorted(set(chunk_syncs))}, results "
+          f"{'equal to' if same else 'DIFFERENT from'} phase 6's; branch bodies run "
+          f"{runs}; the graph: capture {c.capture_s:.3f} s, instantiation "
+          f"{c.instantiate_s:.3f} s, pool {c.pool_bytes} B, launches outside the "
+          f"branches {c.base} (K1, K2) a replay, in each branch {c.body_launches}  [{smi}]")
+    # e. The second pass as a conditional node or as a select over both
+    # sides: its body's card time on phase 6's first frame, and how often
+    # the frames of (c) took it.
+    from tinyslam_tpu_torch.frontend.orb import extract_features
+    from tinyslam_tpu_torch.models.vo import _match_to_map, _track_pnp
+
+    st = VOState.from_numpy(kf_run["seed"], dev)
+    feats = extract_features(images[0], st.threshold, cfg.frontend)
+
+    def second_pass():
+        idx, mv = _match_to_map(feats, st.map, cfg.matcher.max_distance, cfg.matcher.ratio,
+                                cam=cam, R=st.R, t=st.t, radius_px=8.0)
+        return _track_pnp(cam, feats, st.map, idx, mv, st.R, st.t, iters=cfg.vo.pnp_iters,
+                          inlier_px=cfg.vo.pnp_inlier_px)
+
+    sp_ms = _graph_ms(second_pass)
+    print(f"17e the second pass's body (K2 at r=8, a PnP refine): {sp_ms:.4f} ms of card time "
+          f"a frame; taken on {runs['second_pass']} of {n} frames in (c): a select over "
+          f"both sides would add it to the other {n - runs['second_pass']}  [{smi}]")
+    if any(chunk_syncs):
+        failures.append(f"chunk replays synchronized: {chunk_syncs}")
+    if not same:
+        failures.append("ChunkGraph.track_chunk differs from phase 6's DeviceVO run")
+    for key, g in vd._GRAPHS.items():
+        print(f"17d graph {key[2]} {key[3]}: capture {g.captured.capture_s:.3f} s, "
+              f"instantiation {g.captured.instantiate_s:.3f} s, pool "
+              f"{g.captured.pool_bytes} B, {g.replays} replays  [{smi}]")
+    if failures:
+        raise AssertionError("graph phase: " + "; ".join(failures))
+    return total, replay
+
+
+def _replay_trace(replay, dev, smi):
+    """Phase 17f: the kernels that replays of the captured graph launch, as
+    the profiler sees them.  One chunk of phase 17c's (its first with a
+    keyframe, from the same state) is traced on the card alone, and its
+    K1 and K2 kernel events are counted against the counts that
+    ``ChunkGraph`` works out for the same chunk: the graph's launches
+    outside the branches a replay, and each branch body's launches times
+    the times the device tally says it ran.  Run after phase 11 has traced:
+    the profiler slows this process's later launches."""
+    import json
+
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.utils import profiling
+
+    graph, state, part = replay
+    kernels = ("fast_pyramid_kernel", "match_reduce_kernel")
+    for attempt in range(3):    # a trace now and then comes back empty
+        graph.account(graph.tally.tolist())
+        fast_cuda.LAUNCHES = match_cuda.LAUNCHES = 0
+        with profiling.trace(REC_DIR / "replay_trace", device=dev, cpu=False) as log_dir:
+            graph.track_chunk(state, part, [True] * len(part))
+        runs = graph.account(graph.tally.tolist())
+        worked = [fast_cuda.LAUNCHES, match_cuda.LAUNCHES]
+        events = [e for e in json.loads((log_dir / "trace.json").read_text())["traceEvents"]
+                  if e.get("cat") == "kernel"]
+        seen = [sum(name in e.get("name", "") for e in events) for name in kernels]
+        if events:
+            break
+    print(f"17f one chunk of {len(part)} replays traced (attempt {attempt + 1}): "
+          f"{len(events)} kernel events; K1, K2 in the trace {seen}, worked out by "
+          f"ChunkGraph {worked}; branch bodies run {runs}  [{smi}]")
+    if not events or seen != worked:
+        raise AssertionError(f"graph phase: the traced replays launched K1, K2 {seen} "
+                             f"times, ChunkGraph counts {worked}")
+
+
 def _keyframe_phase(cam, room, poses, frames, dev, smi):
     """Phase 6: the default SlamConfig() (keyframe insertion, windowed BA,
     culling) at full width through DeviceVO on frames 1-188.  Returns the
@@ -511,6 +812,10 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
     vo.flush()
     launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
                 "match_reduce_streaming": match_cuda.LAUNCHES}
+    # The tracked frames' launches (less the seed frame's extraction).
+    run = _run_record(vo, {**launches,
+                           "fast_score_map_fused": launches["fast_score_map_fused"] - 1},
+                      chunk_s, seed=seed.to_numpy())
     stats = vo.stats
     kf = np.array([s.is_keyframe for s in stats])
     n_kf = int(kf.sum())
@@ -621,7 +926,7 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
         failures.append(f"syncs per frame {syncs.tolist()} exceed 3 (4 on a keyframe)")
     if failures:
         raise AssertionError("keyframe phase: " + "; ".join(failures))
-    return launches, kf_insert
+    return launches, kf_insert, run
 
 
 def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
@@ -674,15 +979,28 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
     blank = np.zeros_like(frames[0])
     failures = []
 
+    # The plain track_chunk on the card: its draws and launch counters are
+    # Python calls per attempt, which 8d and 8g read (a replay makes none);
+    # phase 17 runs this same script through the captured graph.
     sampler = LoggingSampler()
-    vo = DeviceVO(cfg, cam, chunk=CHUNK, device=dev, sampler=sampler)
+    vo = DeviceVO(cfg, cam, chunk=CHUNK, device=dev, sampler=sampler, graph=False)
+    script = []                   # ("feed", orbit index or None) / ("flush",) / ("force",)
     fed, host_ms = [], []         # orbit index of each frame fed (None: blank)
     calls = []                    # per process call: (K2 launches, log length) before it
     boot = []                     # global frames where a bootstrap succeeded
     boot_pair = None              # the first bootstrap's two views and draws
 
+    def flush():
+        script.append(("flush",))
+        vo.flush()
+
+    def force():
+        script.append(("force",))
+        vo.force_reloc = True
+
     def feed(i):
         nonlocal boot_pair
+        script.append(("feed", i))
         fed.append(i)
         image = frames[i] if i is not None else blank
         calls.append((match_cuda.LAUNCHES, len(sampler.log)))
@@ -721,14 +1039,14 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
     # a, b, d: bootstrap, tracking to frame 100, a forced relocalization.
     for i in range(RELOC_FRAME):
         feed(i)
-    vo.flush()
+    flush()
     snap_reloc = VOState.from_numpy(vo.state.to_numpy(), dev) if vo.initialized else None
     gen_reloc = sampler.generator.get_state()
-    vo.force_reloc = True
+    force()
     n_calls = len(calls)
     for i in range(RELOC_FRAME, N_BOOT_FRAMES):
         feed(i)
-    vo.flush()
+    flush()
     reloc_keys = [k for k, _ in sampler.log[calls[n_calls][1]:]
                   if k[0] == "reloc" and int(k[1]) == RELOC_FRAME]
     main_stats, main_pos = list(vo.stats), vo.positions.copy()
@@ -736,13 +1054,13 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
     kid = N_BOOT_FRAMES - 1 + KIDNAP_STEPS
     snap_kid = VOState.from_numpy(vo.state.to_numpy(), dev)
     gen_kid = sampler.generator.get_state()
-    vo.force_reloc = True
+    force()
     feed(kid)
-    vo.flush()
+    flush()
     kid_stat = vo.stats[-1]
     for i in range(kid + 1, kid + 11):
         feed(i)
-    vo.flush()
+    flush()
     # f: blank frames, the reboot, a second submap.
     last_tracked = max(j for j, st in enumerate(vo.stats) if st.tracking)
     for _ in range(N_BLANK):
@@ -750,10 +1068,11 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
     reboot_at = len(fed) - 1
     for i in range(kid + 11, len(frames)):
         feed(i)
-    vo.flush()
+    flush()
     torch.cuda.synchronize()
     launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
                 "match_reduce_streaming": match_cuda.LAUNCHES}
+    run = _run_record(vo, launches, script=script)
     attempts = per_attempt("two_view")
     reloc_attempts = per_attempt("reloc")
     # The forced relocalizations (frames 60 and 101 of the first submap)
@@ -921,7 +1240,7 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
             failures.append(f"{name} frame: {k} syncs > {4 + int(is_kf)}")
     if failures:
         raise AssertionError("bootstrap phase: " + "; ".join(failures))
-    return launches, reloc_frame
+    return launches, reloc_frame, run
 
 
 def _moved(a, device):
@@ -1026,7 +1345,6 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     import torch
 
     from tinyslam_tpu_torch.models import slam as sm
-    from tinyslam_tpu_torch.models import vo_device as vd
     from tinyslam_tpu_torch.models.slam import DeviceSlam, Slam
     from tinyslam_tpu_torch.models.vo_device import DeviceVO
     from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
@@ -1077,7 +1395,6 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     calls = {"_kf_ingest": [], "_loop_probe": [], "solve_graph": []}
     frame_syncs, chunk_syncs, first, probes = [], [], {}, []
     real = {k: getattr(sm, k) for k in calls}
-    real_step = vd.track_step
 
     def counted(name):
         def wrapper(*args, **kw):
@@ -1097,22 +1414,28 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
             return out
         return wrapper
 
-    def step_counted(*args, **kw):
-        out, k = _with_sync_count(lambda: real_step(*args, **kw))
-        frame_syncs.append(k)
-        return out
-
     slam = DeviceSlam(cfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
     real_sync = slam._sync_chunk
+    real_process = slam.vo.process
+
+    def process_counted(image):
+        # A tracked frame's syncs: none while its chunk fills, the chunk's
+        # one readback where it dispatches the chunk (the captured graph
+        # tracks the chunk there); the SLAM layer's sync is counted apart.
+        if not slam.vo.initialized:
+            return real_process(image)
+        out, k = _with_sync_count(lambda: real_process(image))
+        frame_syncs.append(k)
+        return out
 
     def sync_counted():
         slam.vo._dispatch()           # a partial chunk's frames count as frames
         chunk_syncs.append(_with_sync_count(real_sync)[1])
 
     slam._sync_chunk = sync_counted
+    slam.vo.process = process_counted
     for k in real:
         setattr(sm, k, counted(k))
-    vd.track_step = step_counted
     try:
         torch.cuda.synchronize()
         fast_cuda.LAUNCHES = 0
@@ -1127,7 +1450,6 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     finally:
         for k, f in real.items():
             setattr(sm, k, f)
-        vd.track_step = real_step
     stats = slam.vo.stats
     b0 = slam.vo.host_frames - 1
     n_kf = len(slam.kf_R)
@@ -1261,30 +1583,49 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     if not replay or "solve" not in first:
         failures.append("no probe or no graph solve to replay")
 
-    # c. The asynchronous back-end on the same frames.
-    aslam = DeviceSlam(cfg, cam, chunk=CHUNK, async_backend=True, device=dev,
-                       sampler=Sampler(0))
-    applied = []
-    real_apply = aslam._apply_graph_result
+    # c. The asynchronous back-end on the same frames, fed at once and as a
+    # camera delivers them (CAMERA_HZ), each held to the reference's ATE.
+    # Fed at once, the captured graph tracks faster than the worker solves:
+    # tracking waits for a solve 16 frames old (``solve_lag_frames``), and
+    # the frames tracked meanwhile are rescaled when it lands
+    # (``Slam._landed_late``).
+    def async_run(hz):
+        aslam = DeviceSlam(cfg, cam, chunk=CHUNK, async_backend=True, device=dev,
+                           sampler=Sampler(0))
+        applied = []
+        real_apply = aslam._apply_graph_result
 
-    def apply_counted(*a):
-        applied.append(len(aslam.vo.stats))
-        return real_apply(*a)
+        def apply_counted(*a):
+            applied.append(len(aslam.vo.stats) + len(aslam.vo._buf))
+            return real_apply(*a)
 
-    aslam._apply_graph_result = apply_counted
-    try:
-        a_secs = run_timed(aslam.process_frame, aslam.finalize, images)
-        restarts = aslam._worker.restarts
-    finally:
-        aslam.close()
-    a_b0 = aslam.vo.host_frames - 1
-    a_ate = ate_rmse(aslam.positions[a_b0:], gt[a_b0:])
-    print(f"async back-end: {aslam.num_loop_closures} closures, solves applied after "
-          f"frames {applied}, watchdog restarts {restarts}, ATE {a_ate:.4f}, tracked fps "
-          f"{fps(a_secs, warm):.2f}  [{smi}]")
-    if not applied or restarts or REF_SLAM_ATE is None or not a_ate <= REF_SLAM_ATE + 0.02:
-        failures.append("the asynchronous back-end applied no closure, restarted, or "
-                        "missed the ATE")
+        def fed(im):
+            if hz:
+                time.sleep(max(0.0, t_start + fed.n / hz - time.perf_counter()))
+            fed.n += 1
+            aslam.process_frame(im)
+
+        fed.n = 0
+        aslam._apply_graph_result = apply_counted
+        try:
+            t_start = time.perf_counter()
+            secs = run_timed(fed, aslam.finalize, images)
+            restarts = aslam._worker.restarts
+        finally:
+            aslam.close()
+        b = aslam.vo.host_frames - 1
+        return aslam, applied, restarts, ate_rmse(aslam.positions[b:], gt[b:]), secs
+
+    for hz in (None, CAMERA_HZ):
+        aslam, applied, restarts, a_ate, a_secs = async_run(hz)
+        fed_as = f"at {hz} a second" if hz else "at once"
+        print(f"async back-end, frames fed {fed_as}: {aslam.num_loop_closures} closures, "
+              f"solves applied after frames {applied}, watchdog restarts {restarts}, ATE "
+              f"{a_ate:.4f}, tracked fps {fps(a_secs, warm):.2f}  [{smi}]")
+        if (not applied or restarts or REF_SLAM_ATE is None
+                or not a_ate <= REF_SLAM_ATE + 0.02):
+            failures.append(f"the asynchronous back-end, frames fed {fed_as}, applied no "
+                            "closure, restarted, or missed the ATE")
 
     # d. The host-stepped Slam on frames 0-40.
     host = Slam(cfg, cam, device=dev, sampler=Sampler(0))
@@ -1587,11 +1928,13 @@ def _bench_phase(frames, smi):
         pf = res["per_frame"]
         top = ", ".join(f"{op['name'][:48]} {op['ms']:.2f} ms x{op['calls']}"
                         for op in pf["top_device_ops"])
+        busy = ("busy share not measured" if pf["busy_share"] is None
+                else f"busy {100 * pf['busy_share']:.1f}% of a timed round")
         print(f"phase 16 {row}: {fps:.2f} frames/s; per frame {pf['syncs_per_frame']:.2f} "
               f"syncs, K1 {pf['k1_per_frame']:.2f}, K2 {pf['k2_per_frame']:.2f}, "
               f"{pf['device_ops_per_frame']:.0f} device operations, card busy "
-              f"{pf['device_ms_per_frame']:.3f} ms ({100 * pf['busy_share']:.1f}% of a timed "
-              f"round); longest device operations: {top}  [{smi}]")
+              f"{pf['device_ms_per_frame']:.3f} ms profiled ({busy}); longest device "
+              f"operations: {top}  [{smi}]")
     print(f"phase 16 tracked: bootstrap at frame {tr['boot_frame']}, tracked "
           f"{tr['tracked_frac']:.4f} of {tr['frames_timed']} timed frames; seconds "
           f"{ {k: round(v, 2) for k, v in tr['seconds'].items()} }; launches {launches}; "
@@ -1972,12 +2315,18 @@ def _recovery_phase(cam, room, poses, frames, dev, smi, slice_cfg, slice_seed, s
         reps=9, attempts=3)
     print(f"phase 11e: dispatch_slope of one track_step (phase 5's slice): "
           f"{1e3 * slope:.2f} ms, beside phase 5's {slice_ms:.2f} ms a frame  [{smi}]")
-    # A trace of one tracked chunk: the level scopes and both kernels.
+    # A trace of one tracked chunk: the level scopes and both kernels.  The
+    # plain path: a replay of the captured graph runs no Python, so no
+    # scope is entered in it.
     def traced_chunk():
-        with profiling.trace(REC_DIR / "trace", device=dev) as log_dir:
-            for i in range(RELOC_FRAME + 1, RELOC_FRAME + 1 + CHUNK):
-                back.process(frames[i])
-            back.flush()
+        back.graph = False
+        try:
+            with profiling.trace(REC_DIR / "trace", device=dev) as log_dir:
+                for i in range(RELOC_FRAME + 1, RELOC_FRAME + 1 + CHUNK):
+                    back.process(frames[i])
+                back.flush()
+        finally:
+            back.graph = True
         return log_dir
 
     log_dir, _, _ = counted(traced_chunk)
@@ -2773,10 +3122,15 @@ def main() -> None:
         raise AssertionError("card and CPU plain path disagree")
 
     # ---- 6. keyframes and windowed BA on the card -------------------------
-    kf_launches, kf_insert = _keyframe_phase(cam, room, poses, frames, dev, smi)
+    kf_launches, kf_insert, kf_run = _keyframe_phase(cam, room, poses, frames, dev, smi)
 
     # ---- 8. DeviceVO from frame 0: bootstrap, relocalization, reboot ------
-    boot_launches, reloc_frame = _bootstrap_phase(cam, poses, frames, dev, smi)
+    boot_launches, reloc_frame, boot_run = _bootstrap_phase(cam, poses, frames, dev, smi)
+
+    # ---- 17. the captured graph against the plain path, phases 6 and 8 ---------
+    # Here, before any profiler has slowed this process's launches: 17a
+    # compares the two paths' frames/s.
+    graph_launches, graph_replay = _graph_phase(cam, frames, dev, smi, kf_run, boot_run)
 
     # ---- 9. Sim(3) loop closure: DeviceSlam, the async back-end, Slam, CLI --
     slam_launches, graph_solve, pg_orbit = _slam_phase(cam, poses, frames, dev, smi)
@@ -2789,6 +3143,8 @@ def main() -> None:
     rec_launches = _recovery_phase(cam, room, poses, frames, dev, smi, cfg, seed,
                                    1e3 * sum(chunk_s[1:]) / n_timed)
     _difference_pins(dev, smi)
+    _replay_trace(graph_replay, dev, smi)      # 17f
+    del graph_replay
 
     # ---- 12. the distributed layer: mesh, frontend_dp, sharded BA and graphs --
     dist_launches = _dist_phase(frames, dev, smi, timed)
@@ -2912,7 +3268,8 @@ def main() -> None:
          "launches": sum(x["fast_score_map_fused"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
                                    data_launches, rec_launches, dist_launches, ms_launches,
-                                   loop_launches, budget_launches, bench_launches)),
+                                   loop_launches, budget_launches, bench_launches,
+                                   graph_launches)),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "match_reduce_streaming", "route": "cuda",
@@ -2921,7 +3278,8 @@ def main() -> None:
          "launches": sum(x["match_reduce_streaming"]
                          for x in (launches, kf_launches, boot_launches, slam_launches,
                                    data_launches, rec_launches, dist_launches, ms_launches,
-                                   loop_launches, budget_launches, bench_launches)),
+                                   loop_launches, budget_launches, bench_launches,
+                                   graph_launches)),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["K2 real guided r=20"][0],
          "bound_by": k2_bound["K2 real guided r=20"][1], "library_ms": lib_ms["2048x8192"]},

@@ -580,16 +580,146 @@ def test_gray_pyramid_blur_card_equals_cpu(dev, kind):
 
 def test_bench_rounds_repeat_on_the_card(dev):
     """``tinyslam_tpu_torch.bench``'s tracked row at full width on the
-    rendered orbit, two rounds of one chunk of 8: both rounds' summaries
-    bit-equal (the same state, the same draws), every timed frame tracked,
-    K1 once a timed frame and K2 at least once."""
+    rendered orbit, two rounds of one chunk of 8, through the graph and on
+    the eager path: both rounds' summaries bit-equal (the same state, the
+    same draws), every timed frame tracked, K1 once a timed frame and K2 at
+    least once; the busy share in (0, 1] on the eager path and not measured
+    (None) through the graph, the profiled device time a frame positive."""
     from tinyslam_tpu_torch import bench
 
-    got = bench.bench_tracked(chunk=8, chunks_timed=1, rounds=2, device=dev)
-    first, second = got["round_summaries"]
-    assert first.tobytes() == second.tobytes()
-    assert got["boot_frame"] < bench.BOOT_FRAMES
-    assert got["frames_timed"] == 16 and got["tracked_frac"] == 1.0
-    assert got["per_frame"]["k1_per_frame"] == 1.0
-    assert got["per_frame"]["k2_per_frame"] >= 1.0
-    assert 0.0 < got["per_frame"]["busy_share"] <= 1.0
+    for graph_path in (True, False):
+        got = bench.bench_tracked(chunk=8, chunks_timed=1, rounds=2, device=dev,
+                                  graph_path=graph_path)
+        first, second = got["round_summaries"]
+        assert first.tobytes() == second.tobytes()
+        assert got["boot_frame"] < bench.BOOT_FRAMES
+        assert got["frames_timed"] == 16 and got["tracked_frac"] == 1.0
+        assert got["per_frame"]["k1_per_frame"] == 1.0
+        assert got["per_frame"]["k2_per_frame"] >= 1.0
+        assert got["per_frame"]["device_ms_per_frame"] > 0.0
+        if graph_path:
+            assert got["per_frame"]["busy_share"] is None
+        else:
+            assert 0.0 < got["per_frame"]["busy_share"] <= 1.0
+
+
+def _seeded_mid(cfg, frames, poses, room, cam):
+    feats = extract_features(torch.from_numpy(frames[0]), 0.06, cfg.frontend)
+    xy = feats.xy[feats.valid].numpy().astype(np.float64)
+    X = torch.from_numpy(room.raycast(cam, *poses[0], xy).astype(np.float32))
+    return VOState.seeded(cfg, feats, X, *(torch.from_numpy(a) for a in poses[0]))
+
+
+def _graph_case(second_pass_below: int):
+    """``_mid_setup``'s 320x240 orbit with a keyframe at least every 4
+    frames (the first two into a window too small for BA, the third with
+    it) and the second pass never (0) or wherever 15 or more inliers seat
+    (1,000,000)."""
+    base, cam, frames, poses, room = _mid_setup(33)
+    cfg = dataclasses.replace(base, vo=dataclasses.replace(
+        base.vo, keyframe_max_interval=4, second_pass_below=second_pass_below))
+    return cfg, cam, frames, _seeded_mid(cfg, frames, poses, room, cam)
+
+
+def _graph_run(cfg, cam, frames, seed, dev, graph: bool):
+    """DeviceVO from the seed over frames 1-16, a relocalization forced
+    after a flush (guided: the stale pose is close), frames 17-24, then a
+    state whose pose is turned 0.6 rad about the vertical and marked lost
+    (the guided attempt fails, the global fallback runs), frames 25-32."""
+    from tinyslam_tpu_torch.geometry.se3 import so3_exp
+
+    vo = DeviceVO(cfg, cam, chunk=4, device=dev, sampler=Sampler(0), graph=graph)
+    vo.state = VOState.from_numpy(seed.to_numpy(), dev)
+    k = (fast_cuda.LAUNCHES, match_cuda.LAUNCHES)
+    for i in range(1, 33):
+        if i == 17:
+            vo.flush()
+            vo.force_reloc = True
+        if i == 25:
+            vo.flush()
+            dR = so3_exp(torch.tensor([0.0, 0.6, 0.0], device=dev))
+            vo.state = vo.state.replace(R=dR @ vo.state.R, t=dR @ vo.state.t,
+                                        last_tracking=torch.zeros((), dtype=torch.bool,
+                                                                  device=dev))
+        vo.process(frames[i])
+    vo.flush()
+    return vo, (fast_cuda.LAUNCHES - k[0], match_cuda.LAUNCHES - k[1])
+
+
+@pytest.mark.parametrize("second_pass_below", [0, 1_000_000], ids=["one pass", "two passes"])
+def test_graph_replays_equal_the_eager_path_on_every_branch(dev, second_pass_below):
+    """``DeviceVO``'s captured graph against its plain ``track_chunk`` on
+    the card over frames that take every branch: tracked frames, a guided
+    and a global relocalization, keyframes without and with the window BA,
+    and the second pass or none.  Poses, summaries and the final state bit
+    for bit; the branch tally as the frames took them; the kernels' launch
+    counters equal."""
+    from tinyslam_tpu_torch.models.vo_device import BRANCHES, chunk_graph
+
+    cfg, cam, frames, seed = _graph_case(second_pass_below)
+    eager, eager_k = _graph_run(cfg, cam, frames, seed, dev, graph=False)
+    graph = chunk_graph(cam, cfg, VOState.from_numpy(seed.to_numpy(), dev),
+                        torch.from_numpy(frames[1]).to(dev), Sampler(0))
+    before = graph.tally.tolist()
+    replays = graph.replays
+    got, got_k = _graph_run(cfg, cam, frames, seed, dev, graph=True)
+    runs = dict(zip(BRANCHES, (a - b for a, b in zip(graph.tally.tolist(), before))))
+    assert graph.replays - replays == 32
+    assert [dataclasses.astuple(s) for s in got.stats] == \
+        [dataclasses.astuple(s) for s in eager.stats]
+    for (Rg, tg), (Re, te) in zip(got.trajectory, eager.trajectory):
+        assert np.array_equal(Rg, Re) and np.array_equal(tg, te)
+    a, b = got.state.to_numpy(), eager.state.to_numpy()
+    assert [k for k in a if not np.array_equal(a[k], b[k])] == []
+    assert got_k == eager_k
+    kf = sum(s.is_keyframe for s in eager.stats)
+    assert runs["track"] + runs["reloc"] == 32 and runs["reloc"] >= 2
+    assert runs["reloc_global"] >= 1
+    assert runs["keyframe"] == kf and 1 <= runs["ba"] <= kf - 2
+    assert (runs["second_pass"] > 0) == (second_pass_below > 0)
+    assert all(s.tracking for s in eager.stats[:24])
+
+
+def test_graph_chunk_replays_do_not_synchronize(dev):
+    """A chunk through the captured graph under PyTorch's sync debug mode
+    "error": every replay, image copy and result copy, and the state's load
+    and copy, with no synchronizing call."""
+    from tinyslam_tpu_torch.models.vo_device import chunk_graph
+
+    cfg, cam, frames, seed = _graph_case(150)
+    state = VOState.from_numpy(seed.to_numpy(), dev)
+    images = torch.from_numpy(np.stack(frames[1:9])).to(dev)
+    graph = chunk_graph(cam, cfg, state, images[0], Sampler(0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, ys = graph.track_chunk(state, images[:4], [True] * 4)
+        state, ys = graph.track_chunk(state, images[4:], [True, True, False, False])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    summary = ys["summary"].cpu().numpy()
+    assert summary[:2, 3].all() and not summary[2:].any()
+
+
+def test_failed_capture_raises(dev):
+    """A step that reads the device back cannot be captured: ``DeviceVO``
+    raises where it would capture and never goes on eagerly; the card works
+    afterwards, and the launch counters are as they were."""
+    cfg, cam, frames, seed = _graph_case(150)
+
+    class HostKeySampler(Sampler):
+        def uniform(self, shape, device, key=None):
+            if key is not None and key[0] == "reloc":
+                key = (key[0], int(key[1]))          # a read of the frame number
+            return super().uniform(shape, device, key)
+
+    vo = DeviceVO(cfg, cam, chunk=4, device=dev, sampler=HostKeySampler(0))
+    vo.state = VOState.from_numpy(seed.to_numpy(), dev)
+    k = (fast_cuda.LAUNCHES, match_cuda.LAUNCHES)
+    with pytest.raises(RuntimeError):
+        for f in frames[1:5]:
+            vo.process(f)
+    assert (fast_cuda.LAUNCHES, match_cuda.LAUNCHES) == k
+    assert vo.stats == [] and int(vo.state.frame_idx) == int(seed.frame_idx)
+    assert float(torch.ones(3, device=dev).sum()) == 3.0

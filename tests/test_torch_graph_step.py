@@ -1,0 +1,261 @@
+"""The device tracker's decisions as ``device_cond``s and its keyed
+relocalization draws, on the CPU, against Python's ``if`` and the JAX
+package.
+
+``device_cond`` called eagerly is a Python ``if`` on its predicate; under
+``warm`` it runs both branches and returns the true one's result.  The
+``"reloc"`` stream of ``Sampler`` is a function of the seed and the frame
+alone.  ``track_chunk`` with those draws (the port's own, not the JAX
+package's) holds the JAX ``track_chunk`` at the tolerances of
+``tests/test_torch_reloc.py`` (a relocalization: the same tracking flag,
+matches and inliers within 2%, camera centres within 2 mm, rotations
+within 1e-3 rad) and of ``tests/test_torch_keyframes.py`` (keyframes with
+the window BA: per frame ``tracking`` and ``is_keyframe`` equal, landmarks
+within 2%, matches and inliers within 3%, centres within 5 mm, rotations
+within 2e-3 rad; the final window equal).  Where the tracker relocalizes,
+the two packages draw different RANSAC samples; both seat the same pose.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tests import torch_parity as P
+from tinyslam_tpu.frontend.orb import extract_features as jextract
+from tinyslam_tpu.geometry import se3 as jse3
+from tinyslam_tpu.models.vo_device import track_chunk as jtrack_chunk
+from tinyslam_tpu_torch.models.vo_device import (
+    SUMMARY_FIELDS,
+    ChunkGraph,
+    DeviceVO,
+    VOState,
+    track_chunk,
+)
+from tinyslam_tpu_torch.utils.cuda_graph import device_cond, tree_leaves, warm
+from tinyslam_tpu_torch.utils.draws import RELOC_STREAM, Sampler, keyed_uniform
+
+_COL = {name: i for i, name in enumerate(SUMMARY_FIELDS)}
+N_TRACKED = 15
+_FRAMES, _POSES, _ROOM = P.orbit(N_TRACKED + 1)
+
+
+def T(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+# ---------------- device_cond ----------------
+@pytest.mark.parametrize("pred", [False, True])
+def test_device_cond_is_a_python_if(pred):
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    calls = []
+
+    def yes(v):
+        calls.append("yes")
+        return {"v": v * 2, "n": v.sum(dtype=torch.int32)}
+
+    def no(v):
+        calls.append("no")
+        return {"v": v - 1, "n": torch.zeros((), dtype=torch.int32)}
+
+    got = device_cond(torch.tensor(pred), yes, no, (x,))
+    want = yes(x) if pred else no(x)
+    assert calls == ["yes" if pred else "no"] * 2
+    assert torch.equal(got["v"], want["v"]) and torch.equal(got["n"], want["n"])
+
+
+@pytest.mark.parametrize("outer,inner", [(False, False), (False, True), (True, False),
+                                         (True, True)])
+def test_nested_device_cond_is_a_nested_if(outer, inner):
+    x = torch.tensor([1.0, 2.0])
+
+    def branch(v):
+        return device_cond(torch.tensor(inner), lambda w: w + 10, lambda w: w + 100, (v,))
+
+    got = device_cond(torch.tensor(outer), branch, lambda v: v, (x,))
+    want = (x + 10 if inner else x + 100) if outer else x
+    assert torch.equal(got, want)
+
+
+def test_warm_runs_both_branches_and_returns_the_true_one():
+    x = torch.tensor([3.0])
+    calls = []
+
+    def yes(v):
+        calls.append("yes")
+        return (v + 1, v > 0)
+
+    def no(v):
+        calls.append("no")
+        return (v - 1, v < 0)
+
+    got = warm(lambda: device_cond(torch.tensor(False), yes, no, (x,)))
+    assert calls == ["yes", "no"]
+    assert torch.equal(got[0], x + 1) and bool(got[1])
+    # Branches must agree in form, as lax.cond's do.
+    with pytest.raises(ValueError, match="shape or dtype"):
+        warm(lambda: device_cond(torch.tensor(True), lambda: x, lambda: x.double()))
+    with pytest.raises(ValueError, match="shape or dtype"):
+        warm(lambda: device_cond(torch.tensor(True), lambda: (x,), lambda: (x, x)))
+
+
+def test_tree_leaves_orders_dataclasses_and_dict_keys():
+    state = VOState.empty(P.torch_config())
+    leaves = tree_leaves({"b": state, "a": (torch.zeros(1), [torch.ones(2)])})
+    assert leaves[0].shape == (1,) and leaves[1].shape == (2,)
+    assert leaves[2] is state.map.X and leaves[-1] is state.threshold
+
+
+def test_chunk_graph_needs_the_card():
+    cfg = P.torch_config()
+    state = VOState.empty(cfg)
+    with pytest.raises(ValueError, match="on the card"):
+        ChunkGraph(P.cameras()[1], cfg, state, torch.zeros((120, 160)), Sampler(0))
+
+
+# ---------------- keyed relocalization draws ----------------
+def test_keyed_reloc_draws_ignore_what_was_drawn_before():
+    shape = (512, 6)
+    fresh = Sampler(3).uniform(shape, "cpu", key=("reloc", torch.tensor(9, dtype=torch.int32)))
+    s = Sampler(3)
+    s.uniform((64, 5), "cpu", key=("two_view", 4, "E"))
+    s.uniform(shape, "cpu", key=("reloc", 8))
+    # A speculative draw: a warm step draws both attempts of every frame.
+    warm(lambda: device_cond(torch.tensor(True),
+                             lambda: s.uniform(shape, "cpu", key=("reloc", 9)),
+                             lambda: s.uniform(shape, "cpu", key=("reloc", 11))))
+    s.choice(torch.ones(40, dtype=torch.bool), shape, key=("reloc", 12))
+    again = s.uniform(shape, "cpu", key=("reloc", 9))
+    assert torch.equal(fresh, again)
+    assert torch.equal(again, keyed_uniform(3, RELOC_STREAM, 9, shape, "cpu"))
+    # Another frame, another seed: other numbers; all in [0, 1).
+    assert not torch.equal(again, s.uniform(shape, "cpu", key=("reloc", 10)))
+    assert not torch.equal(again, Sampler(4).uniform(shape, "cpu", key=("reloc", 9)))
+    assert 0.0 <= float(again.min()) and float(again.max()) < 1.0
+    assert abs(float(again.mean()) - 0.5) < 0.02
+
+
+def test_keyed_draws_leave_the_other_streams_in_order():
+    a, b = Sampler(0), Sampler(0)
+    a.uniform((8, 6), "cpu", key=("reloc", 5))
+    for key in (("two_view", 3, "E"), ("host_reloc", 4), ("loop", 7)):
+        assert torch.equal(a.uniform((16, 4), "cpu", key=key),
+                           b.uniform((16, 4), "cpu", key=key))
+
+
+def test_keyed_draws_look_uniform():
+    u = keyed_uniform(0, RELOC_STREAM, torch.tensor(123), (4096, 6), "cpu").numpy()
+    hist = np.histogram(u, bins=16, range=(0, 1))[0]
+    expected = u.size / 16
+    chi2 = float(((hist - expected) ** 2 / expected).sum())
+    assert chi2 < 40.0, hist                     # 15 degrees of freedom: p < 1e-3
+    assert abs(np.corrcoef(u[:, 0], u[:, 1])[0, 1]) < 0.05
+
+
+# ---------------- track_chunk against the JAX package ----------------
+@pytest.fixture(scope="module")
+def feats0():
+    jcfg, _ = P.configs()
+    f0 = jextract(jnp.asarray(_FRAMES[0]), jnp.float32(jcfg.frontend.threshold),
+                  jcfg.frontend)
+    return P.features_numpy(f0)
+
+
+@pytest.fixture(scope="module")
+def seed_state(feats0):
+    return P.seeded_state(P.torch_config(), feats0, _ROOM, _POSES[0])
+
+
+def _lost(seed: dict, yaw: float) -> dict:
+    """The seeded state marked lost, its stale pose turned by ``yaw`` rad."""
+    d = dict(seed)
+    dR = np.asarray(jse3.so3_exp(jnp.asarray([0.0, yaw, 0.0], jnp.float32)))
+    d["R"] = (dR @ seed["R"]).astype(np.float32)
+    d["t"] = (dR @ seed["t"]).astype(np.float32)
+    d["last_tracking"] = np.asarray(False)
+    d["frame_idx"] = np.asarray(9, np.int32)
+    return d
+
+
+def _centres(R, t):
+    return np.einsum("nji,nj->ni", R, -t)
+
+
+def _angles(Ra, Rb):
+    dR = np.einsum("nij,nik->njk", Ra, Rb)
+    return np.arccos(np.clip((np.trace(dR, axis1=1, axis2=2) - 1) / 2, -1, 1))
+
+
+@pytest.mark.parametrize("frame,yaw", [(1, 0.02), (0, 0.6)], ids=["guided", "global"])
+def test_keyed_relocalization_matches_jax(seed_state, frame, yaw):
+    """The staged relocalization of ``tests/test_torch_reloc.py`` (the
+    guided attempt seats the pose at 0.02 rad off; at 0.6 rad the global
+    fallback does) with the port's keyed draws, then four more frames."""
+    jcfg, tcfg = P.configs()
+    jcam, tcam = P.cameras()
+    state = _lost(seed_state, yaw)
+    image = np.stack(_FRAMES[frame:frame + 5])
+    _, jys = jtrack_chunk(jcam, jcfg, P.jax_state(state), jnp.asarray(image),
+                          jnp.ones(len(image), bool))
+    new, ys = track_chunk(tcam, tcfg, VOState.from_numpy(state), T(image),
+                          [True] * len(image), Sampler(0))
+    sj, st = np.asarray(jys["summary"]), ys["summary"].numpy()
+    np.testing.assert_array_equal(st[:, _COL["tracking"]], sj[:, _COL["tracking"]])
+    assert sj[:, _COL["tracking"]].all()
+    for name in ("num_matches", "num_inliers"):
+        np.testing.assert_allclose(st[:, _COL[name]], sj[:, _COL[name]], rtol=0.02,
+                                   err_msg=name)
+    Rj, tj = np.asarray(jys["R"]), np.asarray(jys["t"])
+    Rt, tt = ys["R"].numpy(), ys["t"].numpy()
+    assert np.linalg.norm(_centres(Rt, tt) - _centres(Rj, tj), axis=1).max() < 2e-3
+    assert _angles(Rt, Rj).max() < 1e-3
+    assert int(new.frame_idx) == 9 + len(image)
+
+
+def test_keyed_relocalization_then_keyframes_with_ba_match_jax(feats0):
+    """A lost state relocalizes on frame 1 (keyed draws), then frames 2-15
+    under the default keyframe policy with a 4-keyframe window: keyframes,
+    the window BA once three keyframes exist, culling."""
+    jcfg, tcfg = P.configs(keyframes=True, max_keyframes=4)
+    jcam, tcam = P.cameras()
+    state = _lost(P.seeded_state(tcfg, feats0, _ROOM, _POSES[0]), 0.02)
+    images = np.stack(_FRAMES[1:])
+    jstate, jys = jtrack_chunk(jcam, jcfg, P.jax_state(state), jnp.asarray(images),
+                               jnp.ones(N_TRACKED, bool))
+    tstate, tys = track_chunk(tcam, tcfg, VOState.from_numpy(state), T(images),
+                              [True] * N_TRACKED, Sampler(0))
+    sj, st = np.asarray(jys["summary"]), tys["summary"].numpy()
+    assert sj[:, _COL["tracking"]].all(), "the reference lost track"
+    assert sj[:, _COL["is_keyframe"]].sum() >= 3, "no window BA in the reference"
+    for name in ("tracking", "is_keyframe", "num_features"):
+        np.testing.assert_array_equal(st[:, _COL[name]], sj[:, _COL[name]], err_msg=name)
+    np.testing.assert_allclose(st[:, _COL["num_landmarks"]], sj[:, _COL["num_landmarks"]],
+                               rtol=0.02)
+    for name in ("num_matches", "num_inliers"):
+        np.testing.assert_allclose(st[:, _COL[name]], sj[:, _COL[name]], rtol=0.03,
+                                   err_msg=name)
+    Rj, tj = np.asarray(jys["R"]), np.asarray(jys["t"])
+    Rt, tt = tys["R"].numpy(), tys["t"].numpy()
+    assert np.linalg.norm(_centres(Rt, tt) - _centres(Rj, tj), axis=1).max() < 5e-3
+    assert _angles(Rt, Rj).max() < 2e-3
+    for name in ("win_valid", "win_kf_id", "num_keyframes", "frames_since_kf"):
+        np.testing.assert_array_equal(getattr(tstate, name).numpy(),
+                                      np.asarray(getattr(jstate, name)), err_msg=name)
+
+
+def test_device_vo_on_the_cpu_tracks_eagerly(seed_state):
+    """``graph`` asks for the card's graph; on the CPU a chunk runs the plain
+    ``track_chunk`` all the same, with the same draws."""
+    tcfg = P.torch_config()
+    tcam = P.cameras()[1]
+    state = _lost(seed_state, 0.02)
+    vo = DeviceVO(tcfg, tcam, chunk=4, device="cpu", sampler=Sampler(0), graph=True)
+    vo.state = VOState.from_numpy(state)
+    vo.run(_FRAMES[1:5])
+    _, ys = track_chunk(tcam, tcfg, VOState.from_numpy(state), T(np.stack(_FRAMES[1:5])),
+                        [True] * 4, Sampler(0))
+    np.testing.assert_array_equal(np.stack([R for R, _ in vo.trajectory]), ys["R"].numpy())
+    assert [s.tracking for s in vo.stats] == [True] * 4

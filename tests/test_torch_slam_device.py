@@ -8,7 +8,12 @@ Tolerances: the same keyframes (count and ``kf_frame_of``), the same edges
 (i, j equal; s and w within 1e-3), the same ``loop_log`` decisions with
 at least one accepted closure, the corrected camera centres within 2e-3
 and the Sim(3)-aligned ATE within 1e-3.  The asynchronous back-end
-accepts the same number of closures.  ``tools/replay_closures.py``'s path:
+accepts the same number of closures, and a solve that lands after the
+last frame rescales each frame tracked while it ran: the distance to its
+keyframe the raw one over the solve's scale (within 1e-4 relative), the
+live pose moved into the corrected gauge (centre within 1e-4); one that
+lags ``solve_lag_frames`` behind is waited for at the next boundary.
+``tools/replay_closures.py``'s path:
 the port's run recorded by its ``ClosureRecorder``, every solve replayed
 by the JAX package's ``Slam._solve_graph`` and the port's ``solve_graph``
 and applied by each package's correction: the port's replay equal to the
@@ -19,6 +24,7 @@ and its corrected ATE within 1e-3 m, the same sign of the correction.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -117,6 +123,94 @@ def test_device_slam_async_backend_closes_the_same_loops(runs):
         assert n == slam.vo.num_keyframes == len(slam.kf_store)
     finally:
         slam.close()
+
+
+def test_async_solve_landing_late_rescales_the_frames_tracked_meanwhile():
+    _, tcfg = _configs()
+    _, tcam = P.cameras()
+    slam = DeviceSlam(tcfg, tcam, chunk=4, async_backend=True, device="cpu",
+                      sampler=P.JaxSampler())
+    slam.solve_lag_frames = None
+    release, seen = threading.Event(), {}
+    real_solve, real_late = slam._solve_on_worker, slam._landed_late
+
+    def held(snap):
+        release.wait(60.0)
+        return real_solve(snap)
+
+    def spy(snap, ext):
+        seen["first"] = next(e[1] for e in slam._submits if e[0] is snap)
+        seen["raw"] = [(R.copy(), t.copy()) for R, t in slam.vo.trajectory]
+        out = real_late(snap, ext)
+        seen["W"] = out[1]
+        return out
+
+    slam._solve_on_worker, slam._landed_late = held, spy
+    try:
+        for f in FRAMES:
+            slam.process_frame(f)
+        release.set()
+        slam.finalize()
+    finally:
+        release.set()
+        slam.close()
+    first, raw, (R_w, t_w, s_w) = seen["first"], seen["raw"], seen["W"]
+    assert slam.num_loop_closures >= 1 and first < len(FRAMES) - 4
+    assert abs(float(s_w) - 1.0) > 0.02          # a scale the check can see
+    centre = lambda R, t: -R.T @ t                 # noqa: E731
+    kf_frames = sorted(slam.kf_frame_of.values())
+    pos = slam.positions
+    for f in range(first, len(FRAMES)):
+        fk = max(g for g in kf_frames if g <= f)
+        want = np.linalg.norm(centre(*raw[f]) - centre(*raw[fk])) / float(s_w)
+        assert np.linalg.norm(pos[f] - pos[fk]) == pytest.approx(want, rel=1e-4, abs=1e-6)
+    R, t = (a.numpy() for a in (slam.vo.state.R, slam.vo.state.t))
+    want = R_w.T @ (centre(*raw[-1]) - t_w) / s_w
+    np.testing.assert_allclose(centre(R, t), want, rtol=0, atol=1e-4)
+
+
+def test_async_solve_waited_for_once_it_lags_behind():
+    _, tcfg = _configs()
+    _, tcam = P.cameras()
+    slam = DeviceSlam(tcfg, tcam, chunk=4, async_backend=True, device="cpu",
+                      sampler=P.JaxSampler())
+    slam.solve_lag_frames = 8
+    real_solve, real_optimize = slam._solve_on_worker, slam._optimize_graph
+    real_apply, real_flush = slam._apply_graph_result, slam._worker.flush
+    submitted, applied, waiting = [], [], threading.Event()
+
+    def slow(snap):         # finishes only once tracking waits for it
+        waiting.wait(60.0)
+        waiting.clear()
+        return real_solve(snap)
+
+    def flush():
+        waiting.set()
+        return real_flush()
+
+    def optimize():
+        submitted.append(len(slam.vo.trajectory))
+        real_optimize()
+
+    def apply(*a):
+        applied.append(len(slam.vo.trajectory))
+        real_apply(*a)
+
+    slam._solve_on_worker, slam._optimize_graph, slam._apply_graph_result = (
+        slow, optimize, apply)
+    slam._worker.flush = flush
+    try:
+        for f in FRAMES:
+            slam.process_frame(f)
+        slam.finalize()
+    finally:
+        slam.close()
+    # Each solve is applied at the first chunk boundary 8 frames after its
+    # submit, where tracking waits for it.
+    assert len(applied) == len(submitted) >= 1
+    assert [a - s for s, a in zip(submitted, applied)
+            if a < len(FRAMES)] == [8] * len([a for a in applied if a < len(FRAMES)])
+    assert applied[0] < len(FRAMES)
 
 
 def test_replay_closures_through_both_packages(runs):

@@ -19,14 +19,18 @@ images, (N, 2) xy, (N, 8) packed descriptors).  This package imports
                 the SE(3) and Sim(3) pose graphs.
 - ``models``    ``MapState``, ``VOState``, ``track_step`` (relocalization,
                 keyframes and windowed BA included), ``track_chunk``,
-                ``DeviceVO`` (bootstrap and submap reboots),
+                ``ChunkGraph`` (a chunk on the card as replays of one
+                captured CUDA graph), ``DeviceVO`` (bootstrap and submap
+                reboots),
                 ``TwoViewEstimator``, ``VisualOdometry``, and ``Slam`` /
                 ``DeviceSlam`` (Sim(3) loop closure).
 - ``parallel``  the distributed layer on ``torch.distributed`` (the mesh,
                 frame-parallel ORB, landmark-sharded BA, edge- and
                 node-sharded pose graphs) and the latest-wins back-end
                 worker thread.
-- ``utils``     the RANSAC ``Sampler``, Umeyama alignment and ATE, the
+- ``utils``     the RANSAC ``Sampler`` (keyed relocalization draws),
+                ``device_cond`` and the graph capture (``cuda_graph``:
+                ``lax.cond`` as conditional nodes), Umeyama alignment and ATE, the
                 metrics registry, profiling (``trace``, ``named_scope``,
                 ``dispatch_slope``), checkpoint and resume of every
                 tracker (``.npz`` arrays, the JAX package's meta files),

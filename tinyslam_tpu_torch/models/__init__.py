@@ -3,7 +3,8 @@
 - ``TwoViewEstimator``  matching and relative pose (the bootstrap).
 - ``VisualOdometry``    the host-stepped tracker: keyframes, local BA,
                         relocalization; every decision reads the device.
-- ``DeviceVO``          the chunked tracker, a few syncs a frame.
+- ``DeviceVO``          the chunked tracker: on the card a chunk is replays
+                        of one captured CUDA graph with no sync in it.
 - ``Slam`` / ``DeviceSlam``  VO and Sim(3) pose-graph loop closure over
                         the host / the chunked tracker.
 """

@@ -208,6 +208,20 @@ def _host(fn, *arrays) -> tuple[np.ndarray, ...]:
     return tuple(o.numpy() for o in out)
 
 
+def _world_moved(W, R, t) -> tuple[np.ndarray, ...]:
+    """Poses (R (F, 3, 3), t (F, 3)) composed on the world side with the
+    similarity W = (R_w, t_w, s_w): the Sim(3) T o W and its SE(3) pose,
+    (R, t, s, R_se, t_se)."""
+    F = len(R)
+
+    def move(R, t, one, R_w, t_w, s_w):
+        out = sim3_compose(R, t, one, R_w, t_w, s_w)
+        return out + sim3_to_se3(*out)
+
+    return _host(move, R, t, np.ones(F), np.broadcast_to(W[0], (F, 3, 3)),
+                 np.broadcast_to(W[1], (F, 3)), np.full(F, W[2]))
+
+
 def _window(state) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """(valid (K,), kf ids (K,), R (K, 3, 3), t (K, 3)) of a VOState's window,
     in one readback."""
@@ -224,11 +238,19 @@ class Slam:
 
     With ``async_backend`` the pose-graph solve runs on a supervised worker
     thread (``utils/faults.py:Watchdog``; on a GPU on a CUDA stream of its
-    own), so tracking never blocks on it: the correction is applied at the
-    first frame boundary after the solve finishes.  ``finalize()`` (which
+    own), so tracking does not wait for it: the correction is applied at
+    the first frame boundary after the solve finishes, and the frames
+    tracked meanwhile are rescaled then (``_landed_late``).  Only once a
+    solve is ``solve_lag_frames`` frames old (None: never) does tracking
+    wait for it, at the next boundary: until the correction lands, every
+    frame is tracked against the uncorrected map.  ``finalize()`` (which
     ``run`` calls) applies a solve still in flight.  ``sampler`` draws every
     RANSAC sample (a ``Sampler(0)`` if None); ``device`` is required.
     """
+
+    # Frames after which tracking waits for an asynchronous solve (None:
+    # never): 16 is half a second of a 30 Hz camera, about one solve.
+    solve_lag_frames: int | None = 16
 
     def __init__(self, cfg: SlamConfig, camera: PinholeCamera, async_backend: bool = False,
                  solve_timeout_s: float = 30.0, sampler: Sampler | None = None, *, device):
@@ -253,6 +275,8 @@ class Slam:
         self.loop_log: list[dict] = []           # every evaluated candidate
         self.timings: dict[str, float] = {}      # wall seconds by stage
         self._loop_cooldown_until = 0
+        # (snapshot, frames tracked, submap) at each asynchronous submit.
+        self._submits: list[tuple] = []
         self._worker = None
         self._stream = None
         if async_backend:
@@ -401,6 +425,7 @@ class Slam:
         snap = (np.stack(self.kf_R), np.stack(self.kf_t), list(self.edges))
         if self._worker is not None:
             # Latest-wins: a newer snapshot contains every edge of an older one.
+            self._submits.append((snap, len(self.vo.trajectory), self._submap()))
             self._worker.submit(lambda: (snap, self._solve_on_worker(snap)))
         else:
             with self._timed("graph_solve"):
@@ -443,6 +468,64 @@ class Slam:
         host tracker never reboots)."""
         return 0
 
+    def _submap(self) -> tuple[int, int]:
+        return self._anchor_offset(), getattr(self.vo, "num_reboots", 0)
+
+    def _landed_late(self, snap, ext):
+        """Rescale what was tracked while an asynchronous solve ran.
+
+        Those frames were tracked in the snapshot's gauge, after its newest
+        keyframe; had the solve landed at once, as a synchronous one does,
+        the map would have been rescaled before them.  W = S_old^-1 o
+        S_solved, the world-side similarity of that keyframe, moves the
+        snapshot's gauge into the corrected one.  Each keyframe created
+        meanwhile and the live pose take it (T' = T o W, to SE(3)), where
+        ``_extend_solution`` (the reference's) composes on the camera side,
+        which agrees only near that keyframe and keeps the motion since it
+        at the old scale.  Each frame tracked meanwhile is rewritten in the
+        raw trajectory so that ``corrected_trajectory`` gives it SE(3)(T o
+        W): moved by W where its keyframe was created meanwhile, and where
+        its keyframe is older, its motion since that keyframe divided by
+        the scale.  ``ext`` is ``_extend_solution``'s output; returns it
+        with the new keyframes' rows replaced and W, or ``ext`` and None
+        when no frame was tracked meanwhile or the tracker rebooted since
+        (the frames then lie in another submap's gauge)."""
+        i = next((k for k, e in enumerate(self._submits) if e[0] is snap), None)
+        if i is None:
+            return ext, None
+        _, first, submap = self._submits[i]
+        del self._submits[:i + 1]
+        traj = self.vo.trajectory
+        if first >= len(traj) or submap != self._submap():
+            return ext, None
+        R_old, t_old, R_sim, t_sim, s_sim, R_se, t_se, corr, n = ext
+        m = len(snap[0]) - 1
+        W = _host(lambda *a: sim3_compose(*sim3_inverse(*a[:3]), *a[3:]),
+                  R_old[m], t_old[m], 1.0, R_sim[m], t_sim[m], s_sim[m])
+        moved = _world_moved(W, np.stack([R for R, _ in traj[first:]]),
+                             np.stack([t for _, t in traj[first:]]))[3:]
+        kf_frames = sorted(f for k, f in self.kf_frame_of.items() if k < n)
+        for f in range(first, len(traj)):
+            fk = max((g for g in kf_frames if g <= f), default=first)
+            if fk >= first:
+                traj[f] = (moved[0][f - first], moved[1][f - first])
+            else:
+                (R_k, t_k), (R_f, t_f) = traj[fk], traj[f]
+                R_rel = R_f @ R_k.T
+                traj[f] = (R_f, R_rel @ t_k + (t_f - R_rel @ t_k) / W[2])
+        if n > m + 1:
+            R_sim, t_sim, s_sim, R_se, t_se = (a.copy() for a in (R_sim, t_sim, s_sim, R_se,
+                                                                  t_se))
+            k = slice(m + 1, n)
+            R_sim[k], t_sim[k], s_sim[k], R_se[k], t_se[k] = _world_moved(W, R_old[k], t_old[k])
+        return (R_old, t_old, R_sim, t_sim, s_sim, R_se, t_se, corr, n), W
+
+    def _world_pose(self, W, R, t):
+        """The live pose moved by ``_landed_late``'s W."""
+        R_new, t_new = _world_moved(W, R.cpu().numpy()[None], t.cpu().numpy()[None])[3:]
+        return (torch.from_numpy(R_new[0]).to(self.device),
+                torch.from_numpy(t_new[0]).to(self.device))
+
     def _reanchor_assoc_snapshots(self, R_old, t_old, R_sim, t_sim, s_sim, n):
         """Ride each keyframe's Sim(3) correction into its association
         snapshot: the snapshots define the probe's old gauge, and a snapshot
@@ -476,8 +559,8 @@ class Slam:
         return sim3_to_se3(*sim3_compose(Rc, tc, sc, R, t, torch.ones_like(sc)))
 
     def _apply_graph_result(self, snap, solved):
-        (R_old, t_old, R_sim, t_sim, s_sim, R_se, t_se, corr, n) = (
-            self._extend_solution(snap, solved, self.kf_R, self.kf_t))
+        (R_old, t_old, R_sim, t_sim, s_sim, R_se, t_se, corr, n), W = self._landed_late(
+            snap, self._extend_solution(snap, solved, self.kf_R, self.kf_t))
         vo = self.vo
         vo.map = vo.map.replace(X=self._corrected_map_X(vo.map, 0, R_old, t_old, R_sim,
                                                         t_sim, s_sim))
@@ -491,7 +574,8 @@ class Slam:
                 win_R[slot], win_t[slot] = R_se[kf_id], t_se[kf_id]
         vo.win_R = torch.from_numpy(win_R).to(self.device)
         vo.win_t = torch.from_numpy(win_t).to(self.device)
-        vo.R, vo.t = self._live_pose(corr, vo.R, vo.t)
+        vo.R, vo.t = (self._live_pose(corr, vo.R, vo.t) if W is None
+                      else self._world_pose(W, vo.R, vo.t))
         newest = self._newest_slot()
         if newest is not None:
             k = int(vo.win_kf_id[newest])
@@ -517,6 +601,10 @@ class Slam:
     def _apply_finished_solve(self):
         if self._worker is not None:
             res = self._worker.poll()
+            if (res is None and self._submits and self.solve_lag_frames is not None
+                    and self._worker.busy and len(self.vo.trajectory) - self._submits[0][1]
+                    >= self.solve_lag_frames):
+                res = self._worker.flush()
             if res is not None:
                 self._apply_graph_result(*res)
 
@@ -702,8 +790,8 @@ class DeviceSlam(Slam):
 
     # ------------- corrections into the device state -------------
     def _apply_graph_result(self, snap, solved):
-        (R_old, t_old, R_sim, t_sim, s_sim, R_se, t_se, corr, n) = (
-            self._extend_solution(snap, solved, self.kf_R, self.kf_t))
+        (R_old, t_old, R_sim, t_sim, s_sim, R_se, t_se, corr, n), W = self._landed_late(
+            snap, self._extend_solution(snap, solved, self.kf_R, self.kf_t))
         for i in range(n):
             self.kf_R[i], self.kf_t[i] = R_se[i], t_se[i]
         self._reanchor_assoc_snapshots(R_old, t_old, R_sim, t_sim, s_sim, n)
@@ -720,7 +808,8 @@ class DeviceSlam(Slam):
             gid = self._kf_offset + int(win_kf[slot])
             if self._kf_offset <= gid < n:
                 win_R[slot], win_t[slot] = R_se[gid], t_se[gid]
-        live_R, live_t = self._live_pose(corr, state.R, state.t)
+        live_R, live_t = (self._live_pose(corr, state.R, state.t) if W is None
+                          else self._world_pose(W, state.R, state.t))
         self.vo.state = state.replace(
             map=state.map.replace(X=new_X),
             win_R=torch.from_numpy(win_R).to(self.device),

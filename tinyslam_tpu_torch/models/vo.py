@@ -35,6 +35,7 @@ from tinyslam_tpu_torch.geometry.se3 import (
 from tinyslam_tpu_torch.models.two_view import TwoViewEstimator
 from tinyslam_tpu_torch.ops.hamming import hamming_distance_matrix, match_descriptors
 from tinyslam_tpu_torch.types import Features, from_numpy, row, set_row, to_numpy
+from tinyslam_tpu_torch.utils.cuda_graph import device_cond
 from tinyslam_tpu_torch.utils.draws import Sampler
 
 
@@ -351,16 +352,20 @@ def _relocalize(cam: PinholeCamera, cfg: SlamConfig, map_state: MapState,
                 feats: Features, R_pred, t_pred, sampler: Sampler, key):
     """The staged relocalization of a frame after a lost one: the guided
     attempt first (under self-similar texture a global match is mostly
-    aliases), the global one only if that seats fewer than 20 inliers,
-    and the attempt with more inliers wins.  Both draw under ``key``.  One
-    sync (the staging)."""
+    aliases), the global one only if that seats fewer than 20 inliers
+    (``device_cond``, tally slot ``"reloc_global"``: one sync when run
+    eagerly), and the attempt with more inliers wins.  Both draw under
+    ``key``."""
     if not cfg.vo.staged_reloc:
         return _reloc_attempt(cam, cfg, map_state, feats, R_pred, t_pred, sampler, key, False)
     res_w = _reloc_attempt(cam, cfg, map_state, feats, R_pred, t_pred, sampler, key, True)
-    if not bool(res_w[2]["num_inliers"] < 20):                  # sync
-        return res_w
-    res_g = _reloc_attempt(cam, cfg, map_state, feats, R_pred, t_pred, sampler, key, False)
-    return _select(res_g[2]["num_inliers"] > res_w[2]["num_inliers"], res_g, res_w)
+
+    def fallback():
+        res_g = _reloc_attempt(cam, cfg, map_state, feats, R_pred, t_pred, sampler, key, False)
+        return _select(res_g[2]["num_inliers"] > res_w[2]["num_inliers"], res_g, res_w)
+
+    return device_cond(res_w[2]["num_inliers"] < 20, fallback, lambda: res_w,
+                       names=("reloc_global", None))
 
 
 class VisualOdometry:

@@ -4,16 +4,27 @@ bootstraps it (mirrors ``tinyslam_tpu/models/vo_device.py: VOState,
 track_step, track_chunk, DeviceVO`` and its keyframe helpers).
 
 The JAX package compiles all per-frame control flow into ``lax.cond`` and
-runs a chunk of frames as one ``lax.scan``.  Here the data-dependent
-decisions are Python ``if`` statements on device scalars: whether the last
-frame tracked, on a relocalization frame whether the guided attempt
-seated 20 inliers, whether the second PnP pass runs, whether the frame
-becomes a keyframe, and on a keyframe whether the window holds the three
-keyframes BA needs.  So a frame synchronizes with the device three times,
-a keyframe four, a relocalization frame one more; everything else (pose
-update, velocity model, adaptive threshold, window roll, slot choice,
-RANSAC draws and votes, BA accepts, the summary row) stays on the device,
-and no 0-d index tensor is read back (``row``/``set_row``).
+runs a chunk of frames as one ``lax.scan``.  Here each of its ``lax.cond``s
+is a ``device_cond`` (``utils/cuda_graph.py``): whether the last frame
+tracked, on a relocalization frame whether the guided attempt seated 20
+inliers (``models/vo.py:_relocalize``), whether the second PnP pass runs,
+whether the frame becomes a keyframe, and on a keyframe whether the window
+holds the three keyframes BA needs.  ``track_step`` itself reads nothing
+back to decide anything else (pose update, velocity model, adaptive
+threshold, window roll, slot choice, RANSAC draws and votes, BA accepts,
+the summary row stay on the device; no 0-d index tensor is read back:
+``row``/``set_row``), and the relocalization's draws are keyed by the
+frame number on the device (``utils/draws.py``).
+
+On the card ``DeviceVO`` tracks a chunk as replays of one captured CUDA
+graph of ``track_step`` (``ChunkGraph``), in which every ``device_cond`` is
+a conditional node: only the branch a frame takes runs, as on the TPU, no
+replay synchronizes, and the host reads the chunk back once (its tracking
+flags, to count lost frames, with the graph's branch tally).  Called
+eagerly, ``track_step`` and ``track_chunk`` are the plain version: each
+``device_cond`` reads its predicate, so a frame synchronizes three times,
+a keyframe four, a relocalization frame one more; the CPU runs them, and
+the card's comparisons run them beside the graph, with equal results.
 
 Before the first state exists, ``DeviceVO`` runs the host-stepped
 bootstrap of ``models/vo.py:VisualOdometry`` frame by frame and lifts its
@@ -58,8 +69,10 @@ from tinyslam_tpu_torch.models.vo import (
     _track_pnp,
     _triangulate_and_insert,
 )
+from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
 from tinyslam_tpu_torch.ops.hamming import match_descriptors
 from tinyslam_tpu_torch.types import Features, from_numpy, row, set_row, to_numpy
+from tinyslam_tpu_torch.utils.cuda_graph import capture, device_cond, tree_leaves, warm
 from tinyslam_tpu_torch.utils.draws import Sampler
 
 # Ring of per-keyframe features, slot kf_id % KF_RING; it must cover the
@@ -207,6 +220,9 @@ class VOState:
         return _tree_map(put, self, state)
 
 
+# The pose result of a tracking or relocalization branch.
+_POSE_FIELDS = ("R", "t", "inliers", "num_inliers", "rmse")
+
 # Packed per-frame summary layout (float32).
 SUMMARY_FIELDS = (
     "num_features", "num_matches", "num_inliers", "tracking",
@@ -332,9 +348,8 @@ def _insert_keyframe(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
             f: set_row(getattr(state.kf_ring, f), ring_slot, getattr(feats, f))
             for f in _FEATURE_FIELDS}))
     state = _cull_landmarks(state, kf_id)
-    if bool(state.win_valid.sum() >= 3):                    # sync 4
-        state = _local_ba(cam, cfg, state)
-    return state
+    return device_cond(state.win_valid.sum() >= 3, lambda s: _local_ba(cam, cfg, s),
+                       lambda s: s, (state,), names=("ba", None))
 
 
 def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
@@ -358,21 +373,26 @@ def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
                                     cfg.frontend.target_fill)
 
     R_pred, t_pred = se3_compose(state.vel_R, state.vel_t, state.R, state.t)
-    if bool(state.last_tracking):                            # sync 1
+
+    def track_branch():
         idx, mvalid = _match_to_map(
             feats, state.map, cfg.matcher.max_distance, cfg.matcher.ratio,
             cam=cam, R=R_pred, t=t_pred, radius_px=vo.track_radius_px)
         out = _track_pnp(cam, feats, state.map, idx, mvalid, R_pred, t_pred,
                          iters=vo.pnp_iters, inlier_px=vo.pnp_inlier_px)
-    else:
+        return idx, mvalid, {k: out[k] for k in _POSE_FIELDS}
+
+    def reloc_branch():
         # Lost last frame: a local Gauss-Newton from a stale pose cannot
         # recover, so absolute-pose RANSAC.
-        idx, mvalid, out = _relocalize(cam, cfg, state.map, feats, R_pred, t_pred, sampler,
-                                       ("reloc", state.frame_idx))
+        return _relocalize(cam, cfg, state.map, feats, R_pred, t_pred, sampler,
+                           ("reloc", state.frame_idx))
+
+    idx, mvalid, out = device_cond(state.last_tracking, track_branch, reloc_branch,
+                                   names=("track", "reloc"))
 
     if vo.track_two_pass:
-        n1 = out["num_inliers"]
-        if bool((n1 >= 15) & (n1 < vo.second_pass_below)):  # sync 2
+        def second_pass(idx, mvalid, out):
             idx2, mvalid2 = _match_to_map(
                 feats, state.map, cfg.matcher.max_distance, cfg.matcher.ratio,
                 cam=cam, R=out["R"], t=out["t"], radius_px=8.0)
@@ -381,8 +401,13 @@ def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
                               inlier_px=vo.pnp_inlier_px)
             better = (mvalid2.sum() >= mvalid.sum()) & (
                 out2["num_inliers"] >= out["num_inliers"])
-            idx, mvalid, out = _select(better, (idx2, mvalid2, out2),
-                                       (idx, mvalid, out))
+            return _select(better, (idx2, mvalid2, {k: out2[k] for k in _POSE_FIELDS}),
+                           (idx, mvalid, out))
+
+        n1 = out["num_inliers"]
+        idx, mvalid, out = device_cond((n1 >= 15) & (n1 < vo.second_pass_below), second_pass,
+                                       lambda *a: a, (idx, mvalid, out),
+                                       names=("second_pass", None))
 
     n_in = out["num_inliers"]
     pose_finite = torch.isfinite(out["R"]).all() & torch.isfinite(out["t"]).all()
@@ -414,9 +439,9 @@ def track_step(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
         | ((n_in < vo.keyframe_min_inliers)
            & (frames_since_kf >= vo.keyframe_min_interval))
         | (n_in < vo.keyframe_critical_inliers))
-    if bool(need_kf):                                        # sync 3
-        new_state = _insert_keyframe(cam, cfg, new_state, feats, mvalid,
-                                     out["inliers"])
+    new_state = device_cond(
+        need_kf, lambda st: _insert_keyframe(cam, cfg, st, feats, mvalid, out["inliers"]),
+        lambda st: st, (new_state,), names=("keyframe", None))
 
     summary = torch.stack([
         feats.count.to(torch.float32),
@@ -455,6 +480,145 @@ def track_chunk(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
         summaries.append(ys["summary"])
     return state, {"R": torch.stack(Rs), "t": torch.stack(ts),
                    "summary": torch.stack(summaries)}
+
+
+# The branch bodies the graph's tally counts (``device_cond`` names).
+BRANCHES = ("track", "reloc", "reloc_global", "second_pass", "keyframe", "ba")
+
+
+def _launch_counters() -> tuple[int, int]:
+    return fast_cuda.LAUNCHES, match_cuda.LAUNCHES
+
+
+def _add_launches(launches) -> None:
+    fast_cuda.LAUNCHES += int(launches[0])
+    match_cuda.LAUNCHES += int(launches[1])
+
+
+class ChunkGraph:
+    """``track_chunk`` on the card as replays of one captured
+    ``track_step``, the counterpart of the JAX package's jitted
+    ``lax.scan`` of ``lax.cond``s: each ``device_cond`` of the step (the
+    tracking or relocalization branch, the relocalization's global
+    fallback, the second PnP pass, the keyframe insertion and its window
+    BA) is a conditional node, and a replay runs only the branches its
+    frame takes.  Nothing in ``track_chunk`` reads the device back.
+
+    Built by ``chunk_graph`` for one camera, config, image shape and dtype,
+    device and sampler seed.  It first runs the step with every branch
+    taken (``utils.cuda_graph.warm``) on a copy of the state, twice, the
+    second time with any synchronization an error (a step that reads the
+    device back cannot be captured), then captures it over static buffers:
+    the state, which the graph's last nodes overwrite with the new state,
+    and the image.  A failed capture raises.
+
+    Each replay adds the launches of the graph outside its branches to
+    ``fast_cuda.LAUNCHES`` and ``match_cuda.LAUNCHES`` at once; ``tally``
+    (int32, one slot a name of ``BRANCHES``, cumulative) counts on the
+    device the branch bodies that ran, and ``account`` adds their launches
+    once the caller has read it back with whatever else it reads.
+    """
+
+    def __init__(self, cam: PinholeCamera, cfg: SlamConfig, state: VOState,
+                 image: torch.Tensor, sampler: Sampler):
+        dev = state.device
+        if dev.type != "cuda":
+            raise ValueError(f"ChunkGraph: a state on {dev}; the graph runs on the card")
+        self.static = _tree_map(torch.clone, state)
+        self.image = image.clone()
+
+        def step():
+            new, ys = track_step(cam, cfg, self.static, self.image, sampler)
+            for dst, src in zip(tree_leaves(self.static), tree_leaves(new)):
+                if src is not dst:
+                    dst.copy_(src)
+            return ys["summary"]
+
+        def warm_step():
+            track_step(cam, cfg, _tree_map(torch.clone, state), self.image, sampler)
+
+        saved = _launch_counters()
+        try:
+            warm(warm_step, dev)
+            # Again, where any read back to the host raises: it would break
+            # the capture, and a capture broken midway leaves the device's
+            # graph objects in a state that is not safe to destroy.
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                warm(warm_step, dev)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            self.captured = capture(step, dev, BRANCHES, _launch_counters)
+        finally:
+            fast_cuda.LAUNCHES, match_cuda.LAUNCHES = saved
+        self.summary = self.captured.outputs
+        self.tally = self.captured.tally
+        self._accounted = [0] * len(BRANCHES)
+        self.replays = 0
+
+    def _load(self, state: VOState) -> None:
+        for dst, src in zip(tree_leaves(self.static), tree_leaves(state)):
+            if src is not dst:
+                if src.shape != dst.shape or src.dtype != dst.dtype or src.device != dst.device:
+                    raise ValueError("ChunkGraph: the state does not fit the captured one")
+                dst.copy_(src)
+
+    def track_chunk(self, state: VOState, images: torch.Tensor, active
+                    ) -> tuple[VOState, dict]:
+        """``track_chunk``'s result for a (B, H, W) chunk on the card, with
+        no host sync: per active frame one image copy, one replay and the
+        copies of its pose and summary.  An inactive frame is not replayed
+        and records a zero summary.  The returned state is a copy of the
+        static one."""
+        if images.shape[1:] != self.image.shape or images.dtype != self.image.dtype:
+            raise ValueError(f"ChunkGraph: images {tuple(images.shape)} {images.dtype} for "
+                             f"a graph of {tuple(self.image.shape)} {self.image.dtype}")
+        active = torch.as_tensor(active).tolist()
+        self._load(state)
+        B, dev = images.shape[0], self.image.device
+        Rs = torch.empty((B, 3, 3), dtype=torch.float32, device=dev)
+        ts = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        summaries = torch.zeros((B, len(SUMMARY_FIELDS)), dtype=torch.float32, device=dev)
+        n = 0
+        for c in range(B):
+            if active[c]:
+                self.image.copy_(images[c])
+                self.captured.graph.replay()
+                summaries[c].copy_(self.summary)
+                n += 1
+            Rs[c].copy_(self.static.R)
+            ts[c].copy_(self.static.t)
+        self.replays += n
+        _add_launches([n * k for k in self.captured.base])
+        return _tree_map(torch.clone, self.static), {"R": Rs, "t": ts, "summary": summaries}
+
+    def account(self, tally) -> dict[str, int]:
+        """Add the launches of the branch bodies run since the last call
+        to the kernels' counters, from ``tally`` as read back (a sequence
+        of numbers, one a name of ``BRANCHES``).  Returns those runs."""
+        runs = {name: int(v) - a for name, v, a in zip(BRANCHES, tally, self._accounted)}
+        self._accounted = [int(v) for v in tally]
+        for name, k in runs.items():
+            per = self.captured.body_launches.get(name, (0, 0))
+            _add_launches([k * x for x in per])
+        return runs
+
+
+_GRAPHS: dict = {}
+
+
+def chunk_graph(cam: PinholeCamera, cfg: SlamConfig, state: VOState, image: torch.Tensor,
+                sampler: Sampler) -> ChunkGraph:
+    """The ``ChunkGraph`` of this camera, config, image shape and dtype,
+    device and sampler seed, captured at first use and kept for the
+    process (graphs hold no state between chunks: each chunk loads its
+    own)."""
+    seed = getattr(sampler, "seed", None)
+    key = (cam, cfg, tuple(image.shape), image.dtype, state.device, type(sampler), seed)
+    if key not in _GRAPHS:
+        _GRAPHS[key] = ChunkGraph(cam, cfg, state, image, sampler)
+    return _GRAPHS[key]
 
 
 def _device_rows(rows: list[int], device: torch.device, dtype=torch.long) -> torch.Tensor:
@@ -673,7 +837,10 @@ class DeviceVO:
     ``sampler`` supplies every RANSAC draw (a ``Sampler(0)`` if None).
     ``device`` is required: the host phase, the handed-over state and every
     tracked chunk live there.  A ``VOState`` assigned to ``state`` skips the
-    bootstrap; it must lie on ``device``.
+    bootstrap; it must lie on ``device``.  On the card a chunk runs through
+    the captured ``ChunkGraph`` of this camera, config and image shape
+    (``graph=False``: the plain ``track_chunk``, which the card's
+    comparisons run beside it); on the CPU it runs ``track_chunk``.
     """
 
     cfg: SlamConfig
@@ -681,6 +848,7 @@ class DeviceVO:
     chunk: int = 16
     sampler: Sampler | None = None
     device: str | torch.device = dataclasses.field(kw_only=True)
+    graph: bool = dataclasses.field(default=True, kw_only=True)
 
     def __post_init__(self):
         if not isinstance(self.cfg, SlamConfig):
@@ -818,20 +986,36 @@ class DeviceVO:
         dev = self.device
         buf = self._buf + [self._buf[-1]] * (self.chunk - n)
         if all(isinstance(im, np.ndarray) for im in buf):
-            images = torch.from_numpy(np.stack(buf)).to(dev)   # one upload
+            images = torch.from_numpy(np.stack(buf))              # one upload
+            if dev.type == "cuda":
+                images = images.pin_memory().to(dev, non_blocking=True)
         else:
             images = torch.stack([torch.as_tensor(im, device=dev) for im in buf])
         active = [True] * n + [False] * (self.chunk - n)
         self._buf = []
-        self.state, ys = track_chunk(self.camera, self.cfg, self.state,
-                                     images, active, self.sampler)
-        self._pending.append((n, ys))
-        if self.cfg.vo.reloc_max_frames > 0:
-            # One readback a chunk: its tracking flags, to count lost frames.
-            for tracked in (ys["summary"][:n, 3] > 0.5).tolist():
-                self._lost_streak = 0 if tracked else self._lost_streak + 1
-            if self._lost_streak >= self.cfg.vo.reloc_max_frames:
-                self._reboot()
+        graph = None
+        if dev.type == "cuda" and self.graph:
+            graph = chunk_graph(self.camera, self.cfg, self.state, images[0], self.sampler)
+            self.state, ys = graph.track_chunk(self.state, images, active)
+        else:
+            self.state, ys = track_chunk(self.camera, self.cfg, self.state,
+                                         images, active, self.sampler)
+        rebooting = self.cfg.vo.reloc_max_frames > 0
+        if rebooting:
+            # One readback a chunk: its tracking flags, to count lost frames,
+            # and the graph's tally (else read in _drain).
+            flags = ys["summary"][:n, 3]
+            if graph is not None:
+                flags = torch.cat([flags, graph.tally.to(torch.float32)])
+            flags = flags.tolist()
+            if graph is not None:
+                graph.account(flags[n:])
+                graph = None
+            for tracked in flags[:n]:
+                self._lost_streak = 0 if tracked > 0.5 else self._lost_streak + 1
+        self._pending.append((n, ys, graph))
+        if rebooting and self._lost_streak >= self.cfg.vo.reloc_max_frames:
+            self._reboot()
 
     def flush(self) -> None:
         """Track any partial chunk and bring all pending poses and summaries
@@ -840,10 +1024,12 @@ class DeviceVO:
         self._drain()
 
     def _drain(self) -> None:
-        for n, ys in self._pending:
+        for n, ys, graph in self._pending:
             R = ys["R"][:n].cpu().numpy()
             t = ys["t"][:n].cpu().numpy()
             s = ys["summary"][:n].cpu().numpy()
+            if graph is not None:
+                graph.account(graph.tally.tolist())
             base = len(self.stats)
             for i in range(n):
                 self.trajectory.append((R[i], t[i]))

@@ -54,6 +54,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _I,            # vals, perm, ptr, out, size, float64
         _P,                                # stream
     ],
+    "tinyslam_graph_if_begin": [_P, _P, _I, _P],   # stream, pred, negate, body stream
+    "tinyslam_graph_if_end": [_P],                 # body stream
     "tinyslam_cuda_error_string": [_I],
 }
 

@@ -16,7 +16,8 @@ each needed for a restored instance to go on as the saved one would:
 
 - The RANSAC draws.  The JAX package derives every key from a frame
   number, so it carries no random state; the port draws from a
-  ``Sampler`` that owns a ``torch.Generator``.  Its state is saved once,
+  ``Sampler`` that owns a ``torch.Generator`` and the seed of its keyed
+  relocalization stream.  Both are saved once,
   with the tracker that draws from it (``Slam`` hands its sampler to its
   tracker, ``DeviceVO`` to its host phase), so a restored tracker draws
   what the uninterrupted one would.  A sampler without a generator (a
@@ -57,15 +58,19 @@ def _read_npz(path: Path) -> dict:
 
 
 def _sampler_state(sampler) -> dict:
-    """{"sampler": its generator's state}, or {} without a generator."""
+    """{"sampler": its generator's state, "sampler_seed": the seed of its
+    keyed stream}, or {} without a generator."""
     if not hasattr(sampler, "generator"):
         return {}
-    return {"sampler": sampler.generator.get_state().numpy()}
+    return {"sampler": sampler.generator.get_state().numpy(),
+            "sampler_seed": np.asarray(sampler.seed, np.int64)}
 
 
 def _restore_sampler(sampler, arrays: dict) -> None:
     if "sampler" in arrays and hasattr(sampler, "generator"):
         sampler.generator.set_state(torch.from_numpy(arrays["sampler"]))
+        if "sampler_seed" in arrays:
+            sampler.seed = int(arrays["sampler_seed"])
 
 
 def _pose_list(poses) -> list:

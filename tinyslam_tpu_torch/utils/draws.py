@@ -3,11 +3,7 @@
 The JAX package draws with ``jax.random`` from keys it derives from frame
 numbers; the port takes its draws from a ``Sampler`` that the caller owns
 (``DeviceVO`` makes one and hands it to the bootstrap and to
-``track_step``).  Draws are made on the CPU from the sampler's own
-``torch.Generator`` (never the global one), so the CPU and the card see
-the same numbers for the same sequence of calls; for a CUDA target they
-are drawn into pinned memory and copied without blocking, so drawing never
-synchronizes with the device.
+``track_step``).
 
 Each call names the reference's stream in ``key``: ``("two_view", seed,
 "E" or "H")`` for the two-view estimate's samplers (the reference splits
@@ -16,8 +12,21 @@ Each call names the reference's stream in ``key``: ``("two_view", seed,
 (``fold_in(PRNGKey(17), frame_idx)``, ``frame_idx`` a device tensor),
 ``("host_reloc", frame_idx)`` for ``VisualOdometry``'s (``PRNGKey(
 frame_idx)``) and ``("loop", kf_id * 131 + old_id)`` for the loop probe's
-PnP-RANSAC (``fold_in(PRNGKey(23), n)``).  This sampler ignores the key;
-a test's sampler can use it to replay the JAX streams.
+PnP-RANSAC (``fold_in(PRNGKey(23), n)``).  A test's sampler can use the
+key to replay the JAX streams.
+
+The ``"reloc"`` stream is keyed, as the reference's is: its uniforms are a
+function of the sampler's seed and the frame number alone
+(``keyed_uniform``), computed on the device the frame number lies on from
+integer hashes, so the CPU and the card get the same bits, nothing reads
+the frame number back, and a captured CUDA graph computes each replay's
+own draws.  A frame's draws do not depend on what was drawn before it,
+and both attempts of one relocalization draw the same uniforms, as the
+reference hands one key to both.  The other streams draw in call order on
+the CPU from the sampler's own ``torch.Generator`` (never the global one),
+so the CPU and the card see the same numbers for the same sequence of
+calls; for a CUDA target they are drawn into pinned memory and copied
+without blocking, so drawing never synchronizes with the device.
 """
 
 from __future__ import annotations
@@ -26,16 +35,60 @@ import torch
 
 from tinyslam_tpu_torch.geometry.ransac import sample_indices
 
+_M32 = 0xFFFFFFFF
+RELOC_STREAM = 17           # the reference's PRNGKey(17) of the relocalization
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for x in [0, 2**32), a Python int or an int64
+    tensor, in 16-bit halves so that no product leaves int64's range."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A 32-bit avalanche mixer (``lowbias32``) of a Python int or an int64
+    tensor holding uint32 values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keyed_uniform(seed: int, stream: int, n, shape, device) -> torch.Tensor:
+    """float32 uniforms in [0, 1) of ``shape`` on ``device`` that depend on
+    (``seed``, ``stream``, ``n``) alone: element i is the top 24 bits of a
+    hash of the key and i.  ``n`` is a host int or an integer tensor of
+    one element on ``device``, read there and never on the host."""
+    dev = torch.device(device)
+    numel = 1
+    for s in shape:
+        numel *= int(s)
+    head = _mix32(_mul32(seed & _M32, 0x9E3779B1) ^ stream)
+    if isinstance(n, torch.Tensor):
+        key = _mix32(head ^ _mix32(n.to(dev).reshape(()).to(torch.int64) & _M32))
+    else:
+        key = torch.full((), _mix32(head ^ _mix32(int(n) & _M32)), dtype=torch.int64,
+                         device=dev)
+    i = torch.arange(numel, dtype=torch.int64, device=dev)
+    h = _mix32(key ^ _mix32(_mul32(i, 0x9E3779B1)))
+    return ((h >> 8).to(torch.float32) * (1.0 / (1 << 24))).reshape(tuple(shape))
+
 
 class Sampler:
-    """Uniform draws from a seeded CPU generator."""
+    """Uniform draws: the ``"reloc"`` stream keyed by (seed, frame), the
+    others from a seeded CPU generator in call order."""
 
     def __init__(self, seed: int = 0):
-        self.generator = torch.Generator().manual_seed(seed)
+        self.seed = int(seed)
+        self.generator = torch.Generator().manual_seed(self.seed)
 
     def uniform(self, shape, device, key=None) -> torch.Tensor:
         """float32 uniforms in [0, 1) of ``shape`` on ``device``."""
         dev = torch.device(device)
+        if key is not None and key[0] == "reloc":
+            return keyed_uniform(self.seed, RELOC_STREAM, key[1], shape, dev)
         u = torch.rand(shape, generator=self.generator, pin_memory=dev.type == "cuda")
         return u.to(dev, non_blocking=True)
 
