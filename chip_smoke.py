@@ -81,7 +81,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      (``REF_SLAM_ATE``); K1 launches once a frame, K2 once per keyframe
      ingest and 1 + ``loop_candidates`` times per loop probe on top of the
      tracking path, the assembly kernel once a Gauss-Newton iteration of
-     each graph solve (its first inputs bit-equal to ``index_add_`` on the
+     each graph solve (each stage one replay of its captured program,
+     counted by wrapping the stage functions; the first solve's assembly
+     inputs, from its eager run, bit-equal to ``index_add_`` on the
      CPU), and a tracked frame's ``process`` call synchronizes at most 3
      times (4 on a keyframe, one more after a lost frame; through the
      graph none, one where it dispatches a chunk); it prints the SLAM layer's
@@ -89,9 +91,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      ``DeviceVO`` on the same frames; (b) the first probe, the one that
      accepted the first closure, and the first graph solve replayed on the
      CPU plain path with the card's inputs and the same draws: the probe's
-     counts equal and, for the candidates at the inlier gate (at least
-     one), poses within 2e-3 and RMSE and both scale estimates within 2e-3
-     relative; (c) the
+     counts equal (those read off the PnP pose but at a degenerate
+     candidate: both reject it at the inlier gate, no hypothesis explains
+     one chain match on either device, and the card's pose is finite or
+     the NaN that ``_dlt_pose`` gives its first hypothesis) and, for the
+     candidates at the inlier
+     gate (at least one), poses within 2e-3 and RMSE and both scale
+     estimates within 2e-3 relative; (c) the
      asynchronous back-end, with the frames fed at once and again at a
      camera's 30 a second, applies a closure, its watchdog restarts
      nothing, and its ATE stays within 2 cm of the reference's each time
@@ -224,7 +230,25 @@ Phases, in order; any failure raises and the script exits nonzero:
      (after phase 11, whose trace has already slowed later launches) one
      chunk of (c), the third keyframe's, replayed under the profiler: its
      K1 and K2 kernel events must equal the launches ``ChunkGraph`` works
-     out for it from the graph and its branch tally.
+     out for it from the graph and its branch tally;
+ 18. the SLAM layer's captured programs (``models/slam.py``: the ingest,
+     the probe and the solve, each one replay of a ``Program`` and one
+     readback): (a) right after phase 9, on every stage call of phase 9's
+     counted run, the output equal bit for bit to the eager function's on
+     the same inputs on the card (a probe that differs prints its first
+     differing field and is held to phase 9b's check against the CPU
+     instead), no sync in a load and replay and one in a stage call, each
+     program's capture and instantiation seconds and pool bytes, wall ms
+     a call against the eager function's and card ms a replay, and every
+     allocation of a solve's capture (cuSOLVER's workspaces among them)
+     in its graph's pool; (b) right after phase 14, the same on its
+     ``Sampler(0)`` run's stage calls (no timing: phase 11's profiler has
+     run by then); (c) after 17f, one replay of each program traced: its
+     K1, K2 and assembly kernel events equal the launches it adds to the
+     counters and the stage's own (K2 once an ingest, 1 + C times a
+     probe; the assembly once a Gauss-Newton step of a solve, the steps
+     one WHILE node, whose body the profiler reports once a replay: the
+     turns are read from the loop's counter on the device).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -701,7 +725,8 @@ def _graph_phase(cam, frames, dev, smi, kf_run, boot_run):
           f"{'equal to' if same else 'DIFFERENT from'} phase 6's; branch bodies run "
           f"{runs}; the graph: capture {c.capture_s:.3f} s, instantiation "
           f"{c.instantiate_s:.3f} s, pool {c.pool_bytes} B, launches outside the "
-          f"branches {c.base} (K1, K2) a replay, in each branch {c.body_launches}  [{smi}]")
+          f"branches {c.base} (K1, K2, assembly) a replay, in each branch "
+          f"{c.body_launches}  [{smi}]")
     # e. The second pass as a conditional node or as a select over both
     # sides: its body's card time on phase 6's first frame, and how often
     # the frames of (c) took it.
@@ -768,6 +793,55 @@ def _replay_trace(replay, dev, smi):
     if not events or seen != worked:
         raise AssertionError(f"graph phase: the traced replays launched K1, K2 {seen} "
                              f"times, ChunkGraph counts {worked}")
+
+
+def _slam_replay_trace(records, dev, smi):
+    """Phase 18c: the kernels that one replay of each SLAM program
+    launches, as the profiler sees them, on phase 9's first inputs of each
+    stage: K1, K2 and the assembly kernel events held to the launches the
+    program adds to the counters (its capture's ``base``) and to the
+    stage's own counts (K2 once an ingest and 1 + C times a probe, the
+    assembly once a Gauss-Newton step of a solve).  The profiler reports
+    the kernels of a WHILE node's body once a replay however many turns
+    it runs (587 kernel events for a solve's 20 steps), so a
+    solve's trace shows the assembly once, and its turns are read from
+    the loop's counter on the device (``Captured.turns``).  Run after
+    phase 11 has traced, as 17f."""
+    import json
+
+    from tinyslam_tpu_torch.utils import profiling
+
+    kernels = ("fast_pyramid_kernel", "match_reduce_kernel", "ordered_scatter_kernel")
+    failures = []
+    for name in ("kf_ingest", "loop_probe", "solve_graph"):
+        args, _ = records[name][0]
+        prog, inputs = _stage_program(name, args, dev)
+        cfg = args[0] if name == "solve_graph" else args[1]
+        pg = cfg.pose_graph
+        want = {"kf_ingest": (0, 1, 0), "loop_probe": (0, 1 + max(2, pg.loop_candidates), 0),
+                "solve_graph": (0, 0, pg.gn_iters)}[name]
+        want_turns = [pg.gn_iters] if name == "solve_graph" else []
+        traced = (0, 0, 1) if name == "solve_graph" else want
+        prog(inputs)
+        for attempt in range(3):    # a trace now and then comes back empty
+            with profiling.trace(REC_DIR / f"slam_trace_{name}", device=dev,
+                                 cpu=False) as log_dir:
+                prog(inputs)
+            events = [e for e in json.loads((log_dir / "trace.json").read_text())["traceEvents"]
+                      if e.get("cat") == "kernel"]
+            seen = tuple(sum(k in e.get("name", "") for e in events) for k in kernels)
+            if events:
+                break
+        turns = [int(t) for t in prog.captured.turns]
+        print(f"18c one {name} replay traced (attempt {attempt + 1}): {len(events)} kernel "
+              f"events; K1, K2, assembly in the trace {seen} (a loop's body once), turns of "
+              f"its loops {turns}; added to the counters a replay {prog.captured.base}, the "
+              f"stage's own {want}  [{smi}]")
+        if not (seen == traced and turns == want_turns and tuple(prog.captured.base) == want):
+            failures.append(f"{name}: traced {seen}, turns {turns}, counted "
+                            f"{prog.captured.base}, want {want}")
+    if failures:
+        raise AssertionError("SLAM replay trace: " + "; ".join(failures))
 
 
 def _keyframe_phase(cam, room, poses, frames, dev, smi):
@@ -1319,6 +1393,18 @@ def _assembly_check(label: str, first, smi) -> tuple:
             library, nbytes, vals.numel(), longest)
 
 
+def _eager_first_assembly(cfg, snap, dev):
+    """The first assembly's inputs (plan, values) of the solve of ``snap``
+    (padded as ``solve_graph`` pads it), from its eager run on ``dev``: a
+    captured solve's replay makes no Python call to intercept, and runs the
+    same kernels on the same inputs."""
+    from tinyslam_tpu_torch.models import slam as sm
+
+    with _FirstAssembly() as assembly:
+        sm.solve_graph(cfg, snap, dev, eager=True)
+    return assembly.first
+
+
 def _chain_assembly(nodes: int, dev):
     """The first assembly's inputs (plan, values) of a solve of
     ``tools/profile_pose_graph.py``'s chain of ``nodes`` keyframes under
@@ -1327,11 +1413,148 @@ def _chain_assembly(nodes: int, dev):
     import profile_pose_graph
 
     from tinyslam_tpu_torch import SlamConfig
-    from tinyslam_tpu_torch.models.slam import solve_graph
 
-    with _FirstAssembly() as assembly:
-        solve_graph(SlamConfig(), profile_pose_graph.snapshot(nodes), dev)
-    return assembly.first
+    return _eager_first_assembly(SlamConfig(), profile_pose_graph.snapshot(nodes), dev)
+
+
+def _kept(a):
+    """A stage's argument as it was at the call: tensors, the features and
+    the map cloned, arrays and lists copied (the caller goes on to change
+    its own), anything else as it is."""
+    import dataclasses
+
+    import torch
+
+    from tinyslam_tpu_torch.models.vo import MapState
+    from tinyslam_tpu_torch.types import Features
+
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, np.ndarray):
+        return a.copy()
+    if isinstance(a, (list, tuple)):
+        return type(a)(_kept(x) for x in a)
+    if isinstance(a, (Features, MapState)):
+        return type(a)(**{f.name: getattr(a, f.name).clone() for f in dataclasses.fields(a)})
+    return a
+
+
+_PROBE_INTS = ("n_appear", "n_chain", "num_inliers", "n_scale_pairs", "n_scale_old",
+               "n_scale_new")
+
+
+_PNP_COUNTS = ("num_inliers", "n_scale_pairs", "n_scale_old")   # read off the PnP pose
+
+
+def _ransac_start(args, c) -> dict:
+    """Candidate ``c``'s RANSAC pool on the probe's device, rebuilt from
+    the probe's inputs as ``models/slam.py:_loop_probe`` builds it (the
+    chain, its keyed draws, ``pnp_ransac``'s DLT hypotheses and the
+    odometry prior): the most chain matches one of them explains within
+    the inlier threshold, which are finite, and whether the first in the
+    vote's order is finite (where no refined pose gains an inlier, the
+    refinement of that one wins)."""
+    import torch
+
+    from tinyslam_tpu_torch.geometry import pnp
+    from tinyslam_tpu_torch.models import slam as sm
+    from tinyslam_tpu_torch.ops.hamming import match_descriptors
+
+    cam, cfg, cur, old, old_ids, old_X, old_ok, _, _, R_cur, t_cur, kf_id, sampler = args
+    dev = cur.desc.device
+    kw = sm._probe_params(cfg)
+    T = lambda a, dtype=np.float32: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype)).to(dev)
+    o = old.map(lambda x: x[c])
+    m = match_descriptors(cur.desc, cur.valid, o.desc, o.valid, max_distance=kw["max_distance"],
+                          ratio=kw["ratio"], cross_check=True)
+    ib = m["idx_b"].long()
+    X = T(old_X[c])[ib]
+    chain = m["valid"] & T(old_ok[c], np.bool_)[ib]
+    sample = sampler.choice(chain, (kw["num_hypotheses"], 6),
+                            key=("loop", int(kf_id) * 131 + int(old_ids[c])))
+    Rs, ts = pnp._dlt_pose(cam, X[sample], cur.xy[sample],
+                           torch.ones(sample.shape, device=dev))
+    Rs, ts = torch.cat([Rs, T(R_cur)[None]]), torch.cat([ts, T(t_cur)[None]])
+    err, z = pnp._project_err(cam, Rs, ts, X, cur.xy)
+    votes = (chain & (z > 1e-4) & (err < kw["inlier_px"])).sum(-1)
+    first = int(torch.sort(votes, descending=True, stable=True).indices[0])
+    finite = torch.isfinite(Rs).all((-2, -1)) & torch.isfinite(ts).all(-1)
+    return {"max_vote": int(votes.max()), "finite": finite.cpu().numpy(),
+            "first_finite": bool(finite[first])}
+
+
+def _probe_against_cpu(args, rows, cfg) -> tuple[bool, int, str]:
+    """A probe's card rows against the CPU plain path on the same inputs
+    with the same draws (phase 9b's check): every count equal, but for the
+    counts read off the PnP pose (``_PNP_COUNTS``) at a degenerate
+    candidate; over the candidates the inlier gate can pass, pose and the
+    float fields within 2e-3.
+
+    A candidate is degenerate where card and CPU both reject it at the
+    inlier gate (the accept decision stays exact) and no DLT hypothesis
+    nor the odometry prior explains a single chain match on either
+    device (``_ransac_start``): the null vectors of such minimal samples
+    are decided by rounding, and refining them may leave an inlier or
+    none.  The card's pose there must be finite, or be the NaN that
+    ``_dlt_pose`` gives a degenerate sample: no inlier, and the first
+    hypothesis of the vote's order (whose refinement then wins) NaN.
+    Phase 9's first probe: 78 chain matches, 0 inliers on the
+    card and 1 on the CPU, the card's pose that NaN.  Returns (agrees,
+    candidates at the gate, a line)."""
+    from tinyslam_tpu_torch.models import slam as sm
+
+    cpu_args = _moved_all(args, "cpu")
+    got = sm.unpack_probe(sm.loop_probe(*cpu_args))
+    card = sm.unpack_probe(rows)
+    gate = cfg.pose_graph.loop_min_matches
+    exact = all(np.array_equal(got[k], card[k]) for k in _PROBE_INTS)
+    witnessed, notes = set(), []
+    for c in range(len(card["num_inliers"])):
+        if all(got[k][c] == card[k][c] for k in _PNP_COUNTS):
+            continue
+        rejected = max(card["num_inliers"][c], got["num_inliers"][c]) < gate
+        on_card, on_cpu = _ransac_start(args, c), _ransac_start(cpu_args, c)
+        degenerate = on_card["max_vote"] == 0 and on_cpu["max_vote"] == 0
+        finite = bool(np.isfinite(card["R"][c]).all() and np.isfinite(card["t"][c]).all())
+        by_design = (not finite and card["num_inliers"][c] == 0
+                     and not on_card["first_finite"])
+        if rejected and degenerate and (finite or by_design):
+            witnessed.add(c)
+        split = np.nonzero(on_card["finite"] != on_cpu["finite"])[0]
+        notes.append(
+            f"candidate {c}: num_inliers card {int(card['num_inliers'][c])}, CPU "
+            f"{int(got['num_inliers'][c])}; both rejected at the gate {gate} {rejected}; most "
+            f"chain matches a hypothesis or the prior explains, card {on_card['max_vote']}, CPU "
+            f"{on_cpu['max_vote']}; finite hypotheses card {int(on_card['finite'].sum())}, CPU "
+            f"{int(on_cpu['finite'].sum())} of {len(on_card['finite'])}, finite on one side "
+            f"only {split.tolist()}; card pose "
+            f"finite {finite}, else the NaN of its first hypothesis {by_design}; degenerate, "
+            f"counts exempt {c in witnessed}")
+    keep = np.array([c not in witnessed for c in range(len(card["num_inliers"]))])
+    same = all(np.array_equal(got[k], card[k]) if k not in _PNP_COUNTS
+               else np.array_equal(got[k][keep], card[k][keep]) for k in _PROBE_INTS)
+    used = card["num_inliers"] >= gate
+    pose = np.concatenate([card["R"].reshape(len(used), -1), card["t"]], 1)[used]
+    pose_cpu = np.concatenate([got["R"].reshape(len(used), -1), got["t"]], 1)[used]
+    dp = float(np.abs(pose - pose_cpu).max()) if used.any() else 0.0
+    rel = {}
+    for k in ("rmse", "s_e", "s_e_med"):
+        a, b = card[k][used].astype(np.float64), got[k][used].astype(np.float64)
+        both_nan = np.isnan(a) & np.isnan(b)
+        r = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
+        rel[k] = float(np.where(both_nan, 0.0, np.nan_to_num(r, nan=np.inf)).max(initial=0.0))
+    cpu = "" if exact else f" (CPU { {k: got[k].astype(int).tolist() for k in _PROBE_INTS} })"
+    said = (f"counts equal {exact}, equal but at degenerate candidates {same}: "
+            f"{ {k: card[k].astype(int).tolist() for k in _PROBE_INTS} }{cpu}"
+            f"{''.join('; ' + n for n in notes)}; over the {int(used.sum())} candidate(s) at the "
+            f"inlier gate: max pose diff {dp:.2e}, max relative diff "
+            f"{({k: f'{v:.2e}' for k, v in rel.items()})}")
+    return same and dp < 2e-3 and max(rel.values()) < 2e-3, int(used.sum()), said
+
+
+def _moved_all(args, device):
+    return tuple(_moved(a, device) for a in args)
 
 
 def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
@@ -1358,11 +1581,6 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     gt = _centres([poses[i][0] for i in seq], [poses[i][1] for i in seq])
     C = max(2, cfg.pose_graph.loop_candidates)
     failures = []
-
-    def clone_sampler(state):
-        out = Sampler()
-        out.generator.set_state(state)
-        return out
 
     def run_timed(step, finish, ims):
         """Feed the frames; per-frame wall seconds on the host clock (the
@@ -1392,25 +1610,19 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     # a. DeviceSlam, instrumented: K2 and wall ms per ingest, probe and
     # solve, syncs per tracked frame and per chunk sync; the first probe's
     # inputs and draws and the first solve's snapshot are kept for b.
-    calls = {"_kf_ingest": [], "_loop_probe": [], "solve_graph": []}
-    frame_syncs, chunk_syncs, first, probes = [], [], {}, []
+    calls = {"kf_ingest": [], "loop_probe": [], "solve_graph": []}
+    records = {k: [] for k in calls}        # (arguments, output) of every stage call
+    frame_syncs, chunk_syncs = [], []
     real = {k: getattr(sm, k) for k in calls}
 
     def counted(name):
-        def wrapper(*args, **kw):
+        def wrapper(*args):
             k2 = match_cuda.LAUNCHES
-            if name == "_loop_probe":
-                inputs = ([_moved(a, "cpu") for a in args[:11]],
-                          args[11].generator.get_state(), kw)
             t_start = time.perf_counter()
-            out = real[name](*args, **kw)
-            if name == "_loop_probe":
-                out = out.cpu()               # the caller's readback, timed here
-                probes.append(inputs + (out.numpy(),))
-            if name == "solve_graph":
-                first.setdefault("solve", (args[1], out))
+            out = real[name](*args)           # one replay and the readback
             calls[name].append((match_cuda.LAUNCHES - k2,
                                 (time.perf_counter() - t_start) * 1e3))
+            records[name].append((_kept(args), out))
             return out
         return wrapper
 
@@ -1441,8 +1653,7 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
         fast_cuda.LAUNCHES = 0
         match_cuda.LAUNCHES = 0
         scatter_cuda.LAUNCHES = 0
-        with _FirstAssembly() as assembly:
-            slam_secs = run_timed(slam.process_frame, slam.finalize, images)
+        slam_secs = run_timed(slam.process_frame, slam.finalize, images)
         torch.cuda.synchronize()
         launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
                     "match_reduce_streaming": match_cuda.LAUNCHES,
@@ -1459,7 +1670,7 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     print(f"phase 9: {len(seq)} frames (orbit 0..{n - 1}..0), bootstrap at frame {b0} "
           f"(DeviceVO alone {b_vo}); {n_kf} keyframes at frames "
           f"{sorted(slam.kf_frame_of.values())}; lost {lost}; "
-          f"{len(calls['_loop_probe'])} probes; candidates (kf, old, n_appear, n_chain, "
+          f"{len(calls['loop_probe'])} probes; candidates (kf, old, n_appear, n_chain, "
           f"inliers, rmse, s_e, pairs, s_e_med, accepted) "
           f"{[(r['kf'], r['old'], r['n_appear'], r['n_chain'], r['num_inliers'], round(r['rmse'], 3), round(r['s_e'], 4), r['n_scale_pairs'], round(r['s_e_med'], 4), r['accepted']) for r in slam.loop_log]}")
     print(f"phase 9: {slam.num_loop_closures} closures accepted; edges (i, j, s, w) "
@@ -1476,10 +1687,11 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
         failures.append("keyframe tables or edges inconsistent")
     if REF_SLAM_ATE is None or not ate <= REF_SLAM_ATE + 0.02:
         failures.append(f"ATE {ate:.4f} > reference {REF_SLAM_ATE} + 0.02")
-    # K1 once a frame; K2 once an ingest, 1 + C times a probe, the rest on
-    # the tracking path (at least once a tracked frame).
-    k2_ingest = [k for k, _ in calls["_kf_ingest"]]
-    k2_probe = [k for k, _ in calls["_loop_probe"]]
+    # K1 once a frame; K2 once an ingest, 1 + C times a probe (each a
+    # replay of its captured program), the rest on the tracking path (at
+    # least once a tracked frame).
+    k2_ingest = [k for k, _ in calls["kf_ingest"]]
+    k2_probe = [k for k, _ in calls["loop_probe"]]
     k2_track = launches["match_reduce_streaming"] - sum(k2_ingest) - sum(k2_probe)
     print(f"launches during phase 9a: {launches}; K2 = tracking {k2_track} + ingests "
           f"{k2_ingest} + probes {k2_probe} (1 + {C} each)")
@@ -1518,11 +1730,11 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     # stage times and the tracked fps set against DeviceVO's.
     warm_slam = DeviceSlam(cfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
     ws_secs = run_timed(warm_slam.process_frame, warm_slam.finalize, images)
-    n_probe, n_solve = len(calls["_loop_probe"]), len(calls["solve_graph"])
+    n_probe, n_solve = len(calls["loop_probe"]), len(calls["solve_graph"])
     t = warm_slam.timings
     per = lambda k, m: 1e3 * t.get(k, 0.0) / m if m else float("nan")  # noqa: E731
-    print(f"SLAM stages, the counted run: probe ms {[round(m, 1) for _, m in calls['_loop_probe']]}"
-          f" (K2, PnP-RANSAC, readback), graph solve ms "
+    print(f"SLAM stages, the counted run: probe ms {[round(m, 1) for _, m in calls['loop_probe']]}"
+          f" (a replay and its readback), graph solve ms "
           f"{[round(m, 1) for _, m in calls['solve_graph']]}; the warm run: wall s by stage "
           f"{({k: round(v, 3) for k, v in t.items()})}, ms per ingest "
           f"{per('kf_ingest', len(warm_slam.kf_R)):.2f} (n={len(warm_slam.kf_R)}), per probe "
@@ -1535,52 +1747,30 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
 
     # b. The first probe, and the one that accepted the first closure, and
     # the first solve again on the CPU plain path, from the card's inputs
-    # with the same draws.
-    solve = None
+    # with the same draws (keyed by the seed: the same on both devices).
     closing = [r["kf"] for r in slam.loop_log if r["accepted"]][:1]
-    replay = [i for i, p in enumerate(probes) if i == 0 or p[0][10] in closing]
-    ints = ("n_appear", "n_chain", "num_inliers", "n_scale_pairs", "n_scale_old",
-            "n_scale_new")
-    floats = ("rmse", "s_e", "s_e_med")
+    probes = records["loop_probe"]
+    replay = [i for i, (a, _) in enumerate(probes) if i == 0 or a[11] in closing]
     n_gated = 0
     for i in replay:
-        args, gen, kw, rows = probes[i]
-        got = sm.unpack_probe(sm._loop_probe(*args, clone_sampler(gen), **kw).numpy())
-        card = sm.unpack_probe(rows)
-        same = all(np.array_equal(got[k], card[k]) for k in ints)
-        # The floats of candidates the gate can pass: below loop_min_matches
-        # inliers a candidate is rejected before its pose, RMSE or scales
-        # are read, and its PnP pose rests on a handful of points.
-        used = card["num_inliers"] >= cfg.pose_graph.loop_min_matches
-        n_gated += int(used.sum())
-        pose = np.concatenate([card["R"].reshape(len(used), -1), card["t"]], 1)[used]
-        pose_cpu = np.concatenate([got["R"].reshape(len(used), -1), got["t"]], 1)[used]
-        dp = float(np.abs(pose - pose_cpu).max()) if used.any() else 0.0
-        rel = {}
-        for k in floats:
-            a, b = card[k][used].astype(np.float64), got[k][used].astype(np.float64)
-            both_nan = np.isnan(a) & np.isnan(b)
-            r = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
-            rel[k] = float(np.where(both_nan, 0.0, np.nan_to_num(r, nan=np.inf)).max(
-                initial=0.0))
-        print(f"probe {i} (keyframe {args[10]}, candidates {args[3]}), card vs CPU: counts "
-              f"equal {same} { {k: card[k].astype(int).tolist() for k in ints} }; over the "
-              f"{int(used.sum())} candidate(s) at the inlier gate: max pose diff {dp:.2e}, "
-              f"max relative diff {({k: f'{v:.2e}' for k, v in rel.items()})}")
-        if not (same and dp < 2e-3 and max(rel.values()) < 2e-3):
+        ok, n_used, said = _probe_against_cpu(*probes[i], cfg)
+        n_gated += n_used
+        print(f"probe {i} (keyframe {probes[i][0][11]}, candidates {list(probes[i][0][4])}), "
+              f"card vs CPU: {said}")
+        if not ok:
             failures.append(f"probe {i} disagrees with the CPU plain path")
     if replay and not n_gated:
         failures.append("no replayed probe has a candidate at the inlier gate")
-    if "solve" in first:
-        snap, card = first["solve"]
+    if records["solve_graph"]:
+        (_, snap, _), card = records["solve_graph"][0]
         got = sm.solve_graph(cfg, snap, "cpu")
-        d = [float(np.abs(g - c).max()) for g, c in zip(got, card)]
+        d = [float(np.abs(g - c).max())
+             for g, c in zip(sm.unpack_solve(got), sm.unpack_solve(card))]
         print(f"first graph solve ({len(snap[0])} nodes, {len(snap[2])} edges), card vs "
               f"CPU: max diff R {d[0]:.2e}, t {d[1]:.2e}, s {d[2]:.2e}")
         if max(d) >= 2e-3:
             failures.append("the first graph solve disagrees with the CPU plain path")
-        solve = lambda: sm.solve_graph(cfg, snap, dev)  # noqa: E731
-    if not replay or "solve" not in first:
+    if not replay or not records["solve_graph"]:
         failures.append("no probe or no graph solve to replay")
 
     # c. The asynchronous back-end on the same frames, fed at once and as a
@@ -1657,7 +1847,8 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
         failures.append(f"the command line failed: {proc.stderr[-2000:]}")
     if failures:
         raise AssertionError("SLAM phase: " + "; ".join(failures))
-    return launches, solve, assembly.first
+    first = _eager_first_assembly(cfg, records["solve_graph"][0][0][1], dev)
+    return launches, first, records
 
 
 def _orbit():
@@ -1681,6 +1872,164 @@ def _orbit_scene():
 
 _SUMMARY = (r"^frames=(\d+) tracked=(\d+) keyframes=(\d+) landmarks=(\d+) "
             r"fps=([\d.]+) loop_closures=(\d+)$")
+
+
+def _stage_program(name, args, dev):
+    """The captured program a stage's call replayed, and its inputs."""
+    import torch
+
+    from tinyslam_tpu_torch.models import slam as sm
+
+    if name == "solve_graph":
+        cfg, snap, _ = args
+        pg = cfg.pose_graph
+        tables, n = sm.padded_graph(pg, snap)
+        return (sm.solve_program(pg, *sm.padded_shape(pg, n, len(snap[2])), dev),
+                {k: torch.from_numpy(v) for k, v in tables.items()})
+    spec = (sm._ingest_spec if name == "kf_ingest" else sm._probe_spec)(*args)
+    return sm._program(*spec, args[2].desc.device), spec[3]
+
+
+def _pool_allocations(cfg, snap, dev) -> str:
+    """Capture the solve of ``snap`` once more, into a pool of its own,
+    with the allocator's history on: every allocation made on the capture's
+    stream (cuSOLVER's potrf and potrs workspaces among them) must lie in a
+    segment of the graph's pool.  Returns a line, or raises."""
+    import torch
+
+    from tinyslam_tpu_torch.models import slam as sm
+    from tinyslam_tpu_torch.utils.cuda_graph import capture, counters_kept, warm_checked
+
+    pg = cfg.pose_graph
+    tables, _ = sm.padded_graph(pg, snap)
+    static = {k: torch.from_numpy(v).to(dev) for k, v in tables.items()}
+    body = lambda: sm._solve_rows(pg.sim3, pg.gn_iters, static)  # noqa: E731
+    pool = torch.cuda.graph_pool_handle()
+    with counters_kept():
+        warm_checked(body, dev)
+        torch.cuda.memory._record_memory_history(enabled="all", context=None,
+                                                 stacks="python", max_entries=1_000_000)
+        try:
+            capture(body, dev, (), pool=pool)
+            mem = torch.cuda.memory._snapshot()
+        finally:
+            torch.cuda.memory._record_memory_history(enabled=None)
+    default = torch.cuda.current_stream(dev).cuda_stream
+    allocs = [e for e in mem["device_traces"][dev.index or 0]
+              if e["action"] == "alloc" and e["stream"] != default]
+    segs = [(g["address"], g["address"] + g["total_size"], tuple(g["segment_pool_id"]))
+            for g in mem["segments"]]
+    pools = [next((p for a, b, p in segs if a <= e["addr"] < b), None) for e in allocs]
+    outside = [e["size"] for e, p in zip(allocs, pools) if p != tuple(pool)]
+    line = (f"{len(allocs)} allocations on the capture's stream, {sum(e['size'] for e in allocs)}"
+            f" B, {len(outside)} outside the graph's pool {tuple(pool)}")
+    if not allocs or outside:
+        raise AssertionError(f"the solve's capture: {line} (sizes {outside[:8]})")
+    return line
+
+
+def _slam_graph_phase(label, records, dev, smi, timing: bool):
+    """Phase 18: the SLAM layer's captured programs (``models/slam.py``)
+    against their eager runs on the card, on the inputs a run gave its
+    stages (``records``: phase 9's, or phase 14's ``Sampler(0)``'s).  Every
+    stage call's output (one replay and its readback) must equal the eager
+    function's on the same inputs bit for bit; where a probe's do not, the
+    first differing field is printed and the probe is held to phase 9b's
+    check against the CPU instead.  A replay makes no sync and a stage call
+    one (its readback).  With ``timing``: wall ms a call of each stage
+    (host clock, synchronized) against the eager function's, the replay's
+    card ms (CUDA events around replays), and the solve's capture held to
+    its graph's pool.  Returns {stage: eager call} for phase 7's device
+    times."""
+    import torch
+
+    from tinyslam_tpu_torch.models import slam as sm
+
+    t_phase = time.perf_counter()
+    failures = []
+    for name in ("kf_ingest", "loop_probe", "solve_graph"):
+        same, differ = 0, []
+        for i, (args, got) in enumerate(records[name]):
+            want = getattr(sm, name)(*args, eager=True)
+            if np.array_equal(got, want, equal_nan=True):
+                same += 1
+                continue
+            if name != "loop_probe":
+                failures.append(f"{label} {name} {i}: the replay differs from the eager run by "
+                                f"{float(np.nanmax(np.abs(got - want)))}")
+                continue
+            g, w = sm.unpack_probe(got), sm.unpack_probe(want)
+            field = next(k for k in sm.PROBE_FIELDS
+                         if not np.array_equal(g[k], w[k], equal_nan=True))
+            ok, _, said = _probe_against_cpu(args, got, args[1])
+            differ.append(i)
+            print(f"{label} probe {i}: the replay differs from the eager run first at {field} "
+                  f"({g[field].tolist()} against {w[field].tolist()}); card vs CPU: {said}")
+            if not ok:
+                failures.append(f"{label} probe {i}: neither bit-equal nor within phase 9b's "
+                                "tolerances of the CPU")
+        print(f"{label} {name}: {same} of {len(records[name])} calls bit-equal to the eager run "
+              f"on the card{f', not {differ}' if differ else ''}  [{smi}]")
+        if not records[name]:
+            failures.append(f"{label}: no {name} call")
+    # Syncs: none in a load and replay, one (the readback) in a stage call.
+    for name in ("kf_ingest", "loop_probe", "solve_graph"):
+        if not records[name]:
+            continue
+        args, _ = records[name][0]
+        prog, inputs = _stage_program(name, args, dev)
+        torch.cuda.synchronize()
+        _, in_replay = _with_sync_count(lambda: prog(inputs))
+        torch.cuda.synchronize()
+        _, in_call = _with_sync_count(lambda: getattr(sm, name)(*args))
+        c = prog.captured
+        print(f"{label} {name} program: syncs in a load and replay {in_replay}, in a stage call "
+              f"{in_call}; launches a replay (K1, K2, assembly) {c.base}; capture "
+              f"{c.capture_s:.3f} s, instantiation {c.instantiate_s:.3f} s, pool bytes "
+              f"{c.pool_bytes}; replays so far {prog.replays}  [{smi}]")
+        if in_replay != 0 or in_call != 1:
+            failures.append(f"{label} {name}: {in_replay} syncs in a replay, {in_call} in a call")
+    pools = {}
+    for key, prog in sm._PROGRAMS.items():
+        pools.setdefault(key[0] == "solve", []).append(prog.captured.pool_bytes)
+    print(f"{label}: {len(sm._PROGRAMS)} SLAM programs in this process; pool bytes at capture, "
+          f"ingest and probe pool {pools.get(False)}, solve pool {pools.get(True)}  [{smi}]")
+    eager_calls = {}
+    if timing:
+        for name in ("kf_ingest", "loop_probe", "solve_graph"):
+            args, _ = records[name][0]
+            prog, inputs = _stage_program(name, args, dev)
+            stage = lambda name=name, args=args: getattr(sm, name)(*args)  # noqa: E731
+            plain = lambda name=name, args=args: getattr(sm, name)(*args, eager=True)  # noqa: E731
+            walls = {}
+            for which, fn in (("graph", stage), ("eager", plain), ("graph", stage),
+                              ("eager", plain)):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                walls.setdefault(which, []).append((time.perf_counter() - t0) / 5 * 1e3)
+            prog(inputs)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(10):
+                prog.captured.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            card = start.elapsed_time(end) / 10
+            print(f"{label} {name}, wall ms a call: graph {[round(w, 3) for w in walls['graph']]}"
+                  f", eager {[round(w, 3) for w in walls['eager']]}; card ms a replay {card:.3f}"
+                  f"  [{smi}]")
+            eager_calls[name] = (plain, min(walls["graph"]), min(walls["eager"]), card)
+        (cfg, snap, _), _ = records["solve_graph"][0]
+        print(f"{label} the solve's capture: {_pool_allocations(cfg, snap, dev)}")
+    print(f"{label}: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    if failures:
+        raise AssertionError("SLAM graph phase: " + "; ".join(failures))
+    return eager_calls
 
 
 def _dataset_phase(dev, smi):
@@ -1830,21 +2179,25 @@ def _loop_phase(dev, smi):
     C = max(2, SlamConfig().pose_graph.loop_candidates)
     iters = SlamConfig().pose_graph.gn_iters
     launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0, "ordered_scatter_add": 0}
-    real = {k: getattr(sm, k) for k in ("_kf_ingest", "_loop_probe")}
+    real = {k: getattr(sm, k) for k in ("kf_ingest", "loop_probe", "solve_graph")}
     failures, runs, made, real_slam = [], [], [], eval_ate.DeviceSlam
+    first = records = None
 
-    def counted(name, calls):
-        def wrapper(*args, **kw):
+    def counted(name, calls, kept):
+        def wrapper(*args):
             k2 = match_cuda.LAUNCHES
-            out = real[name](*args, **kw)
+            out = real[name](*args)
             calls[name].append(match_cuda.LAUNCHES - k2)
+            if kept is not None:
+                kept[name].append((_kept(args), out))
             return out
         return wrapper
 
     for seed in range(4):
         calls = {k: [] for k in real}
+        kept = {k: [] for k in real} if seed == 0 else None
         for k in real:
-            setattr(sm, k, counted(k, calls))
+            setattr(sm, k, counted(k, calls, kept))
         eval_ate.DeviceSlam = lambda *a, **kw: made.append(real_slam(*a, **kw)) or made[-1]
         try:
             torch.cuda.synchronize()
@@ -1852,9 +2205,8 @@ def _loop_phase(dev, smi):
             match_cuda.LAUNCHES = 0
             scatter_cuda.LAUNCHES = 0
             t_run = time.perf_counter()
-            with _FirstAssembly() as assembly:
-                out = eval_ate.run_sequence("fr1_loop_like", "tum", root, "slam", "device",
-                                            device=dev, sampler=Sampler(seed))
+            out = eval_ate.run_sequence("fr1_loop_like", "tum", root, "slam", "device",
+                                        device=dev, sampler=Sampler(seed))
             torch.cuda.synchronize()
             k1, k2, k3 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES, scatter_cuda.LAUNCHES
         finally:
@@ -1862,12 +2214,14 @@ def _loop_phase(dev, smi):
                 setattr(sm, k, f)
             eval_ate.DeviceSlam = real_slam
         if seed == 0:
-            out["slam"], first = made[-1], assembly.first
+            out["slam"], records = made[-1], kept
+            if kept["solve_graph"]:
+                first = _eager_first_assembly(SlamConfig(), kept["solve_graph"][0][0][1], dev)
         made.clear()
         launches["fast_score_map_fused"] += k1
         launches["match_reduce_streaming"] += k2
         launches["ordered_scatter_add"] += k3
-        ingests, probes = calls["_kf_ingest"], calls["_loop_probe"]
+        ingests, probes = calls["kf_ingest"], calls["loop_probe"]
         k2_track = k2 - sum(ingests) - sum(probes)
         print(f"phase 14 Sampler({seed}), {time.perf_counter() - t_run:.1f} s: K1 {k1}, K2 "
               f"{k2} = tracking {k2_track} + {len(ingests)} ingests {sum(ingests)} + "
@@ -1901,7 +2255,7 @@ def _loop_phase(dev, smi):
         failures.append("Sampler(0)'s run solved no pose graph")
     if failures:
         raise AssertionError("loop eval phase: " + "; ".join(failures))
-    return launches, runs, first
+    return launches, runs, first, records
 
 
 def _bench_phase(frames, smi):
@@ -3133,8 +3487,12 @@ def main() -> None:
     graph_launches, graph_replay = _graph_phase(cam, frames, dev, smi, kf_run, boot_run)
 
     # ---- 9. Sim(3) loop closure: DeviceSlam, the async back-end, Slam, CLI --
-    slam_launches, graph_solve, pg_orbit = _slam_phase(cam, poses, frames, dev, smi)
+    slam_launches, pg_orbit, slam_records = _slam_phase(cam, poses, frames, dev, smi)
     assembly = [_assembly_check("phase 9 orbit", pg_orbit, smi)]
+
+    # ---- 18a. the SLAM layer's captured programs against their eager runs ------
+    slam_eager = _slam_graph_phase("phase 18a (phase 9's stages)", slam_records, dev, smi,
+                                   timing=True)
 
     # ---- 10. the datasets: render, write, load, the command line ----------
     data_launches = _dataset_phase(dev, smi)
@@ -3145,6 +3503,7 @@ def main() -> None:
     _difference_pins(dev, smi)
     _replay_trace(graph_replay, dev, smi)      # 17f
     del graph_replay
+    _slam_replay_trace(slam_records, dev, smi)  # 18c
 
     # ---- 12. the distributed layer: mesh, frontend_dp, sharded BA and graphs --
     dist_launches = _dist_phase(frames, dev, smi, timed)
@@ -3153,8 +3512,10 @@ def main() -> None:
     ms_launches, _, case4 = _multiseq_phase(cam, room, poses, frames, dev, smi, timed)
 
     # ---- 14. the accuracy eval: fr1_loop-like under four samplers --------------
-    loop_launches, loop_runs, pg_loop = _loop_phase(dev, smi)
+    loop_launches, loop_runs, pg_loop, loop_records = _loop_phase(dev, smi)
     assembly.append(_assembly_check("phase 14 fr1_loop", pg_loop, smi))
+    _slam_graph_phase("phase 18b (phase 14's Sampler(0) stages)", loop_records, dev, smi,
+                      timing=False)
 
     # ---- 15. the error budget on fr1_loop-like under Sampler(0) ----------------
     budget_launches = _budget_phase(dev, smi, loop_runs[0])
@@ -3239,11 +3600,15 @@ def main() -> None:
     rel_dev = _device_ms(reloc_frame, reps=5)
     print(f"one relocalization frame (phase 8d, guided): wall {rel_wall:.3f} ms, device "
           f"{_shown(rel_dev)}, card busy {_busy(rel_dev, rel_wall)}  [{smi}]")
-    solve_wall = _time_ms(graph_solve, reps=3, warmup=1)
-    solve_dev = _device_ms(graph_solve, reps=2)
-    print(f"one graph solve (phase 9's first, 20 Gauss-Newton iterations, upload and "
-          f"readback included): wall {solve_wall:.3f} ms, device {_shown(solve_dev)}, card "
-          f"busy {_busy(solve_dev, solve_wall)}  [{smi}]")
+    # The SLAM layer's stages on phase 9's first inputs: the eager function
+    # (the plain version) under the profiler beside phase 18a's captured
+    # program (one replay; its card ms from CUDA events).
+    for name, (plain, g_wall, e_wall, card_ms) in slam_eager.items():
+        e_dev = _device_ms(plain, reps=2)
+        print(f"one {name} (phase 9's first; upload and readback included), eager: wall "
+              f"{e_wall:.3f} ms, device {_shown(e_dev)}, card busy {_busy(e_dev, e_wall)}; "
+              f"captured (phase 18a): wall {g_wall:.3f} ms, card {card_ms:.3f} ms a replay  "
+              f"[{smi}]")
     # The assembly kernel at the main path's shapes and at a large graph's:
     # one Gauss-Newton iteration's H and g; bound by the bytes of the terms,
     # the plan and H.

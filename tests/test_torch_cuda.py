@@ -180,6 +180,27 @@ def test_match_kernel_equal(dev, n, m, guided):
         assert torch.equal(g, w.to(g.dtype)), name
 
 
+def test_match_scratch_growth_keeps_captured_graphs_right(dev):
+    """K2's merge counters and column codes are one scratch buffer a
+    device, which a larger launch replaces.  A graph captured before keeps
+    the old address: after the growth, and after new tensors have taken
+    whatever memory was freed, its replays still equal the plain version."""
+    from tinyslam_tpu_torch.utils.cuda_graph import Program
+
+    case = _match_case(11, 2048, 8192, True, dev)
+    prog = Program(lambda s: match_cuda.match_reduce(**s, radius_px=20.0), case, dev)
+    counters, colcode = match_cuda._SCRATCH[dev if dev.index is not None
+                                            else torch.device("cuda", 0)]
+    match_cuda._scratch(counters.device, 2 * counters.numel(), 2 * colcode.numel())
+    filler = [torch.full((1 << 20,), 7, dtype=torch.int32, device=dev) for _ in range(64)]
+    want = hamming.match_reduce_plain(**case, radius_px=20.0)
+    for _ in range(3):
+        got = prog(case)
+        for name, g, w in zip(("best", "second", "idx_b", "col_idx"), got, want):
+            assert torch.equal(g, w.to(g.dtype)), name
+    del filler
+
+
 @pytest.mark.parametrize("n,m,guided,radius", [(2048, 2048, False, 0.0),
                                                (2048, 8192, True, 8.0),
                                                (2048, 8192, True, 32.0),
@@ -303,6 +324,40 @@ def test_pose_graph_assembly_bit_equal(dev, kind):
     assert scatter_cuda.LAUNCHES == before + 51
     for H, g in runs[1:]:
         assert torch.equal(H, runs[0][0]) and torch.equal(g, runs[0][1])
+
+
+@pytest.mark.parametrize("iters", [1, 20])
+def test_device_loop_capture_equals_eager(dev, iters):
+    """A Gauss-Newton-like loop (an assembly launch a turn) captured as one
+    WHILE node: a replay equals the eager loop bit for bit, twice over
+    (the carry restarts from the inputs at each replay), the loop's
+    counter reads ``iters`` turns, and the program adds the assembly's
+    launches of every turn to the counters."""
+    from tinyslam_tpu_torch.backend.pose_graph import assembly_plan, normal_terms
+    from tinyslam_tpu_torch.ops import scatter_cuda
+    from tinyslam_tpu_torch.utils.cuda_graph import Program, device_loop
+
+    n, D, r, Ji, Jj, w, bi, bj = P.dense_graph_terms("sim3")
+    plan = assembly_plan(bi.to(dev), bj.to(dev), n, D)
+    vals = normal_terms(r, Ji, Jj, w).to(dev)
+
+    def solve(s):
+        def step(x):
+            Hg = scatter_cuda.ordered_scatter_add(plan, vals * x[:1])
+            x = torch.tanh(x * 0.5 + Hg[:x.numel()] * 1e-12)     # bounded, turn by turn
+            return x, x.sum()
+        return device_loop(iters, step, s["x"])
+
+    x0 = {"x": torch.linspace(0.5, 1.5, n * D, device=dev)}
+    want = solve(x0)
+    prog = Program(solve, x0, dev)
+    assert tuple(prog.captured.base) == (0, 0, iters)
+    before = scatter_cuda.LAUNCHES
+    for _ in range(2):
+        got = prog(x0)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert [int(t) for t in prog.captured.turns] == [iters]
+    assert scatter_cuda.LAUNCHES == before + 2 * iters
 
 
 # Segment lengths of the order-fixed scatter's cases: (slot, length).  The
@@ -554,6 +609,53 @@ def test_device_slam_card_matches_cpu(dev):
     dc = np.linalg.norm(gpu.positions - cpu.positions, axis=1)
     assert ate_rmse(gpu.positions[b0:], gt[b0:]) == pytest.approx(
         ate_rmse(cpu.positions[b0:], gt[b0:]), abs=1e-3), dc.round(4).tolist()
+
+
+def test_slam_stage_replays_equal_their_eager_runs(dev, monkeypatch):
+    """The SLAM layer's ingests, probes and solves on the card, each one
+    replay of its captured program and one readback, over the run of
+    ``test_device_slam_card_matches_cpu``: every output equal bit for bit
+    to the eager function's on the same inputs; no sync in a load and
+    replay, one (the readback) in a stage call; the launch counters
+    advanced by the program's launches (K2 once an ingest, 1 + C a probe,
+    the assembly once an iteration of a solve)."""
+    from tinyslam_tpu_torch.bench import _with_sync_count
+    from tinyslam_tpu_torch.models import slam as sm
+    from tinyslam_tpu_torch.ops import scatter_cuda
+
+    tcfg = P.torch_config(keyframes=True)
+    tcfg = dataclasses.replace(tcfg, pose_graph=dataclasses.replace(tcfg.pose_graph,
+                                                                    loop_min_gap=3))
+    cam = PinholeCamera.create(**P.CAMERA)
+    frames, _, _ = P.orbit(22)
+    frames = frames + frames[-2::-1]
+    calls = {k: [] for k in ("kf_ingest", "loop_probe", "solve_graph")}
+    real = {k: getattr(sm, k) for k in calls}
+
+    def counted(name):
+        def wrapper(*args):
+            k = (match_cuda.LAUNCHES, scatter_cuda.LAUNCHES)
+            out = real[name](*args)
+            calls[name].append((args, out, match_cuda.LAUNCHES - k[0],
+                                scatter_cuda.LAUNCHES - k[1]))
+            return out
+        return wrapper
+
+    for k in calls:
+        monkeypatch.setattr(sm, k, counted(k))
+    slam = sm.DeviceSlam(tcfg, cam, chunk=4, device=dev, sampler=Sampler(0))
+    slam.run(frames)
+    C = max(2, tcfg.pose_graph.loop_candidates)
+    assert slam.num_loop_closures >= 1 and all(len(v) for v in calls.values())
+    assert {(a, b) for *_, a, b in calls["kf_ingest"]} == {(1, 0)}
+    assert {(a, b) for *_, a, b in calls["loop_probe"]} == {(1 + C, 0)}
+    assert {(a, b) for *_, a, b in calls["solve_graph"]} == {(0, tcfg.pose_graph.gn_iters)}
+    for name, runs in calls.items():
+        for args, out, *_ in runs:
+            assert np.array_equal(out, real[name](*args, eager=True), equal_nan=True), name
+    for name, (args, *_) in ((k, v[0]) for k, v in calls.items()):
+        torch.cuda.synchronize()
+        assert _with_sync_count(lambda: real[name](*args))[1] == 1, name
 
 
 @pytest.mark.parametrize("kind", ["rgb_uint8", "rgb_float", "gray"])

@@ -4,9 +4,10 @@ package.
 
 ``device_cond`` called eagerly is a Python ``if`` on its predicate; under
 ``warm`` it runs both branches and returns the true one's result.  The
-``"reloc"`` stream of ``Sampler`` is a function of the seed and the frame
-alone.  ``track_chunk`` with those draws (the port's own, not the JAX
-package's) holds the JAX ``track_chunk`` at the tolerances of
+``"reloc"`` and ``"loop"`` streams of ``Sampler`` are functions of the
+seed and the key's number alone.  A captured program (the tracker's
+chunk, the SLAM layer's stages) is refused off the card.  ``track_chunk``
+with those draws (the port's own, not the JAX package's) holds the JAX ``track_chunk`` at the tolerances of
 ``tests/test_torch_reloc.py`` (a relocalization: the same tracking flag,
 matches and inliers within 2%, camera centres within 2 mm, rotations
 within 1e-3 rad) and of ``tests/test_torch_keyframes.py`` (keyframes with
@@ -35,8 +36,10 @@ from tinyslam_tpu_torch.models.vo_device import (
     VOState,
     track_chunk,
 )
-from tinyslam_tpu_torch.utils.cuda_graph import device_cond, tree_leaves, warm
-from tinyslam_tpu_torch.utils.draws import RELOC_STREAM, Sampler, keyed_uniform
+from tinyslam_tpu_torch.utils.cuda_graph import (
+    Program, device_cond, device_loop, tree_leaves, warm,
+)
+from tinyslam_tpu_torch.utils.draws import LOOP_STREAM, RELOC_STREAM, Sampler, keyed_uniform
 
 _COL = {name: i for i, name in enumerate(SUMMARY_FIELDS)}
 N_TRACKED = 15
@@ -102,6 +105,41 @@ def test_warm_runs_both_branches_and_returns_the_true_one():
         warm(lambda: device_cond(torch.tensor(True), lambda: (x,), lambda: (x, x)))
 
 
+def _loop_step(turns):
+    def step(carry):
+        turns.append(1)
+        x, k = carry
+        return (x * 0.5 + k, k + 1), (x * x).sum()
+    return step
+
+
+@pytest.mark.parametrize("iters", [1, 3, 20])
+def test_device_loop_is_a_python_loop(iters):
+    """Eagerly ``device_loop`` runs its step ``iters`` times, as the
+    reference's ``lax.scan``: the last carry and every turn's y, stacked."""
+    turns = []
+    carry = (torch.arange(4.0), torch.tensor(1.0))
+    (x, k), ys = device_loop(iters, _loop_step(turns), carry)
+    want_x, want_k, want_ys = carry[0], carry[1], []
+    for _ in range(iters):
+        want_ys.append((want_x * want_x).sum())
+        want_x, want_k = want_x * 0.5 + want_k, want_k + 1
+    assert len(turns) == iters and ys.shape == (iters,)
+    assert torch.equal(x, want_x) and torch.equal(k, want_k)
+    assert torch.equal(ys, torch.stack(want_ys))
+
+
+def test_warm_runs_one_turn_of_a_device_loop():
+    """Inside ``warm`` a loop runs one turn (what a capture records) and
+    keeps the ys' shape."""
+    turns = []
+    out = []
+    warm(lambda: out.append(device_loop(20, _loop_step(turns),
+                                        (torch.arange(4.0), torch.tensor(1.0)))))
+    (x, k), ys = out[0]
+    assert len(turns) == 1 and ys.shape == (20,) and float(k) == 2.0
+
+
 def test_tree_leaves_orders_dataclasses_and_dict_keys():
     state = VOState.empty(P.torch_config())
     leaves = tree_leaves({"b": state, "a": (torch.zeros(1), [torch.ones(2)])})
@@ -114,6 +152,25 @@ def test_chunk_graph_needs_the_card():
     state = VOState.empty(cfg)
     with pytest.raises(ValueError, match="on the card"):
         ChunkGraph(P.cameras()[1], cfg, state, torch.zeros((120, 160)), Sampler(0))
+
+
+def test_slam_programs_need_the_card():
+    """A captured program built for the CPU is refused, and the SLAM layer
+    asked for the card where there is none raises: nothing falls back to
+    the eager functions or to the CPU."""
+    from tinyslam_tpu_torch.models.slam import DeviceSlam, Slam, solve_graph
+
+    with pytest.raises(ValueError, match="on the card"):
+        Program(lambda s: s["x"] + 1, {"x": torch.zeros(3)}, "cpu")
+    if torch.cuda.is_available():
+        return
+    cfg, cam = P.torch_config(), P.cameras()[1]
+    snap = (np.eye(3, dtype=np.float32)[None], np.zeros((1, 3), np.float32), [])
+    for build in (lambda: DeviceSlam(cfg, cam, chunk=4, device="cuda"),
+                  lambda: Slam(cfg, cam, device="cuda"),
+                  lambda: solve_graph(cfg, snap, "cuda")):
+        with pytest.raises((RuntimeError, AssertionError)):
+            build()
 
 
 # ---------------- keyed relocalization draws ----------------
@@ -136,6 +193,28 @@ def test_keyed_reloc_draws_ignore_what_was_drawn_before():
     assert not torch.equal(again, Sampler(4).uniform(shape, "cpu", key=("reloc", 9)))
     assert 0.0 <= float(again.min()) and float(again.max()) < 1.0
     assert abs(float(again.mean()) - 0.5) < 0.02
+
+
+def test_keyed_loop_draws_ignore_what_was_drawn_before():
+    """A loop candidate's draws depend on (seed, kf * 131 + old) alone, a
+    host int or a device scalar, and leave the call-order streams
+    (``two_view``, ``host_reloc``) where they were."""
+    shape = (8, 6)
+    n = 6 * 131 + 2
+    fresh = Sampler(5).uniform(shape, "cpu", key=("loop", n))
+    a, b = Sampler(5), Sampler(5)
+    a.uniform((16, 4), "cpu", key=("two_view", 3, "E"))
+    b.uniform((16, 4), "cpu", key=("two_view", 3, "E"))
+    a.uniform(shape, "cpu", key=("reloc", 4))
+    a.choice(torch.ones(40, dtype=torch.bool), shape, key=("loop", n + 1))
+    again = a.uniform(shape, "cpu", key=("loop", torch.tensor(6) * 131 + torch.tensor(2)))
+    assert torch.equal(fresh, again)
+    assert torch.equal(again, keyed_uniform(5, LOOP_STREAM, n, shape, "cpu"))
+    assert not torch.equal(again, keyed_uniform(5, RELOC_STREAM, n, shape, "cpu"))
+    assert not torch.equal(again, Sampler(6).uniform(shape, "cpu", key=("loop", n)))
+    for key in (("two_view", 9, "H"), ("host_reloc", 4)):
+        assert torch.equal(a.uniform((16, 4), "cpu", key=key),
+                           b.uniform((16, 4), "cpu", key=key))
 
 
 def test_keyed_draws_leave_the_other_streams_in_order():

@@ -123,13 +123,10 @@ def test_reanchor_landmarks_matches_jax(scaled):
     np.testing.assert_array_equal(got[~valid], X[~valid])
 
 
-@pytest.mark.parametrize("drift,offset", [(0.0, 0), (0.1, 1)], ids=["no drift", "drifted"])
-def test_loop_probe_matches_jax(scene, drift, offset):
-    """Two candidates (keyframes at frames 0 and 2, their snapshots ingested
-    at their own poses) probed from frame 8, at its pose or at a pose that
-    drifted (10% in translation, 0.01 rad), with a submap anchor offset of 0
-    or 1: the appearance, chain, inlier and scale-pair counts equal, the
-    old-gauge pose and the scale estimates within 2e-3."""
+def _probe_against_jax(scene, drift, offset, scalars):
+    """The probe of ``test_loop_probe_matches_jax`` in both packages, the
+    port's ids and offset as ints or (``scalars``) as tensors, as a captured
+    probe takes them from its static buffers."""
     feats, m = scene
     jcfg, tcfg = P.configs()
     jcam, tcam = P.cameras()
@@ -152,9 +149,11 @@ def test_loop_probe_matches_jax(scene, drift, offset):
     sampler = P.JaxSampler()
     old_t = Features.from_numpy({k: np.stack([feats[f][k] for f in OLD])
                                  for k in P.FEATURE_FIELDS})
+    ids = ((torch.tensor(old_ids), torch.tensor(offset), torch.tensor(kf_id)) if scalars
+           else (old_ids, offset, kf_id))
     rows = tslam._loop_probe(
-        tcam, Features.from_numpy(feats[CUR]), old_t, old_ids, T(old_X), T(old_ok), tmap,
-        offset, T(R_cur), T(t_cur), kf_id,
+        tcam, Features.from_numpy(feats[CUR]), old_t, ids[0], T(old_X), T(old_ok), tmap,
+        ids[1], T(R_cur), T(t_cur), ids[2],
         sampler, max_distance=mc.max_distance, ratio=mc.ratio,
         num_hypotheses=vo.reloc_hypotheses, pnp_iters=vo.pnp_iters, inlier_px=vo.pnp_inlier_px)
     got = tslam.unpack_probe(rows.numpy())
@@ -166,6 +165,48 @@ def test_loop_probe_matches_jax(scene, drift, offset):
     assert (want["num_inliers"] >= 20).all() and (want["n_scale_new"] > 0).all()
     for k in ("rmse", "R", "t", "s_e", "s_e_med"):
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=2e-3, err_msg=k)
+    return rows
+
+
+@pytest.mark.parametrize("drift,offset", [(0.0, 0), (0.1, 1)], ids=["no drift", "drifted"])
+def test_loop_probe_matches_jax(scene, drift, offset):
+    """Two candidates (keyframes at frames 0 and 2, their snapshots ingested
+    at their own poses) probed from frame 8, at its pose or at a pose that
+    drifted (10% in translation, 0.01 rad), with a submap anchor offset of 0
+    or 1: the appearance, chain, inlier and scale-pair counts equal, the
+    old-gauge pose and the scale estimates within 2e-3."""
+    _probe_against_jax(scene, drift, offset, scalars=False)
+
+
+@pytest.mark.parametrize("drift,offset", [(0.0, 0), (0.1, 1)], ids=["no drift", "drifted"])
+def test_loop_probe_with_device_scalars_matches_jax(scene, drift, offset):
+    """The probe with its keyframe id, candidate ids and anchor offset as
+    tensors, as the captured probe reads them on the card: the JAX package's
+    draws under the same keys, and ``test_loop_probe_matches_jax``'s
+    tolerances; and bit for bit the probe with ints under the port's own
+    keyed draws (``Sampler``), through ``loop_probe``, the stage."""
+    _probe_against_jax(scene, drift, offset, scalars=True)
+    feats, m = scene
+    _, tcfg = P.configs()
+    _, tcam = P.cameras()
+    old_t = Features.from_numpy({k: np.stack([feats[f][k] for f in OLD])
+                                 for k in P.FEATURE_FIELDS})
+    snaps = [tslam.unpack_ingest(tslam.kf_ingest(tcam, tcfg, Features.from_numpy(feats[f]),
+                                                 MapState.from_numpy(m), *_pose(f)))
+             for f in OLD]
+    old_X, old_ok = np.stack([x for x, _, _ in snaps]), np.stack([o for _, o, _ in snaps])
+    R_cur, t_cur = _pose(CUR, drift)
+    args = (tcam, Features.from_numpy(feats[CUR]), old_t)
+    tail = dict(max_distance=tcfg.matcher.max_distance, ratio=tcfg.matcher.ratio,
+                num_hypotheses=tcfg.vo.reloc_hypotheses, pnp_iters=tcfg.vo.pnp_iters,
+                inlier_px=tcfg.vo.pnp_inlier_px)
+    by_scalars = tslam._loop_probe(
+        *args, torch.tensor([0, 1]), T(old_X), T(old_ok), MapState.from_numpy(m),
+        torch.tensor(offset), T(R_cur), T(t_cur), torch.tensor(6), tslam.Sampler(3), **tail)
+    by_stage = tslam.loop_probe(tcam, tcfg, Features.from_numpy(feats[CUR]), old_t, [0, 1],
+                                old_X, old_ok, MapState.from_numpy(m), offset, R_cur, t_cur, 6,
+                                tslam.Sampler(3))
+    assert np.array_equal(by_scalars.numpy(), by_stage, equal_nan=True)
 
 
 def _snapshot(n: int, n_loops: int, seed: int = 0):
@@ -224,7 +265,7 @@ def test_solve_graph_matches_jax(sim3, n, caps, pads, monkeypatch):
         return real(R, t, *a, **kw)
 
     monkeypatch.setattr(tslam, solver, spy)
-    got = tslam.solve_graph(tcfg, snap, "cpu")
+    got = tslam.unpack_solve(tslam.solve_graph(tcfg, snap, "cpu"))
     want = jslam.Slam._solve_graph(types.SimpleNamespace(cfg=jcfg), snap)
     assert shapes == [pads]
     for g, w, name in zip(got, want, "Rts"):
@@ -234,6 +275,36 @@ def test_solve_graph_matches_jax(sim3, n, caps, pads, monkeypatch):
         np.testing.assert_array_equal(got[2], 1.0)
     else:       # the scale loop edge moved the scales off 1
         assert np.abs(got[2] - 1).max() > 0.02
+
+
+@pytest.mark.parametrize("sim3", [True, False], ids=["sim3", "se3"])
+@pytest.mark.parametrize("n,n_loops,pads", [(33, 97, (64, 256)), (32, 96, (32, 128))],
+                         ids=["just over 32 and 128", "at 32 and 128"])
+def test_solve_rows_at_padded_shapes_matches_jax(sim3, n, n_loops, pads):
+    """The captured solve's body (``_solve_rows`` over ``padded_graph``'s
+    static-shape tables) against the JAX package's ``_solve_graph``, with n
+    nodes and E edges just over a multiple of the padding and exactly at
+    one: the padded shapes, and R, t, s within
+    ``test_solve_graph_matches_jax``'s 1e-4."""
+    jcfg, tcfg = P.configs()
+    jcfg, tcfg = (dataclasses.replace(c, pose_graph=dataclasses.replace(c.pose_graph, sim3=sim3))
+                  for c in (jcfg, tcfg))
+    snap = _snapshot(n, n_loops)
+    tables, n_got = tslam.padded_graph(tcfg.pose_graph, snap)
+    assert n_got == n and (len(tables["R"]), len(tables["edge_i"])) == pads
+    assert tables["node_valid"].sum() == n and tables["edge_valid"].sum() == n - 1 + n_loops
+    rows = tslam._solve_rows(sim3, tcfg.pose_graph.gn_iters,
+                             {k: torch.from_numpy(v) for k, v in tables.items()}).numpy()
+    assert rows.shape == (pads[0], 13) and rows.dtype == np.float32
+    want = jslam.Slam._solve_graph(types.SimpleNamespace(cfg=jcfg), snap)
+    got = tslam.unpack_solve(rows[:n])
+    for g, w, name in zip(got, want, "Rts"):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=1e-4, err_msg=name)
+    # The padded nodes stay where the tables put them.
+    np.testing.assert_array_equal(rows[n:, :9], np.tile(np.eye(3, dtype=np.float32).reshape(9),
+                                                        (pads[0] - n, 1)))
+    assert np.array_equal(rows[n:, 9:], np.concatenate(
+        [np.zeros((pads[0] - n, 3)), np.ones((pads[0] - n, 1))], 1))
 
 
 def test_extend_solution_matches_jax():
@@ -348,7 +419,7 @@ def test_watchdog_resubmits_a_stuck_graph_solve(monkeypatch):
     _, tcfg = P.configs()
     _, tcam = P.cameras()
     R, t, edges = _snapshot(12, 2)
-    want = tslam.solve_graph(tcfg, (R, t, edges), "cpu")
+    want = tslam.unpack_solve(tslam.solve_graph(tcfg, (R, t, edges), "cpu"))
     entered, release = threading.Event(), threading.Event()
     real = tpg.edge_jacobians
 

@@ -12,7 +12,11 @@ accepts the same number of closures, and a solve that lands after the
 last frame rescales each frame tracked while it ran: the distance to its
 keyframe the raw one over the solve's scale (within 1e-4 relative), the
 live pose moved into the corrected gauge (centre within 1e-4); one that
-lags ``solve_lag_frames`` behind is waited for at the next boundary.
+lags ``solve_lag_frames`` behind is waited for at the next boundary.  A
+late correction is counted once on the frames tracked while it ran; a
+frame tracked after any correction landed, whose keyframe is older than
+the landing, carries that keyframe's correction twice in the synchronous
+run, as in the JAX package's (``corrected_trajectory``).
 ``tools/replay_closures.py``'s path:
 the port's run recorded by its ``ClosureRecorder``, every solve replayed
 by the JAX package's ``Slam._solve_graph`` and the port's ``solve_graph``
@@ -211,6 +215,101 @@ def test_async_solve_waited_for_once_it_lags_behind():
     assert [a - s for s, a in zip(submitted, applied)
             if a < len(FRAMES)] == [8] * len([a for a in applied if a < len(FRAMES)])
     assert applied[0] < len(FRAMES)
+
+
+def _landings(slam) -> list:
+    """Record, at each applied solve, the frames tracked and the keyframe
+    tables right after it."""
+    out, real = [], slam._apply_graph_result
+
+    def apply(*a):
+        n = len(slam.vo.trajectory)
+        real(*a)
+        out.append((n, [(R.copy(), t.copy()) for R, t in zip(slam.kf_R, slam.kf_t)]))
+
+    slam._apply_graph_result = apply
+    return out
+
+
+def test_late_correction_counts_once_where_a_landed_one_counts_twice(runs):
+    """The second closure's solve held on the worker until the frames after
+    its keyframe and before the next one are tracked (the first lands where
+    the synchronous run's does), against the synchronous run of the same
+    frames.  Held: each of those frames' corrected distance to its keyframe
+    is the raw one over the solve's scale, the correction once.  In the
+    synchronous run the same frames are tracked after the solve landed, in
+    the corrected map, while ``corrected_trajectory`` composes them with
+    their keyframe's raw pose from before it: each carries the keyframe's
+    correction a second time, by its move at the landing (3.7 cm here), as
+    the JAX package's run does (its centres equal the port's,
+    ``test_device_slam_trajectory_matches_jax``)."""
+    _, tcfg = _configs()
+    _, tcam = P.cameras()
+    sync = runs["torch"]
+    slam = DeviceSlam(tcfg, tcam, chunk=4, async_backend=True, device="cpu",
+                      sampler=P.JaxSampler())
+    slam.solve_lag_frames = 0                  # the first solve lands at once
+    release, seen, submits = threading.Event(), {}, []
+    real_solve, real_late, real_optimize = (slam._solve_on_worker, slam._landed_late,
+                                            slam._optimize_graph)
+
+    def optimize():
+        submits.append(len(slam.vo.trajectory))
+        if len(submits) == 2:
+            slam.solve_lag_frames = None
+        real_optimize()
+
+    def held(snap):
+        if len(submits) == 2:
+            release.wait(60.0)
+        return real_solve(snap)
+
+    def spy(snap, ext):
+        seen["raw"] = [(R.copy(), t.copy()) for R, t in slam.vo.trajectory]
+        out = real_late(snap, ext)
+        seen["W"] = out[1]
+        return out
+
+    slam._solve_on_worker, slam._landed_late, slam._optimize_graph = held, spy, optimize
+    # The synchronous run again, recording its landings.
+    again = DeviceSlam(tcfg, tcam, chunk=4, device="cpu", sampler=P.JaxSampler())
+    landed = _landings(again)
+    kf_frames = sorted(sync.kf_frame_of.values())
+    try:
+        for f in FRAMES:
+            slam.process_frame(f)
+            again.process_frame(f)
+            if len(submits) == 2 and len(slam.vo.trajectory) > min(
+                    g for g in kf_frames if g >= submits[1]):
+                release.set()
+        release.set()
+        slam.finalize()
+        again.finalize()
+    finally:
+        release.set()
+        slam.close()
+    assert np.array_equal(again.positions, sync.positions)
+    assert len(submits) == 2 and [n for n, _ in landed][0] == submits[0]
+    # The frames between the second closure's keyframe and the next one.
+    n2, tables = landed[1]
+    fk = max(g for g in kf_frames if g < n2)
+    k = kf_frames.index(fk)
+    frames = range(n2, min(g for g in kf_frames if g >= n2))
+    assert submits[1] == n2 and len(frames) >= 2
+    centre = lambda R, t: -R.T @ t                 # noqa: E731
+    raw, s_w = seen["raw"], float(seen["W"][2])
+    pos = slam.positions
+    for f in frames:
+        want = np.linalg.norm(centre(*raw[f]) - centre(*raw[fk])) / s_w
+        assert np.linalg.norm(pos[f] - pos[fk]) == pytest.approx(want, rel=1e-4, abs=1e-6)
+    traj = sync.vo.trajectory
+    moved = np.linalg.norm(centre(*traj[fk]) - centre(*tables[k]))
+    assert moved > 0.01
+    for f in frames:
+        R_rel = traj[f][0] @ tables[k][0].T
+        once = centre(R_rel @ sync.kf_R[k], R_rel @ sync.kf_t[k] + traj[f][1]
+                      - R_rel @ tables[k][1])
+        assert np.linalg.norm(sync.positions[f] - once) == pytest.approx(moved, abs=2e-3)
 
 
 def test_replay_closures_through_both_packages(runs):

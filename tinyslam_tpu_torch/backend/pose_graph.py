@@ -12,7 +12,8 @@ with the edge Jacobians at xi = 0, the dense (nD x nD) normal equations
 assembled by a scatter-add of D x D blocks (in a fixed order, on the card
 too: ``ops/scatter_cuda.py``), node 0 and invalid nodes held
 by identity blocks, and a Cholesky solve, for a fixed number of
-iterations with nothing read back to the host.
+iterations with nothing read back to the host (``device_loop``: inside a
+captured CUDA graph one step, run by a WHILE node).
 
 Two choices differ from the JAX package's mechanics, not its results:
 
@@ -52,6 +53,7 @@ from tinyslam_tpu_torch.ops.scatter_cuda import (
     ordered_scatter_add,
     scatter_plan,
 )
+from tinyslam_tpu_torch.utils.cuda_graph import device_loop
 
 
 def _identity(x):
@@ -190,8 +192,7 @@ def _gauss_newton(nodes: tuple, meas: tuple, edge_i, edge_j, edge_valid, edge_we
     held = torch.diag(1.0 - fr) + damping * torch.eye(n * D, dtype=dt, device=dev)
     plan = assembly_plan(ei, ej, n, D)
 
-    costs = []
-    for _ in range(iters):
+    def step(nodes):
         ni = tuple(x[ei] for x in nodes)
         nj = tuple(x[ej] for x in nodes)
         r, Ji, Jj = edge_jacobians(ni, nj, meas)
@@ -202,10 +203,13 @@ def _gauss_newton(nodes: tuple, meas: tuple, edge_i, edge_j, edge_valid, edge_we
         L, info = torch.linalg.cholesky_ex(Hm)
         dx = torch.cholesky_solve((g * fr)[:, None], L)[:, 0]
         dx = torch.where(torch.isfinite(dx) & (info == 0), dx, torch.zeros_like(dx))
-        nodes = compose_fn(*exp_fn(dx.view(n, D)), *nodes)
+        nodes = tuple(compose_fn(*exp_fn(dx.view(n, D)), *nodes))
         cost = (w_e * (r * r).sum(-1)).sum()
-        costs.append(preduce(cost) if reduce_cost else cost)
-    return nodes, torch.stack(costs)
+        return nodes, (preduce(cost) if reduce_cost else cost)
+
+    # The reference's lax.scan: a Python loop eagerly, one WHILE node whose
+    # body is one step inside a capture.
+    return device_loop(iters, step, tuple(nodes))
 
 
 def optimize_pose_graph(R, t, edge_i, edge_j, edge_R, edge_t, edge_valid,

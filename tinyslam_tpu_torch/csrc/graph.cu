@@ -19,6 +19,18 @@
 //   tinyslam_graph_if_end(body_stream)
 //     end that capture.
 //
+// The pose-graph solve's 20 Gauss-Newton steps are a lax.scan in the JAX
+// package (tinyslam_tpu/backend/pose_graph.py:144); the port captures one
+// step as the body of a WHILE node, which runs it while a device flag holds:
+//
+//   tinyslam_graph_while_begin(stream, pred, body_stream, handle_out)
+//     as tinyslam_graph_if_begin, with a WHILE node, the handle written to
+//     *handle_out;
+//   tinyslam_graph_while_end(body_stream, handle, pred)
+//     capture one launch of set_condition (the handle <- *pred, which the
+//     body has computed for the next turn) at the body's end, and end the
+//     body's capture.
+//
 // The caller launches the body's work on `body_stream` in between; bodies
 // nest (CUDA 12.4 and later), each on a stream of its own depth.  The one
 // kernel reads one byte and sets one word: it is bound by its launch, and
@@ -36,10 +48,12 @@ __global__ void set_condition(cudaGraphConditionalHandle handle, const bool* pre
   cudaGraphSetConditional(handle, taken ? 1u : 0u);
 }
 
-}  // namespace
-
-extern "C" int tinyslam_graph_if_begin(cudaStream_t stream, const void* pred, int negate,
-                                       cudaStream_t body_stream) {
+// Begin a conditional node of `type` on the capturing `stream`, its
+// condition set from *pred (negated where `negate`) just before it, and the
+// capture of its body on `body_stream`.
+int begin_conditional(cudaStream_t stream, const void* pred, int negate,
+                      cudaGraphConditionalNodeType type, cudaStream_t body_stream,
+                      cudaGraphConditionalHandle* handle_out) {
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
   const cudaGraphNode_t* deps = nullptr;
@@ -58,19 +72,47 @@ extern "C" int tinyslam_graph_if_begin(cudaStream_t stream, const void* pred, in
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
-  params.conditional.type = cudaGraphCondTypeIf;
+  params.conditional.type = type;
   params.conditional.size = 1;
   cudaGraphNode_t node;
   e = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
   if (e != cudaSuccess) return (int)e;
   e = cudaStreamUpdateCaptureDependencies(stream, &node, 1, cudaStreamSetCaptureDependencies);
   if (e != cudaSuccess) return (int)e;
+  if (handle_out != nullptr) *handle_out = handle;
   return (int)cudaStreamBeginCaptureToGraph(body_stream, params.conditional.phGraph_out[0],
                                             nullptr, nullptr, 0,
                                             cudaStreamCaptureModeThreadLocal);
 }
 
+}  // namespace
+
+extern "C" int tinyslam_graph_if_begin(cudaStream_t stream, const void* pred, int negate,
+                                       cudaStream_t body_stream) {
+  return begin_conditional(stream, pred, negate, cudaGraphCondTypeIf, body_stream, nullptr);
+}
+
 extern "C" int tinyslam_graph_if_end(cudaStream_t body_stream) {
   cudaGraph_t body;
   return (int)cudaStreamEndCapture(body_stream, &body);
+}
+
+extern "C" int tinyslam_graph_while_begin(cudaStream_t stream, const void* pred,
+                                          cudaStream_t body_stream,
+                                          unsigned long long* handle_out) {
+  cudaGraphConditionalHandle handle = 0;
+  const int e = begin_conditional(stream, pred, 0, cudaGraphCondTypeWhile, body_stream,
+                                  &handle);
+  *handle_out = (unsigned long long)handle;
+  return e;
+}
+
+extern "C" int tinyslam_graph_while_end(cudaStream_t body_stream, unsigned long long handle,
+                                        const void* pred) {
+  set_condition<<<1, 1, 0, body_stream>>>((cudaGraphConditionalHandle)handle,
+                                           static_cast<const bool*>(pred), 0);
+  const cudaError_t launched = cudaGetLastError();
+  cudaGraph_t body;
+  const cudaError_t ended = cudaStreamEndCapture(body_stream, &body);
+  return (int)(launched != cudaSuccess ? launched : ended);
 }

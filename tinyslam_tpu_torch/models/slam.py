@@ -17,7 +17,23 @@ keyframe that created it:  X' = S_anchor_new^-1 ( T_anchor_old X ).
 ``Slam`` runs over the host-stepped ``VisualOdometry``; ``DeviceSlam``
 over ``DeviceVO``, syncing keyframes at chunk boundaries.  Draws of the
 loop probe's PnP-RANSAC come from the tracker's ``Sampler`` under the key
-``("loop", kf_id * 131 + old_id)``.
+``("loop", kf_id * 131 + old_id)``, a hash of the sampler's seed and that
+number computed where the number lies (``utils/draws.py``).
+
+Each of the layer's three stages, ``kf_ingest``, ``loop_probe`` and
+``solve_graph``, is one jitted dispatch with one readback in the JAX
+package.  Each stage function here returns the stage's packed rows, read
+back once, and one function unpacks them (``unpack_ingest``,
+``unpack_probe``, ``unpack_solve``).  On the card a stage is one replay of
+a captured CUDA graph (``utils/cuda_graph.py:Program``, one a stage,
+shape, config and sampler seed, captured when a ``Slam`` is built or, for
+a solve's next padded shape, a few keyframes before a solve can need it,
+and kept for the process); elsewhere, or with ``eager=True``, the eager
+functions run (``_ingest_rows``, ``_loop_probe``, ``_solve_rows``), which
+are the plain versions.  The solve's 20 Gauss-Newton steps are one WHILE
+node of its graph (``device_loop``).  The ingest's and the probe's graphs
+share one memory pool; the solves', which the asynchronous back-end
+replays on its worker thread, another.
 """
 
 from __future__ import annotations
@@ -40,8 +56,17 @@ from tinyslam_tpu_torch.geometry.sim3 import sim3_compose, sim3_inverse, sim3_to
 from tinyslam_tpu_torch.models.vo import VisualOdometry, _match_to_map, nanmedian
 from tinyslam_tpu_torch.models.vo_device import KF_RING, DeviceVO
 from tinyslam_tpu_torch.ops.hamming import match_descriptors
+from tinyslam_tpu_torch.models.vo import MapState
 from tinyslam_tpu_torch.types import Features, descriptor_signs
+from tinyslam_tpu_torch.utils.cuda_graph import (
+    CAPTURE_LOCK,
+    Program,
+    indexed_device,
+    tree_leaves,
+)
 from tinyslam_tpu_torch.utils.draws import Sampler
+
+SIGNATURE_BITS = 256     # a keyframe's place-recognition signature
 
 # Per-candidate row of a probe's packed readback (float32; the counts are
 # exact below 2^24).
@@ -72,6 +97,21 @@ def _kf_ingest(cam: PinholeCamera, feats: Features, map_state, R: torch.Tensor,
     return map_state.X[i], ok & map_state.valid[i], _kf_signature(feats)
 
 
+def _ingest_rows(cam: PinholeCamera, feats: Features, map_state, R: torch.Tensor,
+                 t: torch.Tensor, max_distance: int, ratio: float) -> torch.Tensor:
+    """``_kf_ingest``'s outputs packed for one readback: X (3N), ok (N)
+    and the signature (256), float32."""
+    X, ok, sig = _kf_ingest(cam, feats, map_state, R, t, max_distance, ratio)
+    return torch.cat([X.reshape(-1), ok.to(torch.float32), sig])
+
+
+def unpack_ingest(rows) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """An ingest's rows on the host as X (N, 3), ok (N,), signature (256,)."""
+    rows = np.asarray(rows)
+    n = (rows.size - SIGNATURE_BITS) // 4
+    return rows[:3 * n].reshape(n, 3), rows[3 * n:4 * n] > 0.5, rows[4 * n:]
+
+
 def _reanchor_landmarks(X, anchor_kf, valid, R_old, t_old, R_new, t_new, s_new=None):
     """Move landmarks with their anchor keyframe's correction.
 
@@ -87,9 +127,9 @@ def _reanchor_landmarks(X, anchor_kf, valid, R_old, t_old, R_new, t_new, s_new=N
     return torch.where(valid[:, None], Xw, X)
 
 
-def _loop_probe(cam: PinholeCamera, cur: Features, old_feats: Features, old_ids: list[int],
+def _loop_probe(cam: PinholeCamera, cur: Features, old_feats: Features, old_ids,
                 old_lm_X: torch.Tensor, old_lm_valid: torch.Tensor, map_state,
-                anchor_offset: int, R_cur: torch.Tensor, t_cur: torch.Tensor, kf_id: int,
+                anchor_offset, R_cur: torch.Tensor, t_cur: torch.Tensor, kf_id,
                 sampler: Sampler, max_distance: int, ratio: float, num_hypotheses: int,
                 pnp_iters: int, inlier_px: float) -> torch.Tensor:
     """The loop-closure measurement of C candidates: for each, appearance
@@ -97,10 +137,14 @@ def _loop_probe(cam: PinholeCamera, cur: Features, old_feats: Features, old_ids:
     relative-scale estimates.
 
     old_feats: Features with a leading C; old_ids: their global keyframe
-    ids; old_lm_X (C, N, 3) / old_lm_valid (C, N): their association
-    snapshots; anchor_offset: the global id of the current submap's local
-    keyframe 0.  Returns the (C, len) float32 rows of ``PROBE_FIELDS``, on
-    the device: the caller reads them back once (``unpack_probe``)."""
+    ids (C ints or a (C,) integer tensor); old_lm_X (C, N, 3) /
+    old_lm_valid (C, N): their association snapshots; anchor_offset: the
+    global id of the current submap's local keyframe 0; kf_id: the current
+    keyframe's global id (each an int or a 0-d integer tensor: a captured
+    probe takes them from its static buffers, so that nothing reads them
+    on the host).  The candidates are unrolled, as in the reference.
+    Returns the (C, len) float32 rows of ``PROBE_FIELDS``, on the device:
+    the caller reads them back once (``unpack_probe``)."""
 
     def depth(R, t, X):
         return (X @ R.T + t)[..., 2]
@@ -161,45 +205,243 @@ def unpack_probe(rows) -> dict[str, np.ndarray]:
     return out
 
 
-def solve_graph(cfg: SlamConfig, snap, device) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Solve a snapshot (R_old (n, 3, 3), t_old (n, 3), edges) on
-    ``device``; returns the solved Sim(3) nodes (R, t, s) as numpy (with
-    ``cfg.pose_graph.sim3`` off the SE(3) solver runs and s is all ones).
+def padded_shape(pg, n: int, E: int) -> tuple[int, int]:
+    """The padded (nodes, edges) of a graph of n nodes and E edges: to
+    multiples of 32 and 128, capped at ``pg.max_nodes``/``max_edges``, as
+    the JAX package pads them against recompiles."""
+    return (max(min(-(-max(n, 1) // 32) * 32, pg.max_nodes), n),
+            max(min(-(-max(E, 1) // 128) * 128, pg.max_edges), E))
 
-    Nodes and edges are padded to multiples of 32 and 128 (capped at
-    ``max_nodes``/``max_edges``) and masked, as the JAX package pads them
-    against recompiles, so both solve the same system."""
-    pg = cfg.pose_graph
+
+def _blank_tables(n_pad: int, e_pad: int) -> dict[str, np.ndarray]:
+    """``padded_graph``'s tables of an (n_pad, e_pad) graph with every node
+    and edge masked."""
+    eye = lambda k: np.tile(np.eye(3, dtype=np.float32)[None], (k, 1, 1))  # noqa: E731
+    return {"R": eye(n_pad), "t": np.zeros((n_pad, 3), np.float32),
+            "s": np.ones(n_pad, np.float32), "edge_i": np.zeros(e_pad, np.int64),
+            "edge_j": np.zeros(e_pad, np.int64), "edge_R": eye(e_pad),
+            "edge_t": np.zeros((e_pad, 3), np.float32), "edge_s": np.ones(e_pad, np.float32),
+            "edge_weight": np.ones(e_pad, np.float32), "edge_valid": np.zeros(e_pad, bool),
+            "node_valid": np.zeros(n_pad, bool)}
+
+
+def padded_graph(pg, snap) -> tuple[dict[str, np.ndarray], int]:
+    """The solve's tables of a snapshot (R_old (n, 3, 3), t_old (n, 3),
+    edges), padded to ``padded_shape`` and masked, so that both packages
+    solve the same system and one captured solve serves every graph of its
+    padded shape.  Returns the tables (``_solve_rows``'s names) and n."""
     R_old, t_old, edges = snap
     n, E = len(R_old), len(edges)
-    n_pad = max(min(-(-max(n, 1) // 32) * 32, pg.max_nodes), n)
-    e_pad = max(min(-(-max(E, 1) // 128) * 128, pg.max_edges), E)
-    Rp = np.tile(np.eye(3, dtype=np.float32)[None], (n_pad, 1, 1))
-    tp = np.zeros((n_pad, 3), np.float32)
-    Rp[:n], tp[:n] = R_old, t_old
-    node_valid = np.arange(n_pad) < n
-    ei = np.zeros(e_pad, np.int64)
-    ej = np.zeros(e_pad, np.int64)
-    eR = np.tile(np.eye(3, dtype=np.float32)[None], (e_pad, 1, 1))
-    et = np.zeros((e_pad, 3), np.float32)
-    es = np.ones(e_pad, np.float32)
-    ew = np.ones(e_pad, np.float32)
+    tb = _blank_tables(*padded_shape(pg, n, E))
+    tb["R"][:n], tb["t"][:n] = R_old, t_old
     for k, e in enumerate(edges):
-        ei[k], ej[k], eR[k], et[k], es[k], ew[k] = e
-    ev = np.arange(e_pad) < E
-    T = lambda a: torch.from_numpy(a).to(device)   # noqa: E731
-    common = dict(edge_valid=T(ev), edge_weight=T(ew), node_valid=T(node_valid),
-                  iters=pg.gn_iters)
-    if pg.sim3:
-        out = optimize_pose_graph_sim3(T(Rp), T(tp), T(np.ones(n_pad, np.float32)),
-                                       T(ei), T(ej), T(eR), T(et), T(es), **common)
-        s = out["s"][:n]
+        (tb["edge_i"][k], tb["edge_j"][k], tb["edge_R"][k], tb["edge_t"][k], tb["edge_s"][k],
+         tb["edge_weight"][k]) = e
+    tb["edge_valid"][:E] = True
+    tb["node_valid"][:n] = True
+    return tb, n
+
+
+def _solve_rows(sim3: bool, iters: int, tb: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The pose-graph solve of ``padded_graph``'s tables (tensors on one
+    device): (n_pad, 13) float32 rows of the solved nodes, R (9), t (3), s
+    (with ``sim3`` off the SE(3) solver runs and s is one)."""
+    common = dict(edge_valid=tb["edge_valid"], edge_weight=tb["edge_weight"],
+                  node_valid=tb["node_valid"], iters=iters)
+    if sim3:
+        out = optimize_pose_graph_sim3(tb["R"], tb["t"], tb["s"], tb["edge_i"], tb["edge_j"],
+                                       tb["edge_R"], tb["edge_t"], tb["edge_s"], **common)
+        s = out["s"]
     else:
-        out = optimize_pose_graph(T(Rp), T(tp), T(ei), T(ej), T(eR), T(et), **common)
-        s = torch.ones(n, dtype=torch.float32, device=device)
-    packed = torch.cat([out["R"][:n].reshape(-1), out["t"][:n].reshape(-1), s]).cpu().numpy()
-    return (packed[:9 * n].reshape(n, 3, 3), packed[9 * n:12 * n].reshape(n, 3),
-            packed[12 * n:])
+        out = optimize_pose_graph(tb["R"], tb["t"], tb["edge_i"], tb["edge_j"], tb["edge_R"],
+                                  tb["edge_t"], **common)
+        s = torch.ones_like(tb["s"])
+    return torch.cat([out["R"].reshape(-1, 9), out["t"], s[:, None]], 1)
+
+
+def unpack_solve(rows) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A solve's (n, 13) rows on the host as the nodes' R (n, 3, 3), t (n,
+    3), s (n,)."""
+    rows = np.asarray(rows)
+    return (np.ascontiguousarray(rows[:, :9]).reshape(-1, 3, 3),
+            np.ascontiguousarray(rows[:, 9:12]), np.ascontiguousarray(rows[:, 12]))
+
+
+# ---------------- the stages: a captured program on the card ----------------
+_PROGRAMS: dict = {}
+_POOLS: dict = {}
+
+
+def _program_key(kind: str, params: tuple, inputs, device: torch.device) -> tuple:
+    return (kind, params, indexed_device(device),
+            tuple((tuple(x.shape), x.dtype) for x in tree_leaves(inputs)))
+
+
+def _program(kind: str, params: tuple, fn, inputs, device: torch.device) -> Program:
+    """The ``Program`` of ``fn`` for this stage, config (``params``), device
+    and input shapes, captured at first use (warmed on that call's inputs)
+    and kept for the process.  The solves share one memory pool, the
+    ingests and probes another: a solve may replay on the back-end's worker
+    while the main thread probes, and each stage reads its outputs back
+    before the next replay of its pool."""
+    device = indexed_device(device)
+    key = _program_key(kind, params, inputs, device)
+    program = _PROGRAMS.get(key)
+    if program is None:
+        with CAPTURE_LOCK:
+            if key not in _PROGRAMS:
+                pool = (device, kind == "solve")
+                if pool not in _POOLS:
+                    _POOLS[pool] = torch.cuda.graph_pool_handle()
+                _PROGRAMS[key] = Program(fn, inputs, device, pool=_POOLS[pool])
+            program = _PROGRAMS[key]
+    return program
+
+
+def _cpu_tensor(a, dtype=np.float32) -> torch.Tensor:
+    """A host array as a CPU tensor of ``dtype``."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype))
+
+
+def _ingest_params(cfg: SlamConfig) -> dict:
+    return dict(max_distance=cfg.matcher.max_distance, ratio=cfg.matcher.ratio)
+
+
+def _ingest_spec(cam: PinholeCamera, cfg: SlamConfig, feats: Features, map_state, R, t):
+    """``kf_ingest``'s program: (kind, params, body, inputs)."""
+    kw = _ingest_params(cfg)
+    inputs = {"feats": feats, "map": map_state, "R": _cpu_tensor(R), "t": _cpu_tensor(t)}
+    return ("ingest", (cam, tuple(kw.items())),
+            lambda s: _ingest_rows(cam, s["feats"], s["map"], s["R"], s["t"], **kw), inputs)
+
+
+def kf_ingest(cam: PinholeCamera, cfg: SlamConfig, feats: Features, map_state, R, t,
+              eager: bool = False) -> np.ndarray:
+    """A keyframe's association snapshot and signature (``_kf_ingest``) at
+    its pose (R, t numpy) as packed rows, read back once
+    (``unpack_ingest``).  On the card one replay of a captured program, or
+    with ``eager`` the eager function there; elsewhere the eager
+    function."""
+    dev = feats.desc.device
+    if dev.type == "cuda" and not eager:
+        spec = _ingest_spec(cam, cfg, feats, map_state, R, t)
+        rows = _program(*spec, dev)(spec[3])
+    else:
+        rows = _ingest_rows(cam, feats, map_state, _cpu_tensor(R).to(dev),
+                            _cpu_tensor(t).to(dev), **_ingest_params(cfg))
+    return rows.cpu().numpy()
+
+
+def _probe_params(cfg: SlamConfig) -> dict:
+    return dict(max_distance=cfg.matcher.max_distance, ratio=cfg.matcher.ratio,
+                num_hypotheses=cfg.vo.reloc_hypotheses, pnp_iters=cfg.vo.pnp_iters,
+                inlier_px=cfg.vo.pnp_inlier_px)
+
+
+def _probe_spec(cam: PinholeCamera, cfg: SlamConfig, cur: Features, old_feats: Features,
+                old_ids, old_lm_X, old_lm_valid, map_state, anchor_offset: int, R_cur, t_cur,
+                kf_id: int, sampler: Sampler):
+    """``loop_probe``'s program: (kind, params, body, inputs).  The ids and
+    the offset are device scalars in its static buffers, and the draws are
+    keyed on the device by the sampler's seed: one program a seed."""
+    kw = _probe_params(cfg)
+    inputs = {"cur": cur, "old": old_feats, "old_ids": _cpu_tensor(old_ids, np.int64),
+              "old_X": _cpu_tensor(old_lm_X), "old_ok": _cpu_tensor(old_lm_valid, np.bool_),
+              "map": map_state, "anchor_offset": torch.tensor(int(anchor_offset)),
+              "R": _cpu_tensor(R_cur), "t": _cpu_tensor(t_cur),
+              "kf_id": torch.tensor(int(kf_id))}
+
+    def probe(s):
+        return _loop_probe(cam, s["cur"], s["old"], s["old_ids"], s["old_X"], s["old_ok"],
+                           s["map"], s["anchor_offset"], s["R"], s["t"], s["kf_id"], sampler,
+                           **kw)
+
+    params = (cam, tuple(kw.items()), type(sampler), getattr(sampler, "seed", None))
+    return "probe", params, probe, inputs
+
+
+def loop_probe(cam: PinholeCamera, cfg: SlamConfig, cur: Features, old_feats: Features,
+               old_ids, old_lm_X, old_lm_valid, map_state, anchor_offset: int, R_cur, t_cur,
+               kf_id: int, sampler: Sampler, eager: bool = False) -> np.ndarray:
+    """``_loop_probe``'s (C, len) rows, read back once (``unpack_probe``):
+    the host's numbers (old_ids, the snapshots old_lm_X (C, N, 3) and
+    old_lm_valid (C, N), anchor_offset, R_cur, t_cur, kf_id) as numpy or
+    ints, the features and the map on the device.  On the card one replay
+    of a captured program, or with ``eager`` the eager function there with
+    the ids as ints; elsewhere the eager function."""
+    dev = cur.desc.device
+    if dev.type == "cuda" and not eager:
+        spec = _probe_spec(cam, cfg, cur, old_feats, old_ids, old_lm_X, old_lm_valid,
+                           map_state, anchor_offset, R_cur, t_cur, kf_id, sampler)
+        rows = _program(*spec, dev)(spec[3])
+    else:
+        T = lambda a, dtype=np.float32: _cpu_tensor(a, dtype).to(dev)   # noqa: E731
+        rows = _loop_probe(cam, cur, old_feats, [int(i) for i in old_ids], T(old_lm_X),
+                           T(old_lm_valid, np.bool_), map_state, int(anchor_offset), T(R_cur),
+                           T(t_cur), int(kf_id), sampler, **_probe_params(cfg))
+    return rows.cpu().numpy()
+
+
+def solve_graph(cfg: SlamConfig, snap, device, eager: bool = False) -> np.ndarray:
+    """Solve a snapshot (R_old (n, 3, 3), t_old (n, 3), edges) on
+    ``device``, padded by ``padded_graph``: the solved Sim(3) nodes' (n,
+    13) rows, read back once (``unpack_solve``; with ``cfg.pose_graph.sim3``
+    off the SE(3) solver runs and s is all ones).  On the card one replay
+    of the captured solve of the padded shape (``solve_program``) on the
+    current stream, or with ``eager`` the eager ``_solve_rows`` there;
+    elsewhere the eager function."""
+    pg = cfg.pose_graph
+    dev = torch.device(device)
+    tables, n = padded_graph(pg, snap)
+    inputs = {k: torch.from_numpy(v) for k, v in tables.items()}
+    if dev.type == "cuda" and not eager:
+        # A capture on another thread must not see this readback (and
+        # solves replay one at a time: they share the buffers of a shape).
+        with CAPTURE_LOCK:
+            return solve_program(pg, *padded_shape(pg, n, len(snap[2])), dev)(
+                inputs)[:n].cpu().numpy()
+    return _solve_rows(pg.sim3, pg.gn_iters, {k: v.to(dev) for k, v in inputs.items()}
+                       )[:n].cpu().numpy()
+
+
+def _solve_spec(pg, n_pad: int, e_pad: int):
+    """The solve's program at a padded shape: (kind, params, body, inputs),
+    the inputs every node and edge masked."""
+    inputs = {k: torch.from_numpy(v) for k, v in _blank_tables(n_pad, e_pad).items()}
+    return ("solve", (pg.sim3, pg.gn_iters),
+            lambda s: _solve_rows(pg.sim3, pg.gn_iters, s), inputs)
+
+
+def solve_captured(pg, n_pad: int, e_pad: int, device) -> bool:
+    """Whether the solve of this padded shape is captured on ``device``."""
+    kind, params, _, inputs = _solve_spec(pg, n_pad, e_pad)
+    return _program_key(kind, params, inputs, device) in _PROGRAMS
+
+
+def solve_program(pg, n_pad: int, e_pad: int, device) -> Program:
+    """The captured solve of a padded shape on the card, captured here on
+    first use (warmed on a graph with every node and edge masked)."""
+    return _program(*_solve_spec(pg, n_pad, e_pad), device)
+
+
+def capture_slam_programs(cam: PinholeCamera, cfg: SlamConfig, sampler: Sampler,
+                          device) -> None:
+    """Capture the layer's programs on the card before their first use,
+    without replaying them: the ingest and the probe at the config's shapes
+    (N features, the map's capacity, C candidates) and the solve of the
+    first padded shape, so that no stage pays a capture on the tracking
+    path."""
+    dev = indexed_device(device)
+    N, C = cfg.frontend.max_features, max(2, cfg.pose_graph.loop_candidates)
+    feats = Features.empty(N, dev)
+    stack = feats.map(lambda x: x.expand(C, *x.shape).clone())
+    map_state = MapState.empty(cfg.vo.max_map_points, dev)
+    eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    _program(*_ingest_spec(cam, cfg, feats, map_state, eye, zero), dev)
+    _program(*_probe_spec(cam, cfg, feats, stack, np.zeros(C, np.int64),
+                          np.zeros((C, N, 3), np.float32), np.zeros((C, N), bool), map_state,
+                          0, eye, zero, 0, sampler), dev)
+    solve_program(cfg.pose_graph, *padded_shape(cfg.pose_graph, 0, 0), dev)
 
 
 def _host(fn, *arrays) -> tuple[np.ndarray, ...]:
@@ -251,6 +493,9 @@ class Slam:
     # Frames after which tracking waits for an asynchronous solve (None:
     # never): 16 is half a second of a 30 Hz camera, about one solve.
     solve_lag_frames: int | None = 16
+    # Keyframes (and edges) ahead of the graph at which the next padded
+    # solve shape is captured on the card (``_capture_solve_ahead``).
+    solve_ahead: int = 4
 
     def __init__(self, cfg: SlamConfig, camera: PinholeCamera, async_backend: bool = False,
                  solve_timeout_s: float = 30.0, sampler: Sampler | None = None, *, device):
@@ -259,6 +504,8 @@ class Slam:
         self.sampler = Sampler() if sampler is None else sampler
         self.vo = self._make_tracker(torch.device(device))
         self.device = self.vo.device
+        if self.device.type == "cuda":
+            capture_slam_programs(camera, cfg, self.sampler, self.device)
         self.kf_store: list[Features] = []       # per-keyframe features
         # Per-keyframe feature -> landmark 3D snapshot (X (N, 3), ok (N,)),
         # frozen at creation: the loop probe's old gauge.  Snapshots ride
@@ -326,20 +573,17 @@ class Slam:
         # Freeze the keyframe's association snapshot against the map as it
         # is NOW, and its signature: one packed readback.
         with self._timed("kf_ingest"):
-            X, ok, sig = _kf_ingest(
-                self.camera, feats, self.vo.map, torch.from_numpy(self.kf_R[-1]).to(self.device),
-                torch.from_numpy(self.kf_t[-1]).to(self.device),
-                max_distance=self.cfg.matcher.max_distance, ratio=self.cfg.matcher.ratio)
-            n = X.shape[0]
-            packed = torch.cat([X.reshape(-1), ok.to(torch.float32), sig]).cpu().numpy()
-        self.kf_assoc.append((packed[:3 * n].reshape(n, 3), packed[3 * n:4 * n] > 0.5))
-        self.kf_signatures.append(packed[4 * n:])
+            X, ok, sig = unpack_ingest(kf_ingest(self.camera, self.cfg, feats, self.vo.map,
+                                                 self.kf_R[-1], self.kf_t[-1]))
+        self.kf_assoc.append((X, ok))
+        self.kf_signatures.append(sig)
         if kf_id > 0:
             Rp, tp = self.kf_R[kf_id - 1], self.kf_t[kf_id - 1]
             Re = self.kf_R[-1] @ Rp.T
             self.edges.append((kf_id - 1, kf_id, Re, self.kf_t[-1] - Re @ tp, 1.0,
                                float(edge_weight)))
             self._detect_loop(kf_id)
+        self._capture_solve_ahead()
 
     # ------------- loop closure -------------
     def _detect_loop(self, kf_id: int):
@@ -357,22 +601,16 @@ class Slam:
         if n_cand < C:                  # a fixed candidate count: pad by repeat
             cand = np.concatenate([cand, np.repeat(cand[:1], C - n_cand)])
         cand = [int(c) for c in cand]
-        dev = self.device
         old_stack = Features(**{
             f.name: torch.stack([getattr(self.kf_store[c], f.name) for c in cand])
             for f in dataclasses.fields(Features)})
         with self._timed("loop_probe"):
-            rows = _loop_probe(
-                self.camera, self.kf_store[kf_id], old_stack, cand,
-                torch.from_numpy(np.stack([self.kf_assoc[c][0] for c in cand])).to(dev),
-                torch.from_numpy(np.stack([self.kf_assoc[c][1] for c in cand])).to(dev),
-                self.vo.map, self._anchor_offset(),
-                torch.from_numpy(self.kf_R[kf_id]).to(dev),
-                torch.from_numpy(self.kf_t[kf_id]).to(dev), kf_id, self.sampler,
-                max_distance=self.cfg.matcher.max_distance, ratio=self.cfg.matcher.ratio,
-                num_hypotheses=self.cfg.vo.reloc_hypotheses, pnp_iters=self.cfg.vo.pnp_iters,
-                inlier_px=self.cfg.vo.pnp_inlier_px)
-            probe = unpack_probe(rows.cpu().numpy())
+            probe = unpack_probe(loop_probe(
+                self.camera, self.cfg, self.kf_store[kf_id], old_stack, cand,
+                np.stack([self.kf_assoc[c][0] for c in cand]),
+                np.stack([self.kf_assoc[c][1] for c in cand]), self.vo.map,
+                self._anchor_offset(), self.kf_R[kf_id], self.kf_t[kf_id], kf_id,
+                self.sampler))
         seen = set()
         for c, old in enumerate(cand):
             if old in seen:
@@ -424,6 +662,13 @@ class Slam:
             return
         snap = (np.stack(self.kf_R), np.stack(self.kf_t), list(self.edges))
         if self._worker is not None:
+            if self.device.type == "cuda":
+                # A padded shape not captured ahead (``_capture_solve_ahead``)
+                # is captured here, on the tracking thread: the worker only
+                # replays.
+                solve_program(self.cfg.pose_graph,
+                              *padded_shape(self.cfg.pose_graph, len(snap[0]), len(snap[2])),
+                              self.device)
             # Latest-wins: a newer snapshot contains every edge of an older one.
             self._submits.append((snap, len(self.vo.trajectory), self._submap()))
             self._worker.submit(lambda: (snap, self._solve_on_worker(snap)))
@@ -432,7 +677,26 @@ class Slam:
                 self._apply_graph_result(snap, self._solve_graph(snap))
 
     def _solve_graph(self, snap):
-        return solve_graph(self.cfg, snap, self.device)
+        return unpack_solve(solve_graph(self.cfg, snap, self.device))
+
+    def _capture_solve_ahead(self):
+        """On the card, capture the solve of the padded shape the graph
+        reaches within ``solve_ahead`` more keyframes and edges, before a
+        solve can need it: on the tracking thread (a capture makes every
+        thread's readbacks an error while it warms) and, with the
+        asynchronous back-end, only while no solve is in flight (a later
+        keyframe tries again)."""
+        if self.device.type != "cuda" or (self._worker is not None and self._worker.busy):
+            return
+        pg = self.cfg.pose_graph
+        n, E = len(self.kf_R), len(self.edges)
+        shapes = {padded_shape(pg, n, E),
+                  padded_shape(pg, n + self.solve_ahead, E + self.solve_ahead)}
+        shapes = [sh for sh in shapes if not solve_captured(pg, *sh, self.device)]
+        if shapes:
+            with self._timed("solve_capture"):
+                for sh in sorted(shapes):
+                    solve_program(pg, *sh, self.device)
 
     def _solve_on_worker(self, snap):
         if self._stream is None:

@@ -69,10 +69,17 @@ from tinyslam_tpu_torch.models.vo import (
     _track_pnp,
     _triangulate_and_insert,
 )
-from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
 from tinyslam_tpu_torch.ops.hamming import match_descriptors
 from tinyslam_tpu_torch.types import Features, from_numpy, row, set_row, to_numpy
-from tinyslam_tpu_torch.utils.cuda_graph import capture, device_cond, tree_leaves, warm
+from tinyslam_tpu_torch.utils.cuda_graph import (
+    CAPTURE_LOCK,
+    add_launches,
+    capture,
+    counters_kept,
+    device_cond,
+    tree_leaves,
+    warm_checked,
+)
 from tinyslam_tpu_torch.utils.draws import Sampler
 
 # Ring of per-keyframe features, slot kf_id % KF_RING; it must cover the
@@ -486,15 +493,6 @@ def track_chunk(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
 BRANCHES = ("track", "reloc", "reloc_global", "second_pass", "keyframe", "ba")
 
 
-def _launch_counters() -> tuple[int, int]:
-    return fast_cuda.LAUNCHES, match_cuda.LAUNCHES
-
-
-def _add_launches(launches) -> None:
-    fast_cuda.LAUNCHES += int(launches[0])
-    match_cuda.LAUNCHES += int(launches[1])
-
-
 class ChunkGraph:
     """``track_chunk`` on the card as replays of one captured
     ``track_step``, the counterpart of the JAX package's jitted
@@ -513,7 +511,7 @@ class ChunkGraph:
     and the image.  A failed capture raises.
 
     Each replay adds the launches of the graph outside its branches to
-    ``fast_cuda.LAUNCHES`` and ``match_cuda.LAUNCHES`` at once; ``tally``
+    the kernels' counters at once (``cuda_graph.add_launches``); ``tally``
     (int32, one slot a name of ``BRANCHES``, cumulative) counts on the
     device the branch bodies that ran, and ``account`` adds their launches
     once the caller has read it back with whatever else it reads.
@@ -537,21 +535,9 @@ class ChunkGraph:
         def warm_step():
             track_step(cam, cfg, _tree_map(torch.clone, state), self.image, sampler)
 
-        saved = _launch_counters()
-        try:
-            warm(warm_step, dev)
-            # Again, where any read back to the host raises: it would break
-            # the capture, and a capture broken midway leaves the device's
-            # graph objects in a state that is not safe to destroy.
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                warm(warm_step, dev)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-            self.captured = capture(step, dev, BRANCHES, _launch_counters)
-        finally:
-            fast_cuda.LAUNCHES, match_cuda.LAUNCHES = saved
+        with CAPTURE_LOCK, counters_kept():
+            warm_checked(warm_step, dev)
+            self.captured = capture(step, dev, BRANCHES)
         self.summary = self.captured.outputs
         self.tally = self.captured.tally
         self._accounted = [0] * len(BRANCHES)
@@ -590,7 +576,7 @@ class ChunkGraph:
             Rs[c].copy_(self.static.R)
             ts[c].copy_(self.static.t)
         self.replays += n
-        _add_launches([n * k for k in self.captured.base])
+        add_launches([n * k for k in self.captured.base])
         return _tree_map(torch.clone, self.static), {"R": Rs, "t": ts, "summary": summaries}
 
     def account(self, tally) -> dict[str, int]:
@@ -600,8 +586,8 @@ class ChunkGraph:
         runs = {name: int(v) - a for name, v, a in zip(BRANCHES, tally, self._accounted)}
         self._accounted = [int(v) for v in tally]
         for name, k in runs.items():
-            per = self.captured.body_launches.get(name, (0, 0))
-            _add_launches([k * x for x in per])
+            per = self.captured.body_launches.get(name, (0, 0, 0))
+            add_launches([k * x for x in per])
         return runs
 
 

@@ -56,6 +56,8 @@ _SIGNATURES = {
     ],
     "tinyslam_graph_if_begin": [_P, _P, _I, _P],   # stream, pred, negate, body stream
     "tinyslam_graph_if_end": [_P],                 # body stream
+    "tinyslam_graph_while_begin": [_P, _P, _P, _P],  # stream, pred, body stream, handle out
+    "tinyslam_graph_while_end": [_P, ctypes.c_ulonglong, _P],  # body stream, handle, pred
     "tinyslam_cuda_error_string": [_I],
 }
 

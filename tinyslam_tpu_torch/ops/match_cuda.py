@@ -45,6 +45,7 @@ _INT32_MAX = 2**31 - 1
 ROW_TILE, COL_TILE = 128, 64       # csrc/match.cu: BM, BN
 MAX_TPS = 16                       # csrc/match.cu: MAX_TPS, column tiles a slice
 _SCRATCH: dict = {}                # per device: the kernel's counters and column codes
+_RETIRED: list = []                # scratch a larger one replaced (see _scratch)
 _OCCUPANCY: dict = {}              # per (device, mode): SMs, CTAs resident an SM
 
 
@@ -198,11 +199,16 @@ def _scratch(dev: torch.device, n_counters: int, m: int):
     slice of each a sequence): set (0, INT_MAX) once when allocated, and
     every launch returns the entries it used to those values.  Launches on
     one device run in stream order (the port issues K2 on the current
-    stream only), so one pair of buffers serves them all."""
+    stream only), so one pair of buffers serves them all.  A buffer that a
+    larger one replaces stays allocated for the process: a captured CUDA
+    graph replays its launches with the addresses it was captured with, and
+    freed memory would be handed to other tensors."""
     counters, colcode = _SCRATCH.get(dev, (None, None))
     if counters is None or counters.numel() < n_counters:
+        _RETIRED.append(counters)
         counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32, device=dev)
     if colcode is None or colcode.numel() < m:
+        _RETIRED.append(colcode)
         colcode = torch.full((max(m, 8192),), _INT32_MAX, dtype=torch.int32, device=dev)
     _SCRATCH[dev] = counters, colcode
     return counters, colcode

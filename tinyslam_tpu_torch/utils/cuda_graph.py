@@ -1,6 +1,8 @@
-"""Data-dependent branches that a captured CUDA graph can hold: the
-counterpart of ``lax.cond`` (``device_cond``), and the capture of a step
-whose branches become conditional nodes (``capture``).
+"""Data-dependent branches and loops that a captured CUDA graph can hold:
+the counterparts of ``lax.cond`` (``device_cond``) and of a ``lax.scan``
+of fixed length (``device_loop``), the capture of a step whose branches
+and loops become conditional nodes (``capture``), and a function over
+static buffers captured whole (``Program``).
 
 ``device_cond(pred, true_fn, false_fn, operands)`` runs in one of three
 ways, chosen by what surrounds the call:
@@ -24,16 +26,27 @@ Both branches return the same structure (tensors in tuples, lists, dicts
 and dataclasses) with the same shapes and dtypes, as ``lax.cond`` wants.
 A branch may be named: during a capture each named body adds one to its
 slot of a device tally when it runs, and the capture records the kernel
-launches each body made (counted by ``counters`` while it was captured,
-its nested bodies excluded), so that a caller can keep the kernels'
-Python launch counters true under replays: a replay makes no Python call.
+launches each body made (counted by ``launch_counters`` while it was
+captured, its nested bodies excluded), so that a caller can keep the
+kernels' Python launch counters true under replays: a replay makes no
+Python call (``add_launches``).
+
+``device_loop(iters, step, carry)`` runs ``carry, y = step(carry)``
+``iters`` times and returns the last carry and the ys stacked: eagerly a
+Python loop (the plain version); inside ``warm`` one turn; inside
+``capture`` one WHILE node whose body is one turn's capture, so that a
+capture records one turn however many it runs (a loop's body holds no
+branch, and no loop is nested in a branch).
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
+import ctypes
 import dataclasses
 import functools
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -93,11 +106,29 @@ def device_cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
     return mode.if_else(pred, true_fn, false_fn, operands, names)
 
 
+def device_loop(iters: int, step: Callable, carry):
+    """``iters`` turns of ``carry, y = step(carry)``; returns the last
+    carry and the ys stacked (iters, ...).  The carry keeps its structure,
+    shapes and dtypes from turn to turn.  See the module's docstring."""
+    mode = _MODE.get()
+    if mode is None:
+        ys = []
+        for _ in range(iters):
+            carry, y = step(carry)
+            ys.append(y)
+        return carry, torch.stack(ys)
+    if isinstance(mode, _Warm):
+        carry, y = mode.run(step, (carry,))
+        return carry, y[None].expand(iters, *y.shape).clone()
+    return mode.loop(iters, step, carry)
+
+
 MAX_DEPTH = 4           # conditional nodes nested in one another
 
 
-def _indexed(device) -> torch.device:
-    """``device``, a card's with its index (streams are cached by it)."""
+def indexed_device(device) -> torch.device:
+    """``device``, a card's with its index (streams and graphs are cached
+    by it)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -105,9 +136,17 @@ def _indexed(device) -> torch.device:
 
 
 @functools.lru_cache(maxsize=None)
+def _graph_streams(device: torch.device) -> tuple:
+    """The stream a capture runs on, then the stream a body at each depth
+    is captured on (and warmed on), taken from PyTorch's pool together.
+    The pool hands its 32 streams out in turn, so a stream taken at each
+    capture would, after enough others, be a body's stream: a body's
+    capture would then begin on a stream already capturing."""
+    return tuple(torch.cuda.Stream(device) for _ in range(MAX_DEPTH + 1))
+
+
 def _body_streams(device: torch.device) -> tuple:
-    """The streams a body at each depth is captured on (and warmed on)."""
-    return tuple(torch.cuda.Stream(device) for _ in range(MAX_DEPTH))
+    return _graph_streams(device)[1:]
 
 
 class _Warm:
@@ -117,7 +156,7 @@ class _Warm:
     the capture."""
 
     def __init__(self, device):
-        dev = None if device is None else _indexed(device)
+        dev = None if device is None else indexed_device(device)
         self.streams = _body_streams(dev) if dev is not None and dev.type == "cuda" else None
         self.depth = 0
 
@@ -146,6 +185,61 @@ def warm(fn: Callable, device=None):
         _MODE.reset(token)
 
 
+# Held while a step is warmed under the sync check below and while a
+# ``Program`` is captured: PyTorch's sync debug mode is one setting for the
+# whole process, so a readback on another thread in that window would raise
+# there.  A thread that replays and reads back while a capture may be under
+# way on another (the SLAM back-end's worker) holds it around both.
+CAPTURE_LOCK = threading.RLock()
+
+
+def warm_checked(fn: Callable, device) -> None:
+    """``warm(fn, device)`` twice, the second time with every synchronizing
+    call an error: a step that reads the device back cannot be captured,
+    and a capture broken midway leaves the device's graph objects in a
+    state that is not safe to destroy.  Raises where ``fn`` synchronizes."""
+    warm(fn, device)
+    with CAPTURE_LOCK:
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            warm(fn, device)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+def launch_counters() -> tuple[int, int, int]:
+    """The Python launch counters of the port's kernels: K1
+    (``ops/fast_cuda.py``), K2 (``ops/match_cuda.py``) and the pose
+    graph's assembly (``ops/scatter_cuda.py``)."""
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
+
+    return fast_cuda.LAUNCHES, match_cuda.LAUNCHES, scatter_cuda.LAUNCHES
+
+
+def add_launches(launches) -> None:
+    """Add ``launches`` (one number a counter of ``launch_counters``) to
+    the kernels' counters."""
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
+
+    fast_cuda.LAUNCHES += int(launches[0])
+    match_cuda.LAUNCHES += int(launches[1])
+    scatter_cuda.LAUNCHES += int(launches[2])
+
+
+@contextlib.contextmanager
+def counters_kept():
+    """Restore the kernels' launch counters on leaving: launches made while
+    warming or capturing a step are none of the main path's."""
+    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
+
+    saved = launch_counters()
+    try:
+        yield
+    finally:
+        fast_cuda.LAUNCHES, match_cuda.LAUNCHES, scatter_cuda.LAUNCHES = saved
+
+
 def _route_thread_to_pool(index: int, pool) -> None:
     """Inside a capture into ``pool``: send every allocation of this
     thread, on any stream, to the pool.  A capture sends only those on
@@ -164,15 +258,17 @@ class _Recorder:
     """The state of one capture: the tally's slots, the launches of each
     named body, and the streams of the bodies."""
 
-    def __init__(self, names: tuple, counters: Callable, device: torch.device):
+    def __init__(self, names: tuple, device: torch.device):
         self.device = device
         self.streams = _body_streams(device)
         self.slots = {name: i for i, name in enumerate(names)}
         self.tally = torch.zeros(len(names), dtype=torch.int32, device=device)
-        self.counters = counters
         self.body_launches: dict[str, tuple] = {}
-        self.in_bodies = [0] * len(counters())   # launches inside the outermost bodies
+        self.in_bodies = [0] * len(launch_counters())  # launches inside the outermost bodies
+        self.in_loops = [0] * len(self.in_bodies)  # launches of the loops' later turns
+        self.turns: list[torch.Tensor] = []      # each loop's turn counter
         self._nested: list[list[int]] = []      # launches inside each open body's bodies
+        self._looping = False
 
     def _body(self, pred: torch.Tensor, negate: bool, name, make: Callable):
         """Capture ``make()`` into an IF node on ``pred`` (or its negation);
@@ -181,12 +277,14 @@ class _Recorder:
 
         if name is not None and name not in self.slots:
             raise KeyError(f"device_cond: no tally slot {name!r}")
+        if self._looping:
+            raise ValueError("device_cond: a branch inside a device_loop's body")
         depth = len(self._nested)
         if depth >= MAX_DEPTH:
             raise ValueError(f"device_cond: more than {MAX_DEPTH} nested conditions")
         lib = cuda_build.load_library()
         body = self.streams[depth]
-        start = self.counters()
+        start = launch_counters()
         cuda_build.check(lib.tinyslam_graph_if_begin(
             torch.cuda.current_stream(self.device).cuda_stream, pred.data_ptr(), int(negate),
             body.cuda_stream), "tinyslam_graph_if_begin")
@@ -202,7 +300,7 @@ class _Recorder:
             raise
         cuda_build.check(lib.tinyslam_graph_if_end(body.cuda_stream), "tinyslam_graph_if_end")
         inner = self._nested.pop()
-        total = [b - a for a, b in zip(start, self.counters())]
+        total = [b - a for a, b in zip(start, launch_counters())]
         own = tuple(t - i for t, i in zip(total, inner))
         if name is None and any(own):
             raise ValueError("device_cond: an unnamed branch launched kernels that no "
@@ -232,6 +330,53 @@ class _Recorder:
         self._body(pred, True, names[1], second)
         return _rebuild(out, iter(merged))
 
+    def loop(self, iters: int, step: Callable, carry):
+        """A WHILE node that runs one turn's capture ``iters`` times: the
+        carry lives in buffers that the body rewrites, the turn's y goes to
+        row ``turn`` of the ys, and the body's last launch sets the
+        condition for the next turn."""
+        from tinyslam_tpu_torch.ops import cuda_build
+
+        if self._nested or self._looping:
+            raise ValueError("device_loop: a loop inside a conditional body or a loop")
+        lib = cuda_build.load_library()
+        outer, body = torch.cuda.current_stream(self.device), self.streams[0]
+        state = [x.clone() for x in tree_leaves(carry)]
+        turn = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.turns.append(turn)
+        more = torch.full((), iters > 0, dtype=torch.bool, device=self.device)
+        handle = ctypes.c_ulonglong(0)
+        start = launch_counters()
+        cuda_build.check(lib.tinyslam_graph_while_begin(
+            outer.cuda_stream, more.data_ptr(), body.cuda_stream, ctypes.addressof(handle)),
+            "tinyslam_graph_while_begin")
+        self._looping = True
+        try:
+            with torch.cuda.stream(body):
+                new, y = step(_rebuild(carry, iter(state)))
+                new = tree_leaves(new)
+                _same_form(state, new)
+                # Taken from the outer stream's blocks: a block freed on the
+                # body's stream is one the next turn's temporaries reuse.
+                with torch.cuda.stream(outer):
+                    ys = torch.empty((iters, *y.shape), dtype=y.dtype, device=self.device)
+                ys.index_copy_(0, turn[None], y[None])
+                for dst, src in zip(state, new):
+                    dst.copy_(src)
+                turn.add_(1)
+                torch.lt(turn, iters, out=more)
+        except BaseException:
+            lib.tinyslam_graph_if_end(body.cuda_stream)     # the first error stands
+            raise
+        finally:
+            self._looping = False
+        cuda_build.check(lib.tinyslam_graph_while_end(body.cuda_stream, handle.value,
+                                                      more.data_ptr()),
+                         "tinyslam_graph_while_end")
+        turn_launches = [b - a for a, b in zip(start, launch_counters())]
+        self.in_loops = [x + (iters - 1) * t for x, t in zip(self.in_loops, turn_launches)]
+        return _rebuild(carry, iter(state)), ys
+
 
 _ABANDONED: list = []
 
@@ -256,9 +401,10 @@ def _abandon(graph, index: int, pool) -> None:
 class Captured:
     """A captured and instantiated graph, what ``fn`` returned while it was
     captured (tensors the replays rewrite), the tally, and the launches:
-    ``base`` those of the graph outside every conditional body (one set a
-    replay), ``body_launches[name]`` those of a named body (one set each
-    time it runs)."""
+    ``base`` those of a replay outside every branch's body (a loop's body
+    counted once a turn), ``body_launches[name]`` those of a named branch
+    (one set each time it runs), and ``turns``: each loop's turn counter,
+    on the device, as the last replay left it."""
 
     graph: torch.cuda.CUDAGraph
     outputs: object
@@ -269,23 +415,29 @@ class Captured:
     capture_s: float
     instantiate_s: float
     pool_bytes: int
+    turns: tuple = ()
 
 
-def capture(fn: Callable, device, names: tuple, counters: Callable) -> Captured:
-    """Capture ``fn()`` (on a side stream, after a synchronize) into a CUDA
-    graph whose ``device_cond``s are conditional nodes, and instantiate it.
-    ``counters()`` returns the kernels' Python launch counters (the capture
-    advances them once for every body; the caller restores them).  Raises
+def capture(fn: Callable, device, names: tuple, pool=None) -> Captured:
+    """Capture ``fn()`` (on a side stream, after a synchronize of the
+    whole device; hold ``CAPTURE_LOCK``) into a CUDA graph whose
+    ``device_cond``s are conditional nodes, and instantiate it.
+    The capture advances the kernels' launch counters once for every body;
+    the caller restores them (``counters_kept``).
+    ``pool`` is the memory pool of the graph's allocations
+    (``torch.cuda.graph_pool_handle()``; a new one if None):
+    graphs may share one only where they never run at the same time and
+    each one's outputs are read before another of them replays.  Raises
     where the capture fails: the caller never falls back to running ``fn``
     eagerly."""
-    dev = _indexed(device)
+    dev = indexed_device(device)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    pool = torch.cuda.graph_pool_handle()
-    rec = _Recorder(tuple(names), counters, dev)
-    stream = torch.cuda.Stream(dev)
+    pool = torch.cuda.graph_pool_handle() if pool is None else pool
+    rec = _Recorder(tuple(names), dev)
+    stream = _graph_streams(dev)[0]
     torch.cuda.synchronize(dev)
     reserved = torch.cuda.memory_reserved(dev)
-    start = counters()
+    start = launch_counters()
     t0 = time.perf_counter()
     token = _MODE.set(rec)
     try:
@@ -304,8 +456,64 @@ def capture(fn: Callable, device, names: tuple, counters: Callable) -> Captured:
     graph.instantiate()
     torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
-    base = tuple(b - a - i for a, b, i in zip(start, counters(), rec.in_bodies))
+    base = tuple(b - a - i + w for a, b, i, w in zip(start, launch_counters(), rec.in_bodies,
+                                                      rec.in_loops))
     return Captured(graph=graph, outputs=outputs, names=tuple(names), tally=rec.tally,
                     base=base, body_launches=dict(rec.body_launches), capture_s=t1 - t0,
                     instantiate_s=t2 - t1,
-                    pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
+                    pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
+                    turns=tuple(rec.turns))
+
+
+class Program:
+    """``fn(static)`` on the card as one captured CUDA graph with no
+    conditional node: the counterpart of one jitted dispatch of the JAX
+    package.  ``example`` (a tree of tensors as ``tree_leaves`` reads it)
+    gives the static input buffers their shapes and dtypes; each call
+    copies its inputs into them without blocking (host tensors through
+    pinned memory), replays once and returns the graph's outputs, which
+    the next replay rewrites: the caller reads them back at once.
+
+    Built by warming ``fn`` twice, the second time with any sync an error
+    (``warm_checked``), then capturing it into ``pool`` (see ``capture``).
+    A failed capture raises; nothing falls back to running ``fn`` eagerly.
+    A replay makes no Python call, so each adds the launches the capture
+    counted (``base``) to the kernels' counters.  ``example``'s values are
+    what the warm-up runs on.
+    """
+
+    def __init__(self, fn: Callable, example, device, pool=None):
+        dev = indexed_device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"Program: a device {dev}; a captured program runs on the card")
+        self.device = dev
+        self.static = _rebuild(example, iter([x.to(dev).clone() for x in tree_leaves(example)]))
+        with CAPTURE_LOCK, counters_kept():
+            warm_checked(lambda: fn(self.static), dev)
+            self.captured = capture(lambda: fn(self.static), dev, (), pool=pool)
+        self.outputs = self.captured.outputs
+        self.replays = 0
+
+    def load(self, inputs) -> None:
+        """Copy ``inputs`` (``example``'s structure) into the static
+        buffers without blocking."""
+        leaves = tree_leaves(inputs)
+        static = tree_leaves(self.static)
+        if len(leaves) != len(static):
+            raise ValueError(f"Program: {len(leaves)} inputs for {len(static)} buffers")
+        for dst, src in zip(static, leaves):
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"Program: an input {tuple(src.shape)} {src.dtype} for a "
+                                 f"buffer {tuple(dst.shape)} {dst.dtype}")
+            if src.device.type == "cpu" and not src.is_pinned():
+                src = src.pin_memory()
+            dst.copy_(src, non_blocking=True)
+
+    def __call__(self, inputs):
+        """The outputs of ``fn`` on ``inputs``: one load, one replay on the
+        current stream."""
+        self.load(inputs)
+        self.captured.graph.replay()
+        self.replays += 1
+        add_launches(self.captured.base)
+        return self.outputs

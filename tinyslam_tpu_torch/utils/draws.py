@@ -15,14 +15,15 @@ frame_idx)``) and ``("loop", kf_id * 131 + old_id)`` for the loop probe's
 PnP-RANSAC (``fold_in(PRNGKey(23), n)``).  A test's sampler can use the
 key to replay the JAX streams.
 
-The ``"reloc"`` stream is keyed, as the reference's is: its uniforms are a
-function of the sampler's seed and the frame number alone
-(``keyed_uniform``), computed on the device the frame number lies on from
-integer hashes, so the CPU and the card get the same bits, nothing reads
-the frame number back, and a captured CUDA graph computes each replay's
-own draws.  A frame's draws do not depend on what was drawn before it,
-and both attempts of one relocalization draw the same uniforms, as the
-reference hands one key to both.  The other streams draw in call order on
+The ``"reloc"`` and ``"loop"`` streams are keyed, as the reference's
+are: their uniforms are a function of the sampler's seed, the stream and
+the key's number alone (``keyed_uniform``), computed on the device the
+number lies on from integer hashes, so the CPU and the card get the same
+bits, nothing reads the number back, and a captured CUDA graph computes
+each replay's own draws.  A frame's or a candidate's draws do not depend
+on what was drawn before them, and both attempts of one relocalization
+draw the same uniforms, as the reference hands one key to both.  The
+other streams (``"two_view"``, ``"host_reloc"``) draw in call order on
 the CPU from the sampler's own ``torch.Generator`` (never the global one),
 so the CPU and the card see the same numbers for the same sequence of
 calls; for a CUDA target they are drawn into pinned memory and copied
@@ -37,6 +38,8 @@ from tinyslam_tpu_torch.geometry.ransac import sample_indices
 
 _M32 = 0xFFFFFFFF
 RELOC_STREAM = 17           # the reference's PRNGKey(17) of the relocalization
+LOOP_STREAM = 23            # the reference's PRNGKey(23) of the loop probe
+_KEYED = {"reloc": RELOC_STREAM, "loop": LOOP_STREAM}
 
 
 def _mul32(x, c: int):
@@ -77,8 +80,8 @@ def keyed_uniform(seed: int, stream: int, n, shape, device) -> torch.Tensor:
 
 
 class Sampler:
-    """Uniform draws: the ``"reloc"`` stream keyed by (seed, frame), the
-    others from a seeded CPU generator in call order."""
+    """Uniform draws: the ``"reloc"`` and ``"loop"`` streams keyed by
+    (seed, number), the others from a seeded CPU generator in call order."""
 
     def __init__(self, seed: int = 0):
         self.seed = int(seed)
@@ -87,8 +90,8 @@ class Sampler:
     def uniform(self, shape, device, key=None) -> torch.Tensor:
         """float32 uniforms in [0, 1) of ``shape`` on ``device``."""
         dev = torch.device(device)
-        if key is not None and key[0] == "reloc":
-            return keyed_uniform(self.seed, RELOC_STREAM, key[1], shape, dev)
+        if key is not None and key[0] in _KEYED:
+            return keyed_uniform(self.seed, _KEYED[key[0]], key[1], shape, dev)
         u = torch.rand(shape, generator=self.generator, pin_memory=dev.type == "cuda")
         return u.to(dev, non_blocking=True)
 

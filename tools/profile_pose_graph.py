@@ -4,7 +4,7 @@
 
 Builds a Sim(3) keyframe chain of ``--nodes`` poses on an arc (odometry
 edges with 1 cm of noise) and one loop edge at scale 1.3, as phase 9 of
-``chip_smoke.py`` solves it, and runs ``models/slam.py:solve_graph`` under
+``chip_smoke.py`` solves it, and runs ``models/slam.py:solve_graph`` eagerly under
 the default ``SlamConfig()`` (padded to 32 nodes and 128 edges, 20
 Gauss-Newton iterations).  Prints the wall time of the process's first
 solve and of three warm ones, the device time and kernel launches of one
@@ -21,6 +21,7 @@ solve beside this tree's in one call.
 from __future__ import annotations
 
 import argparse
+import inspect
 import sys
 import time
 from pathlib import Path
@@ -66,7 +67,6 @@ def main() -> None:
 
     import tinyslam_tpu_torch
     from tinyslam_tpu_torch import SlamConfig
-    from tinyslam_tpu_torch.models.slam import solve_graph
 
     dev = torch.device(args.device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -75,19 +75,19 @@ def main() -> None:
     for _ in range(4):
         sync()
         t0 = time.perf_counter()
-        solve_graph(cfg, snap, dev)
+        eager_solve(cfg, snap, dev)
         sync()
         wall.append((time.perf_counter() - t0) * 1e3)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     with profile(activities=acts) as prof:
-        solve_graph(cfg, snap, dev)
+        eager_solve(cfg, snap, dev)
         sync()
     ka = prof.key_averages()
     launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
     device_us = 0.0
     if dev.type == "cuda":      # device time from a trace of the kernels alone
         with profile(activities=[ProfilerActivity.CUDA]) as dprof:
-            solve_graph(cfg, snap, dev)
+            eager_solve(cfg, snap, dev)
             sync()
         device_us = sum(e.self_device_time_total for e in dprof.key_averages())
     if dev.type == "cuda":
@@ -104,16 +104,24 @@ def main() -> None:
     print(ka.table(sort_by="cpu_time_total", row_limit=15))
 
 
+def eager_solve(cfg, snap, dev):
+    """``solve_graph`` run eagerly, kernel by kernel, on ``dev`` (a tree
+    from before the captured solve has no ``eager`` and is always eager)."""
+    from tinyslam_tpu_torch.models.slam import solve_graph
+
+    kw = {"eager": True} if "eager" in inspect.signature(solve_graph).parameters else {}
+    return solve_graph(cfg, snap, dev, **kw)
+
+
 def assembly_line(cfg, snap, dev) -> str:
     """The assembly kernel's and one ``index_add_``'s device time on the
     first Gauss-Newton iteration's terms of a solve of ``snap``."""
     import torch
 
     from chip_smoke import _FirstAssembly, _queued_ms, _smi
-    from tinyslam_tpu_torch.models.slam import solve_graph
 
     with _FirstAssembly() as assembly:
-        solve_graph(cfg, snap, dev)
+        eager_solve(cfg, snap, dev)
     (plan, vals), kernel = assembly.first, assembly.real
     kernel_us = _queued_ms(lambda: kernel(plan, vals)) * 1e3
     library_us = _queued_ms(lambda: torch.zeros(plan.size, dtype=vals.dtype, device=dev)

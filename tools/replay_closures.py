@@ -268,7 +268,8 @@ def replay(rec: dict, gt: np.ndarray, jax_cfg=None, torch_cfg=None) -> dict:
 
     snap = snapshot(rec)
     solved = {"card": tuple(dec(rec["solved"][k]) for k in "Rts"),
-              "port_cpu": tslam.solve_graph(torch_cfg or SlamConfig(), snap, "cpu"),
+              "port_cpu": tslam.unpack_solve(tslam.solve_graph(
+                  torch_cfg or SlamConfig(), snap, "cpu")),
               "reference": tuple(np.asarray(x) for x in jslam.Slam._solve_graph(
                   types.SimpleNamespace(cfg=jax_cfg or JaxSlamConfig()), snap))}
     traj = list(zip(dec(rec["raw_R"]), dec(rec["raw_t"])))

@@ -109,7 +109,6 @@ def main() -> None:
     import profile_pose_graph
     from chip_smoke import _FirstAssembly, _queued_ms, _smi
     from tinyslam_tpu_torch import SlamConfig
-    from tinyslam_tpu_torch.models.slam import solve_graph
     from tinyslam_tpu_torch.ops import scatter_cuda
 
     if not torch.cuda.is_available():
@@ -128,7 +127,8 @@ def main() -> None:
 
     for nodes in args.nodes:
         with _FirstAssembly() as assembly:
-            solve_graph(SlamConfig(), profile_pose_graph.snapshot(nodes), dev)
+            profile_pose_graph.eager_solve(SlamConfig(), profile_pose_graph.snapshot(nodes),
+                                           dev)
         plan, vals = assembly.first
         want = scatter_cuda.ordered_scatter_add(plan, vals)
         if not torch.equal(traced(plan, vals), want):
