@@ -165,23 +165,35 @@ Phases, in order; any failure raises and the script exits nonzero:
      over gloo with CUDA tensors (``chip_smoke.py --dist-rank``) running (c)
      and the edge-sharded (d) at world size 2: both ranks equal, within
      ``tests/test_torch_parallel.py``'s tolerances of world size 1;
- 13. B camera streams as one batch (``track_chunk_batch``) under the default
+ 13. (run right after phase 17, before any profiler: a profiler session
+     slows every later graph launch of the process) B camera streams as
+     one batch (``track_chunk_batch``) under the default
      ``SlamConfig()``: (a) 4 sequences seeded at orbit frames 0, 40, 80 and
      120, 32 frames each, sequence 3 from a stale pose (it relocalizes in
-     the batch), sequence 2's last 8 frames inactive: every active frame
+     the batch), sequence 2's last 8 frames inactive, a step at a time
+     through the captured ``BatchGraph`` in lockstep with the plain
+     ``track_step_batch``: every state tensor, R, t and summary of every
+     step bit-equal, the graph's branch runs (its tally, summed over rows)
+     and K1 and K2 launches equal to the plain step's; every active frame
      tracks, and each sequence against its own ``track_chunk`` on the card
      has equal tracking and keyframe flags, inliers within 2%, centres
-     within 2 mm and rotations within 1e-3 rad; (b) per step one K1 launch,
-     one K2 launch per guided pass of the tracking sequences plus the
-     relocalization's and keyframes' own, at most 3 syncs plus one a
-     keyframe and one a relocalization; (c) K1 at four thresholds over four
+     within 2 mm and rotations within 1e-3 rad; (b) per plain step one K1
+     launch, one K2 launch per guided pass plus the relocalization's and
+     keyframes' own, at most one sync a condition (2B + 1, plus one a
+     relocalization's fallback and one a keyframe's BA condition), and no
+     sync in any of the graph's steps; (c) K1 at four thresholds over four
      frames bit-equal to its plain version, K2 at B=4 and B=1, guided and
      unguided, exact; (d) aggregate tracked frames/s at B = 1, 2, 4 and 8
-     (orbit frames 0, 20, ..., 140, 24 frames each) batched against B
-     serial ``track_chunk`` runs; (e) ``entry()``'s step on the card: 256
-     landmarks, 0 matches, features within 1% of the JAX step's 1543; (f)
+     (orbit frames 0, 20, ..., 140, 24 frames each), three runs each of the
+     batched graph, B serial ``ChunkGraph`` runs and the plain batched
+     step, with each batched graph's capture and instantiation seconds and
+     pool bytes; (e) ``entry()``'s step on the card: 256 landmarks, 0
+     matches, features within 1% of the JAX step's 1543; (f)
      ``dryrun_multichip(1)`` on NCCL and ``dryrun_multichip(2)`` with two
-     gloo ranks sharing the card.  Phase 7 also times K1 and K2 at B=4;
+     gloo ranks sharing the card, stage 4 through the captured graph; (g,
+     run after phase 11 with 17f and 18c) one replay of the batched graph
+     traced at B = 1 and 8, its kernel time by name and span.  Phase 7
+     also times K1 and K2 at B=4;
  14. the accuracy eval: tools/eval_ate.py's fr1_loop-like sequence (a
      full-circuit handheld walk that returns to its start, 640x480 through
      the distorted fr1 camera) at ``N_LOOP`` frames, rendered by
@@ -192,7 +204,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      times per loop probe and at least once per tracked frame besides, the
      assembly kernel once an iteration of each closure's solve; the
      medians of the four inside the JAX reference's envelope over four key
-     offsets (``REF_LOOP_*``, as phase 10's);
+     offsets (``REF_LOOP_*``, as phase 10's); the four samplers replay one
+     chunk graph, one ingest and one probe program (no graph is keyed by a
+     seed), printed with their pool bytes;
  15. the error budget: ``tinyslam_tpu_torch.error_budget.budget_for_sequence``
      on phase 14's fr1_loop-like frames under ``Sampler(0)`` (VO with and
      without BA, then SLAM): every stage with the JAX tool's keys and finite
@@ -255,6 +269,8 @@ The second-to-last line is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -540,6 +556,30 @@ def _seeded(cfg, feats, room, cam, pose):
     return VOState.seeded(cfg, feats, X, R, t)
 
 
+def _same_bits(a, b) -> bool:
+    """Two tensors of one shape and dtype equal bit for bit (NaN included)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(ints), b.view(ints)
+    return torch.equal(a, b)
+
+
+def _named_leaves(tree, prefix: str = ""):
+    """(dotted field name, tensor) of a dataclass of tensors, in
+    ``tree_leaves`` order."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _named_leaves(getattr(tree, f.name), prefix + f.name + ".")
+    else:
+        yield prefix[:-1], tree
+
+
 def _with_sync_count(fn):
     """Run fn with PyTorch's sync debug mode on; returns (result, number of
     synchronizing CUDA calls it made), as the bench counts them."""
@@ -823,14 +863,17 @@ def _slam_replay_trace(records, dev, smi):
         want_turns = [pg.gn_iters] if name == "solve_graph" else []
         traced = (0, 0, 1) if name == "solve_graph" else want
         prog(inputs)
-        for attempt in range(3):    # a trace now and then comes back empty
+        # A trace now and then comes back empty, or without a WHILE body's
+        # kernels (a solve's trace of 348 kernel events, not ~585, in one
+        # of six runs): trace again, up to three times.
+        for attempt in range(3):
             with profiling.trace(REC_DIR / f"slam_trace_{name}", device=dev,
                                  cpu=False) as log_dir:
                 prog(inputs)
             events = [e for e in json.loads((log_dir / "trace.json").read_text())["traceEvents"]
                       if e.get("cat") == "kernel"]
             seen = tuple(sum(k in e.get("name", "") for e in events) for k in kernels)
-            if events:
+            if events and seen == traced:
                 break
         turns = [int(t) for t in prog.captured.turns]
         print(f"18c one {name} replay traced (attempt {attempt + 1}): {len(events)} kernel "
@@ -1872,6 +1915,49 @@ def _orbit_scene():
 
 _SUMMARY = (r"^frames=(\d+) tracked=(\d+) keyframes=(\d+) landmarks=(\d+) "
             r"fps=([\d.]+) loop_closures=(\d+)$")
+
+
+def _account_graphs() -> None:
+    """Read back the tally of every captured tracker graph and add its
+    bodies' launches to the kernels' counters now: replays that no
+    ``DeviceVO`` accounts (phase 13d's timed runs, 13g's trace) would
+    otherwise count in the next phase that accounts the same graph."""
+    from tinyslam_tpu_torch.models import vo_device as vd
+
+    for g in list(vd._GRAPHS.values()) + list(vd._BATCH_GRAPHS.values()):
+        g.account(g.tally.tolist())
+
+
+def _graph_replays() -> dict:
+    """The replays of every captured graph of the process so far: the
+    tracker's chunk graphs and batched graphs, the SLAM layer's programs."""
+    from tinyslam_tpu_torch.models import slam as sm
+    from tinyslam_tpu_torch.models import vo_device as vd
+
+    out = {("chunk",) + k: g for k, g in vd._GRAPHS.items()}
+    out.update({("batch",) + k: g for k, g in vd._BATCH_GRAPHS.items()})
+    out.update({("program",) + k: p for k, p in sm._PROGRAMS.items()})
+    return {k: (g, g.replays) for k, g in out.items()}
+
+
+def _graphs_of_phase(label: str, before: dict, smi) -> None:
+    """Print the graphs a phase replayed (kind, replays, pool bytes) and
+    how many graphs the process holds; fail where a phase's samplers took
+    more than one chunk graph, ingest or probe (no graph is keyed by a
+    seed; a solve is one graph a padded shape)."""
+    now = _graph_replays()
+    used = {k: (g, n - before.get(k, (g, 0))[1]) for k, (g, n) in now.items()
+            if n > before.get(k, (g, 0))[1]}
+    kinds = {}
+    for k, (g, n) in used.items():
+        kind = k[0] if k[0] != "program" else k[1]
+        kinds.setdefault(kind, []).append((n, g.captured.pool_bytes))
+    held = sum(g.captured.pool_bytes for g, _ in now.values())
+    print(f"{label}: graphs replayed (kind: [(replays, pool bytes)]) {kinds}; the process "
+          f"holds {len(now)} captured graphs, pools {held} B at capture  [{smi}]")
+    many = {kind: v for kind, v in kinds.items() if len(v) > 1 and kind != "solve"}
+    if many:
+        raise AssertionError(f"{label}: more than one graph of a kind: {many}")
 
 
 def _stage_program(name, args, dev):
@@ -3022,6 +3108,53 @@ def _dist_phase(frames, dev, smi, timed):
     return launches
 
 
+def _batch_replay_trace(cam, cases, dev, smi):
+    """Phase 13g: one replay of the batched graph traced at B = 1 and 8
+    (its first step of phase 13d's workload: the common path, keyframes
+    where the policy asks): kernel time by name, which sets the pace of
+    13d.  Run after phase 11 has traced, as 17f: the profiler slows this
+    process's later graph launches (a B = 8 replay's enqueue from 4.7 to
+    42 ms)."""
+    import json
+
+    from tinyslam_tpu_torch import SlamConfig
+    from tinyslam_tpu_torch.models import vo_device as vd
+    from tinyslam_tpu_torch.models.vo_device import VOState
+    from tinyslam_tpu_torch.utils import profiling
+    from tinyslam_tpu_torch.utils.draws import Sampler
+
+    cfg = SlamConfig()
+    for nb in (1, 8):
+        s_, im_, act_ = cases[nb]
+        samp = [Sampler(b) for b in range(nb)]
+        g = vd.batch_graph(cam, cfg, VOState.stack(s_), im_[:, 0], samp)
+        st = VOState.stack(s_)
+        g.track_chunk(st, im_[:, :1], act_[:, :1], samp)
+        for attempt in range(3):        # a trace now and then comes back empty
+            with profiling.trace(REC_DIR / f"batch_trace_{nb}", device=dev, cpu=False) as log_dir:
+                g.track_chunk(st, im_[:, :1], act_[:, :1], samp)
+            events = [e for e in json.loads((log_dir / "trace.json").read_text())["traceEvents"]
+                      if e.get("cat") == "kernel"]
+            if events:
+                break
+        by_name = {}
+        for e in events:
+            d, k = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (d + e["dur"], k + 1)
+        total = sum(d for d, _ in by_name.values())
+        span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+                if events else 0.0)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        print(f"phase 13g: one B={nb} replay traced (attempt {attempt + 1}): {len(events)} kernel "
+              f"events, {total / 1e3:.3f} ms of kernel time in a span of {span / 1e3:.3f} ms; "
+              f"longest by name: "
+              + "; ".join(f"{n[:70]} {k}x {d / 1e3:.3f} ms" for n, (d, k) in top)
+              + f"  [{smi}]")
+        if not events:
+            raise AssertionError(f"phase 13g: the B={nb} replay's trace holds no kernel")
+    _account_graphs()
+
+
 def _multiseq_phase(cam, room, poses, frames, dev, smi, timed):
     """Phase 13: B camera streams tracked as one batch
     (``track_chunk_batch``), the entry points and the dry run.  Returns the
@@ -3067,12 +3200,20 @@ def _multiseq_phase(cam, room, poses, frames, dev, smi, timed):
             active[padded, -MS_PAD:] = False
         return seeds, images, active
 
-    # (a) The main path: 4 sequences a step at a time, launches and syncs
-    # counted per step; each guided pass of the tracking sequences is one
-    # call of _track_rows, which must launch K2 once.
+    # (a) The main path: 4 sequences a step at a time through the captured
+    # BatchGraph (one replay a step), in lockstep with the plain batched
+    # step, each step's state, poses and summaries held bit for bit;
+    # launches and syncs counted per step on both.  Each guided pass of the
+    # plain step is one call of _track_rows, which must launch K2 once, and
+    # its decisions are counted by name as the graph's tally counts them.
+    from tinyslam_tpu_torch.models import vo as vo_mod
+    from tinyslam_tpu_torch.utils.cuda_graph import tree_leaves
+
     seeds, images, active = workload(MS_STARTS, MS_FRAMES, stale=MS_STALE, padded=MS_PADDED)
     B = len(seeds)
     real_rows, passes = vd._track_rows, []
+    real_conds = (vd.device_cond, vo_mod.device_cond)
+    taken = dict.fromkeys(vd.BATCH_BRANCHES, 0)
 
     def counted_rows(*a, **kw):
         k2 = match_cuda.LAUNCHES
@@ -3080,27 +3221,55 @@ def _multiseq_phase(cam, room, poses, frames, dev, smi, timed):
         passes.append(match_cuda.LAUNCHES - k2)
         return out
 
+    def counted_cond(pred, true_fn, false_fn, operands=(), names=(None, None)):
+        # The plain device_cond (one read of the predicate), its branch counted.
+        p = bool(pred)
+        name = names[0] if p else names[1]
+        if name is not None:
+            taken[name] += 1
+        return true_fn(*operands) if p else false_fn(*operands)
+
     samplers = [Sampler(b) for b in range(B)]
-    states = VOState.stack(seeds)
-    steps, outs = [], []
-    vd._track_rows = counted_rows
+    graph = vd.batch_graph(cam, cfg, VOState.stack(seeds), images[:, 0], samplers)
+    graph.account(graph.tally.tolist())
+    states = g_states = VOState.stack(seeds)
+    names = [n for n, _ in _named_leaves(states)]
+    steps, outs, g_syncs, diffs = [], [], [], []
+    e_k, g_k = [0, 0], [0, 0]
     torch.cuda.synchronize()
     fast_cuda.LAUNCHES = 0
     match_cuda.LAUNCHES = 0
-    try:
-        for c in range(MS_FRAMES):
-            k1, k2, n_pass = fast_cuda.LAUNCHES, match_cuda.LAUNCHES, len(passes)
+    for c in range(MS_FRAMES):
+        k1, k2, n_pass = fast_cuda.LAUNCHES, match_cuda.LAUNCHES, len(passes)
 
-            def step(states=states, c=c):
-                return track_step_batch(cam, cfg, states, images[:, c], active[:, c], samplers)
+        def step(states=states, c=c):
+            return track_step_batch(cam, cfg, states, images[:, c], active[:, c], samplers)
 
+        vd._track_rows, vd.device_cond, vo_mod.device_cond = counted_rows, counted_cond, \
+            counted_cond
+        try:
             (states, ys), syncs = _with_sync_count(step)
-            outs.append(ys)
-            steps.append((fast_cuda.LAUNCHES - k1, match_cuda.LAUNCHES - k2,
-                          passes[n_pass:], syncs))
-        torch.cuda.synchronize()
-    finally:
-        vd._track_rows = real_rows
+        finally:
+            vd._track_rows, (vd.device_cond, vo_mod.device_cond) = real_rows, real_conds
+        outs.append(ys)
+        steps.append((fast_cuda.LAUNCHES - k1, match_cuda.LAUNCHES - k2,
+                      passes[n_pass:], syncs))
+        e_k = [e_k[0] + fast_cuda.LAUNCHES - k1, e_k[1] + match_cuda.LAUNCHES - k2]
+        k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
+        (g_states, g_ys), k = _with_sync_count(
+            lambda g_states=g_states, c=c: graph.track_chunk(
+                g_states, images[:, c:c + 1], active[:, c:c + 1], samplers))
+        g_syncs.append(k)
+        g_k = [g_k[0] + fast_cuda.LAUNCHES - k1, g_k[1] + match_cuda.LAUNCHES - k2]
+        bad = [n for n, a, b in zip(names, tree_leaves(states), tree_leaves(g_states))
+               if not _same_bits(a, b)]
+        bad += [k for k in ("R", "t", "summary") if not _same_bits(ys[k], g_ys[k][:, 0])]
+        if bad:
+            diffs.append((c, bad))
+    k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
+    runs = graph.account(graph.tally.tolist())
+    g_k = [g_k[0] + fast_cuda.LAUNCHES - k1, g_k[1] + match_cuda.LAUNCHES - k2]
+    torch.cuda.synchronize()
     launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
                 "match_reduce_streaming": match_cuda.LAUNCHES}
     summ = torch.stack([y["summary"] for y in outs], 1).cpu().numpy()     # (B, C, 8)
@@ -3114,68 +3283,105 @@ def _multiseq_phase(cam, room, poses, frames, dev, smi, timed):
           f"each (sequence {MS_STALE} from a stale pose, sequence {MS_PADDED}'s last {MS_PAD} "
           f"inactive): tracked {int(tracking.sum())}/{int(active.sum())}, keyframes per "
           f"sequence {is_kf.sum(1).tolist()}, relocalizations at (sequence, frame) "
-          f"{[tuple(int(i) for i in x) for x in np.argwhere(was_lost)]}; launches {launches}")
+          f"{[tuple(int(i) for i in x) for x in np.argwhere(was_lost)]}; launches (plain step "
+          f"and graph) {launches}")
+    print(f"phase 13a: the captured BatchGraph against the plain step, {MS_FRAMES} steps in "
+          f"lockstep: every state tensor ({len(names)}), R, t and summary "
+          f"{'bit-equal at every step' if not diffs else f'DIFFERENT at {diffs[:3]}'}; branch "
+          f"runs (summed over rows) graph {runs}, plain {taken}; K1, K2 launches graph {g_k}, "
+          f"plain {e_k}  [{smi}]")
+    if diffs:
+        failures.append(f"13a: the graph and the plain step differ at (step, fields) {diffs[:3]}")
+    if runs != taken:
+        failures.append(f"13a: branch runs graph {runs}, plain {taken}")
+    if g_k != e_k:
+        failures.append(f"13a: K1, K2 launches graph {g_k}, plain {e_k}")
     if not tracking[active].all() or tracking[~active].any():
         failures.append(f"13a: tracked {tracking.tolist()} of active {active.tolist()}")
     if not was_lost[MS_STALE, 0]:
         failures.append("13a: the stale sequence did not relocalize at its first frame")
-    # (b) per step: K1 once, K2 once a guided pass plus the rare branches'
-    # own launches (a relocalization 1-2, a keyframe 5), syncs at most 3 +
-    # one a keyframe and one a relocalization.
+    # (b) per step of the plain version: K1 once, K2 once a guided pass plus
+    # the rare branches' own launches (a relocalization 1-2, a keyframe 5),
+    # syncs at most one a row's relocalization and keyframe condition, one
+    # for the second pass, and one a relocalization's global fallback and a
+    # keyframe's BA condition; the graph's replays none.
     worst = []
     for c, (k1, k2, pass_k2, syncs) in enumerate(steps):
         n_kf, n_rel = int(is_kf[:, c].sum()), int(was_lost[:, c].sum())
         rare = k2 - sum(pass_k2)
         if (k1 != 1 or not 1 <= len(pass_k2) <= 2 or any(p != 1 for p in pass_k2)
                 or not n_rel + 5 * n_kf <= rare <= 2 * n_rel + 5 * n_kf
-                or syncs > 3 + n_kf + n_rel):
+                or syncs > 2 * B + 1 + n_kf + n_rel):
             failures.append(f"13b: step {c}: K1 {k1}, K2 {k2} (guided passes {pass_k2}), "
                             f"{syncs} syncs, {n_kf} keyframes, {n_rel} relocalizations")
         worst.append(syncs - n_kf - n_rel)
-    print(f"phase 13b: per step K1 {sorted({s[0] for s in steps})}, guided passes (K2 each) "
-          f"{sorted({len(s[2]) for s in steps})}, K2 {[s[1] for s in steps]}, syncs "
-          f"{[s[3] for s in steps]} (at most {max(worst)} beyond keyframes and "
-          f"relocalizations)")
+    print(f"phase 13b: per step of the plain step K1 {sorted({s[0] for s in steps})}, guided "
+          f"passes (K2 each) {sorted({len(s[2]) for s in steps})}, K2 {[s[1] for s in steps]}, "
+          f"syncs {[s[3] for s in steps]} (at most {max(worst)} beyond keyframes and "
+          f"relocalizations: one a condition); the graph's steps (one replay each): syncs "
+          f"{g_syncs}  [{smi}]")
+    if any(g_syncs):
+        failures.append(f"13b: the graph's steps synchronized: {g_syncs}")
 
     # (a) each sequence against its own track_chunk on the card, and (d)
-    # aggregate tracked frames/s, batched against B serial runs.
-    def run_batched(seeds, images, active):
+    # aggregate tracked frames/s at B = 1, 2, 4 and 8, three runs each:
+    # the batched graph, B serial ChunkGraph runs (DeviceVO's path) and the
+    # plain batched step.
+    def clocked(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, ys = track_chunk_batch(cam, cfg, VOState.stack(seeds), images, active,
-                                  [Sampler(b) for b in range(len(seeds))])
+        out = fn()
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, ys
+        return time.perf_counter() - t0, out
+
+    def run_batched(seeds, images, active, graph):
+        return clocked(lambda: track_chunk_batch(
+            cam, cfg, VOState.stack(seeds), images, active,
+            [Sampler(b) for b in range(len(seeds))], graph=graph)[1])
 
     def run_serial(seeds, images, active):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ys = [track_chunk(cam, cfg, s, images[b], active[b], Sampler(b))[1]
-              for b, s in enumerate(seeds)]
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, ys
+        def run():
+            out = []
+            for b, s in enumerate(seeds):
+                g = vd.chunk_graph(cam, cfg, s, images[b, 0], Sampler(b))
+                out.append(g.track_chunk(s, images[b], active[b].tolist())[1])
+            return out
+        return clocked(run)
 
-    fps = {}
-    serial4 = None
+    fps, cases = {}, {}
+    modes = ("graph", "serial", "eager")
     for nb, starts, n in ((1, MS_STARTS[:1], MS_FRAMES), (2, MS_STARTS[:2], MS_FRAMES),
                           (4, MS_STARTS, MS_FRAMES), (8, MS8_STARTS, MS8_FRAMES)):
         if nb == 4:
             s_, im_, act_ = seeds, images, active
         else:
             s_, im_, act_ = workload(starts, n)
-        # Warm-up: the first call at a batch's shapes pays for cuBLAS and
-        # allocator set-up.
-        run_batched(s_, im_[:, :2], act_[:, :2])
+        cases[nb] = (s_, im_, act_)
+        # Warm-up: the first call at a batch's shapes captures its graph and
+        # pays for cuBLAS and allocator set-up.
+        run_batched(s_, im_[:, :2], act_[:, :2], True)
         run_serial(s_, im_[:, :2], act_[:, :2])
-        tb, _ = run_batched(s_, im_, act_)
-        ts_, ys_ = run_serial(s_, im_, act_)
-        if nb == 4:
-            serial4 = ys_
+        run_batched(s_, im_[:, :2], act_[:, :2], False)
         n_act = int(act_.sum())
-        fps[nb] = (n_act / tb, n_act / ts_)
-        print(f"phase 13d: B={nb} ({n_act} tracked frames): batched {fps[nb][0]:.2f} frames/s "
-              f"({1e3 * tb / act_.shape[1]:.1f} ms a step), {nb} serial track_chunk "
-              f"{fps[nb][1]:.2f} frames/s, batched/serial {fps[nb][0] / fps[nb][1]:.3f}  [{smi}]")
+        secs = {m: [] for m in modes}
+        for _ in range(3):
+            secs["graph"].append(run_batched(s_, im_, act_, True)[0])
+            secs["serial"].append(run_serial(s_, im_, act_)[0])
+            secs["eager"].append(run_batched(s_, im_, act_, False)[0])
+        _account_graphs()
+        fps[nb] = {m: sorted(n_act / x for x in v) for m, v in secs.items()}
+        med = {m: v[1] for m, v in fps[nb].items()}
+        g = vd._BATCH_GRAPHS[next(k for k in vd._BATCH_GRAPHS
+                                  if k[2] == tuple(im_[:, 0].shape))].captured
+        print(f"phase 13d: B={nb} ({n_act} tracked frames), frames/s of three runs: batched "
+              f"graph {[round(x, 2) for x in fps[nb]['graph']]}, {nb} serial ChunkGraph "
+              f"{[round(x, 2) for x in fps[nb]['serial']]}, batched plain step "
+              f"{[round(x, 2) for x in fps[nb]['eager']]}; medians graph/serial "
+              f"{med['graph'] / med['serial']:.3f}, graph/plain {med['graph'] / med['eager']:.3f}"
+              f"; the graph: capture + instantiation {g.capture_s + g.instantiate_s:.3f} s, pool "
+              f"{g.pool_bytes} B  [{smi}]")
+    _, serial4 = clocked(lambda: [track_chunk(cam, cfg, s, images[b], active[b], Sampler(b))[1]
+                                  for b, s in enumerate(seeds)])
     worst = {"centre_m": 0.0, "angle_rad": 0.0, "inliers_rel": 0.0}
     for b, ys in enumerate(serial4):
         s1 = ys["summary"].cpu().numpy()
@@ -3254,14 +3460,20 @@ def _multiseq_phase(cam, room, poses, frames, dev, smi, timed):
     for n, shape, backend in ((1, "(1, 2, 8)", "nccl"), (2, "(2, 2, 8)",
                                                         "gloo-cuda-2-ranks-on-1-card")):
         t0 = time.perf_counter()
-        line = dryrun_multichip(n)
-        print(f"phase 13f: dryrun_multichip({n}) in {time.perf_counter() - t0:.1f} s  [{smi}]")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            line = dryrun_multichip(n)
+        path = [x for x in printed.getvalue().splitlines() if x.startswith("track_chunk_dp:")]
+        print(f"phase 13f: dryrun_multichip({n}) in {time.perf_counter() - t0:.1f} s: {line}; "
+              f"{path}  [{smi}]")
         if f"tracked_summary_shape={shape} backend={backend} device=cuda" not in line:
             failures.append(f"13f: {line}")
+        if not path or "the captured BatchGraph" not in path[0]:
+            failures.append(f"13f: stage 4 did not run through the graph: {path}")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
     if failures:
         raise AssertionError("multi-sequence phase: " + "; ".join(failures))
-    return launches, fps, case4
+    return launches, fps, case4, cases
 
 
 def main() -> None:
@@ -3486,6 +3698,12 @@ def main() -> None:
     # compares the two paths' frames/s.
     graph_launches, graph_replay = _graph_phase(cam, frames, dev, smi, kf_run, boot_run)
 
+    # ---- 13. B sequences as one batch, entry() and the dry run ---------------
+    # Here, before any profiler has slowed this process's graph launches:
+    # 13d compares the batched graph's frames/s with serial graphs'.
+    ms_launches, _, case4, ms_cases = _multiseq_phase(cam, room, poses, frames, dev, smi,
+                                                      timed)
+
     # ---- 9. Sim(3) loop closure: DeviceSlam, the async back-end, Slam, CLI --
     slam_launches, pg_orbit, slam_records = _slam_phase(cam, poses, frames, dev, smi)
     assembly = [_assembly_check("phase 9 orbit", pg_orbit, smi)]
@@ -3504,15 +3722,16 @@ def main() -> None:
     _replay_trace(graph_replay, dev, smi)      # 17f
     del graph_replay
     _slam_replay_trace(slam_records, dev, smi)  # 18c
+    _batch_replay_trace(cam, ms_cases, dev, smi)  # 13g
+    del ms_cases
 
     # ---- 12. the distributed layer: mesh, frontend_dp, sharded BA and graphs --
     dist_launches = _dist_phase(frames, dev, smi, timed)
 
-    # ---- 13. B sequences as one batch, entry() and the dry run ---------------
-    ms_launches, _, case4 = _multiseq_phase(cam, room, poses, frames, dev, smi, timed)
-
     # ---- 14. the accuracy eval: fr1_loop-like under four samplers --------------
+    used = _graph_replays()
     loop_launches, loop_runs, pg_loop, loop_records = _loop_phase(dev, smi)
+    _graphs_of_phase("phase 14 (Sampler(0)-(3))", used, smi)
     assembly.append(_assembly_check("phase 14 fr1_loop", pg_loop, smi))
     _slam_graph_phase("phase 18b (phase 14's Sampler(0) stages)", loop_records, dev, smi,
                       timing=False)

@@ -24,7 +24,7 @@ from tinyslam_tpu_torch.frontend.orb import extract_features
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
 from tinyslam_tpu_torch.models.vo_device import DeviceVO, VOState, track_chunk
 from tinyslam_tpu_torch.ops import fast, fast_cuda, hamming, match_cuda
-from tinyslam_tpu_torch.utils.draws import Sampler
+from tinyslam_tpu_torch.utils.draws import Sampler, seed_word
 
 pytestmark = pytest.mark.cuda
 
@@ -825,3 +825,155 @@ def test_failed_capture_raises(dev):
     assert (fast_cuda.LAUNCHES, match_cuda.LAUNCHES) == k
     assert vo.stats == [] and int(vo.state.frame_idx) == int(seed.frame_idx)
     assert float(torch.ones(3, device=dev).sum()) == 3.0
+
+
+# ---------------- the batched tracker's captured step ----------------
+BATCH_FRAMES = 12
+
+
+def _batch_case(B: int, dev):
+    """(cfg, cam, states, images (B, C, H, W) on ``dev``, active (B, C)) on
+    ``_graph_case``'s orbit with the second pass wherever 15 or more inliers
+    seat: row 0 from a stale pose 0.6 rad off (the global fallback), row 1
+    0.02 rad off (the guided attempt), the others tracked; every row from
+    the seed at frame 0 with ``frames_since_kf`` 3, so that keyframes come
+    at once and the window BA by the third; row b's frames from 1 + b; the
+    last row's last 3 frames of 4 rows inactive (stale and padded rows)."""
+    from tinyslam_tpu_torch.geometry.se3 import so3_exp
+
+    cfg, cam, frames, seed = _graph_case(1_000_000)
+    rows = []
+    for b in range(B):
+        s = VOState.from_numpy(seed.to_numpy(), dev)
+        s = s.replace(frames_since_kf=torch.full_like(s.frames_since_kf, 3))
+        if b < 2:
+            dR = so3_exp(torch.tensor([0.0, (0.6, 0.02)[b], 0.0], device=dev))
+            s = s.replace(R=dR @ s.R, t=dR @ s.t, last_tracking=torch.zeros_like(s.last_tracking))
+        rows.append(s)
+    images = torch.from_numpy(np.stack([np.stack(frames[1 + b:1 + b + BATCH_FRAMES])
+                                        for b in range(B)])).to(dev)
+    active = np.ones((B, BATCH_FRAMES), bool)
+    if B >= 4:
+        active[-1, -3:] = False
+    return cfg, cam, VOState.stack(rows), images, active
+
+
+def _batch_runs(cfg, cam, states, images, active, seeds, dev):
+    """The plain batched chunk and the captured one on the card from the
+    same states and seeds: (eager, graph) as (state numpy, outputs numpy,
+    (K1, K2) launches), the graph's branch runs and the graph."""
+    from tinyslam_tpu_torch.models.vo_device import batch_graph, track_chunk_batch
+
+    def run(graph):
+        k = (fast_cuda.LAUNCHES, match_cuda.LAUNCHES)
+        st, ys = track_chunk_batch(cam, cfg, states, images, active,
+                                   [Sampler(s) for s in seeds], graph=graph)
+        if graph:
+            g.account(g.tally.tolist())
+        return (st.to_numpy(), {k_: v.cpu().numpy() for k_, v in ys.items()},
+                (fast_cuda.LAUNCHES - k[0], match_cuda.LAUNCHES - k[1]))
+
+    g = batch_graph(cam, cfg, states, images[:, 0], [Sampler(s) for s in seeds])
+    g.account(g.tally.tolist())
+    before = g.tally.tolist()
+    eager, got = run(False), run(True)
+    runs = dict(zip(("reloc", "reloc_global", "second_pass", "keyframe", "ba"),
+                    (a - b for a, b in zip(g.tally.tolist(), before))))
+    return eager, got, runs, g
+
+
+def _assert_runs_equal(eager, got):
+    assert [k for k in eager[0] if not np.array_equal(eager[0][k], got[0][k])] == []
+    for k in ("R", "t", "summary"):
+        assert np.array_equal(eager[1][k], got[1][k]), k
+    assert eager[2] == got[2]
+
+
+@pytest.mark.parametrize("B", [1, 3, 4])
+def test_batch_graph_replays_equal_the_eager_step_on_every_branch(dev, B):
+    """``track_chunk_batch`` through the captured ``BatchGraph`` against the
+    plain batched step on the card over frames that take every branch: a
+    global and a guided relocalization, the second pass, keyframes without
+    and with the window BA, a padded row.  Every state tensor, pose and
+    summary bit for bit; the kernels' launch counters equal; the tally's
+    runs, summed over rows, as the frames took them."""
+    cfg, cam, states, images, active = _batch_case(B, dev)
+    eager, got, runs, graph = _batch_runs(cfg, cam, states, images, active, range(B), dev)
+    _assert_runs_equal(eager, got)
+    s = eager[1]["summary"]
+    assert s[..., 3][active].all() and not s[~active].any()
+    assert runs["keyframe"] == int(s[..., 4].sum()) and runs["ba"] >= 1
+    assert runs["reloc"] == min(B, 2) and runs["reloc_global"] >= 1
+    assert runs["second_pass"] >= 1
+    assert graph.replays >= BATCH_FRAMES
+
+
+def test_batch_graph_replays_do_not_synchronize(dev):
+    """A chunk of four rows through the captured step under PyTorch's sync
+    debug mode "error": the states', seeds' and flags' loads, every image
+    copy, replay and result copy, with no synchronizing call."""
+    from tinyslam_tpu_torch.models.vo_device import batch_graph
+
+    cfg, cam, states, images, active = _batch_case(4, dev)
+    samplers = [Sampler(b) for b in range(4)]
+    graph = batch_graph(cam, cfg, states, images[:, 0], samplers)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, ys = graph.track_chunk(states, images[:, :6], active[:, :6], samplers)
+        st, ys = graph.track_chunk(st, images[:, 6:], active[:, 6:], samplers)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    summary = ys["summary"].cpu().numpy()
+    assert summary[..., 3][active[:, 6:]].all() and not summary[~active[:, 6:]].any()
+
+
+def test_one_graph_serves_every_seed(dev):
+    """Two seeds through one ``ChunkGraph`` and through one ``BatchGraph``:
+    each run equals its own eager run bit for bit, the relocalizations
+    draw differently under the two seeds, and no second graph is
+    captured."""
+    from tinyslam_tpu_torch.models import vo_device as vd
+    from tinyslam_tpu_torch.geometry.se3 import so3_exp
+
+    cfg, cam, frames, seed = _graph_case(150)
+    dR = so3_exp(torch.tensor([0.0, 0.02, 0.0], device=dev))
+    lost = VOState.from_numpy(seed.to_numpy(), dev)
+    lost = lost.replace(R=dR @ lost.R, t=dR @ lost.t,
+                        last_tracking=torch.zeros_like(lost.last_tracking))
+    images = torch.from_numpy(np.stack(frames[1:5])).to(dev)
+    vd.chunk_graph(cam, cfg, lost, images[0], Sampler(0))
+    n_graphs = len(vd._GRAPHS)
+    for s in (0, 2**31 + 9):
+        _, want = track_chunk(cam, cfg, lost, images, [True] * 4, Sampler(s))
+        graph = vd.chunk_graph(cam, cfg, lost, images[0], Sampler(s))
+        _, got = graph.track_chunk(lost, images, [True] * 4)
+        for k in ("R", "t", "summary"):
+            assert torch.equal(got[k], want[k]), (s, k)
+        assert int(graph.seed) == seed_word(Sampler(s))
+    assert len(vd._GRAPHS) == n_graphs
+    cfg, cam, states, images, active = _batch_case(3, dev)
+    n_batch = len(vd._BATCH_GRAPHS)
+    for seeds in ((0, 1, 2), (2**31 + 9, 5, 2**32 + 7)):
+        eager, got, _, graph = _batch_runs(cfg, cam, states, images, active, seeds, dev)
+        _assert_runs_equal(eager, got)
+        assert graph.seeds.tolist() == [seed_word(Sampler(s)) for s in seeds]
+    assert len(vd._BATCH_GRAPHS) <= n_batch + 1
+
+
+def test_batch_graphs_of_two_sizes_stay_right_after_k2_scratch_grows(dev):
+    """Captures at two batch sizes in one process, then K2's scratch
+    replaced by a larger one and the memory freed taken by new tensors:
+    replays at both sizes still equal their eager runs bit for bit."""
+    runs = {}
+    for B in (1, 4):
+        cfg, cam, states, images, active = _batch_case(B, dev)
+        runs[B] = (cfg, cam, states, images, active)
+        _assert_runs_equal(*_batch_runs(cfg, cam, states, images, active, range(B), dev)[:2])
+    counters, colcode = match_cuda._SCRATCH[dev if dev.index is not None
+                                            else torch.device("cuda", 0)]
+    match_cuda._scratch(counters.device, 2 * counters.numel(), 2 * colcode.numel())
+    filler = [torch.full((1 << 20,), 7, dtype=torch.int32, device=dev) for _ in range(64)]
+    for B, case in runs.items():
+        _assert_runs_equal(*_batch_runs(*case, range(B), dev)[:2])
+    assert len(filler) == 64

@@ -5,8 +5,10 @@ package.
 ``device_cond`` called eagerly is a Python ``if`` on its predicate; under
 ``warm`` it runs both branches and returns the true one's result.  The
 ``"reloc"`` and ``"loop"`` streams of ``Sampler`` are functions of the
-seed and the key's number alone.  A captured program (the tracker's
-chunk, the SLAM layer's stages) is refused off the card.  ``track_chunk``
+seed and the key's number alone, the seed a host int or a device scalar
+alike (``Sampler.keyed_on``).  A captured program (the tracker's chunk,
+the batched tracker's step, the SLAM layer's stages) is refused off the
+card.  ``track_chunk``
 with those draws (the port's own, not the JAX package's) holds the JAX ``track_chunk`` at the tolerances of
 ``tests/test_torch_reloc.py`` (a relocalization: the same tracking flag,
 matches and inliers within 2%, camera centres within 2 mm, rotations
@@ -31,6 +33,7 @@ from tinyslam_tpu.geometry import se3 as jse3
 from tinyslam_tpu.models.vo_device import track_chunk as jtrack_chunk
 from tinyslam_tpu_torch.models.vo_device import (
     SUMMARY_FIELDS,
+    BatchGraph,
     ChunkGraph,
     DeviceVO,
     VOState,
@@ -39,7 +42,9 @@ from tinyslam_tpu_torch.models.vo_device import (
 from tinyslam_tpu_torch.utils.cuda_graph import (
     Program, device_cond, device_loop, tree_leaves, warm,
 )
-from tinyslam_tpu_torch.utils.draws import LOOP_STREAM, RELOC_STREAM, Sampler, keyed_uniform
+from tinyslam_tpu_torch.utils.draws import (
+    LOOP_STREAM, RELOC_STREAM, Sampler, keyed_uniform, seed_word,
+)
 
 _COL = {name: i for i, name in enumerate(SUMMARY_FIELDS)}
 N_TRACKED = 15
@@ -154,6 +159,21 @@ def test_chunk_graph_needs_the_card():
         ChunkGraph(P.cameras()[1], cfg, state, torch.zeros((120, 160)), Sampler(0))
 
 
+def test_batch_graph_needs_the_card():
+    """The batched graph is refused for a CPU state, and asked for the card
+    where there is none it raises: nothing falls back to the eager step."""
+    cfg = P.torch_config()
+    states = VOState.stack([VOState.empty(cfg)] * 2)
+    images = torch.zeros((2, 120, 160))
+    with pytest.raises(ValueError, match="on the card"):
+        BatchGraph(P.cameras()[1], cfg, states, images, [Sampler(0), Sampler(1)])
+    if torch.cuda.is_available():
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        BatchGraph(P.cameras()[1], cfg, VOState.stack([VOState.empty(cfg, "cuda")] * 2),
+                   images.cuda(), [Sampler(0), Sampler(1)])
+
+
 def test_slam_programs_need_the_card():
     """A captured program built for the CPU is refused, and the SLAM layer
     asked for the card where there is none raises: nothing falls back to
@@ -223,6 +243,47 @@ def test_keyed_draws_leave_the_other_streams_in_order():
     for key in (("two_view", 3, "E"), ("host_reloc", 4), ("loop", 7)):
         assert torch.equal(a.uniform((16, 4), "cpu", key=key),
                            b.uniform((16, 4), "cpu", key=key))
+
+
+@pytest.mark.parametrize("stream", [RELOC_STREAM, LOOP_STREAM])
+def test_keyed_uniform_is_the_same_from_an_int_and_a_tensor_seed(stream):
+    """A seed as a host int and as an int64 device scalar (a graph's seed
+    buffer, which holds the seed's low 32 bits) give the same bits, with
+    the number a host int or a tensor; seeds above 2**31 and 2**32
+    included, and no two seeds alike."""
+    seeds = (0, 1, 7, 2**31 - 1, 2**31, 2**31 + 5, 2**32 - 1, 2**33 + 1, 123456789012)
+    shape = (64, 6)
+    draws = []
+    for seed in seeds:
+        word = torch.tensor(seed_word(Sampler(seed)), dtype=torch.int64)
+        for n in (9, torch.tensor(9, dtype=torch.int32)):
+            want = keyed_uniform(seed, stream, n, shape, "cpu")
+            assert torch.equal(keyed_uniform(word, stream, n, shape, "cpu"), want), seed
+        draws.append(want)
+    # The seed's low 32 bits count: 2**33 + 1 draws as 1 does.
+    assert torch.equal(draws[seeds.index(2**33 + 1)], draws[seeds.index(1)])
+    distinct = [d for s, d in zip(seeds, draws) if s != 2**33 + 1]
+    assert all(not torch.equal(a, b) for i, a in enumerate(distinct) for b in distinct[i + 1:])
+
+
+def test_a_sampler_keyed_on_a_device_seed_draws_as_its_own():
+    """``Sampler.keyed_on``: the copy's keyed streams follow the seed
+    tensor, its call-order streams share the sampler's generator in call
+    order, and the sampler itself keeps its seed and state."""
+    a, b = Sampler(2**31 + 3), Sampler(2**31 + 3)
+    buf = torch.tensor(seed_word(a), dtype=torch.int64)
+    keyed = a.keyed_on(buf)
+    assert isinstance(keyed, Sampler) and a.seed == 2**31 + 3
+    assert torch.equal(keyed.uniform((8, 6), "cpu", key=("reloc", 4)),
+                       b.uniform((8, 6), "cpu", key=("reloc", 4)))
+    buf.fill_(seed_word(Sampler(11)))                   # another seed into the buffer
+    assert torch.equal(keyed.uniform((8, 6), "cpu", key=("loop", 5)),
+                       Sampler(11).uniform((8, 6), "cpu", key=("loop", 5)))
+    assert torch.equal(keyed.uniform((16, 4), "cpu", key=("two_view", 3, "E")),
+                       b.uniform((16, 4), "cpu", key=("two_view", 3, "E")))
+    assert torch.equal(a.uniform((16, 4), "cpu", key=("host_reloc", 4)),
+                       b.uniform((16, 4), "cpu", key=("host_reloc", 4)))
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
 
 
 def test_keyed_draws_look_uniform():

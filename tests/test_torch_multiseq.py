@@ -16,7 +16,13 @@ state's integer fields too), R within 1e-5 and t within 5e-5 (the batch
 multiplies its 3x3 poses and PnP gradients in PyTorch's batched matrix
 kernel, the single sequence in its two-matrix one, which rounds
 otherwise; 1.6e-5 measured); over ranks bit for bit (the batched kernel
-rounds a sequence alike at any batch size).  The batched pieces (extraction at a
+rounds a sequence alike at any batch size).  A second set-up of four
+sequences has two rows relocalize (guided and global) and two keyframe in
+one step, against the JAX package and each row alone at those
+tolerances, under the JAX package's draws and under the port's keyed
+draws with seeds above 2**31.  ``track_step_batch`` reads nothing back
+outside ``device_cond`` (every host read of a tensor made to raise), and
+a step with every row inactive keeps the state bit for bit.  The batched pieces (extraction at a
 threshold a frame, the matcher, PnP, the state's stack and rows) hold
 against their per-sequence counterparts: bit for bit, integers exact, PnP
 within 1e-6.
@@ -47,9 +53,10 @@ from tinyslam_tpu_torch.frontend.orb import extract_batch, extract_features
 from tinyslam_tpu_torch.geometry import pnp as tpnp
 from tinyslam_tpu_torch.geometry.se3 import se3_exp
 from tinyslam_tpu_torch.models.vo_device import (
-    SUMMARY_FIELDS, VOState, track_chunk, track_chunk_batch,
+    SUMMARY_FIELDS, VOState, track_chunk, track_chunk_batch, track_step_batch,
 )
 from tinyslam_tpu_torch.ops import hamming
+from tinyslam_tpu_torch.utils.cuda_graph import tree_leaves
 from tinyslam_tpu_torch.utils.draws import Sampler
 
 REPO = Path(__file__).resolve().parents[1]
@@ -324,9 +331,9 @@ def test_batched_pnp_refine_equals_each_sequence():
 
 
 def test_state_stack_rows_round_trip(setup):
-    """``VOState.stack``, ``row``, ``unstack`` and ``set_row`` round-trip
-    exactly, through the nested map, window features and keyframe ring;
-    ``set_row`` leaves the batch it was called on as it was."""
+    """``VOState.stack``, ``row`` and ``unstack`` round-trip exactly,
+    through the nested map, window features and keyframe ring; a write
+    through a row's views lands in that row of the batch alone."""
     states = [VOState.from_numpy(s) for s in setup["seeds"]]
     batch = VOState.stack(states)
     assert batch.R.shape == (3, 3, 3) and batch.map.X.shape[0] == 3
@@ -338,6 +345,178 @@ def test_state_stack_rows_round_trip(setup):
 
     assert all(equal(batch.row(b), s) for b, s in enumerate(states))
     assert all(equal(x, s) for x, s in zip(batch.unstack(), states))
-    swapped = batch.set_row(0, states[2])
-    assert equal(swapped.row(0), states[2]) and equal(swapped.row(1), states[1])
-    assert equal(batch.row(0), states[0])
+    for dst, src in zip(tree_leaves(batch.row(0)), tree_leaves(states[2])):
+        dst.copy_(src)
+    assert equal(batch.row(0), states[2]) and equal(batch.row(1), states[1])
+    assert equal(batch.row(2), states[2])
+
+
+# ---------------- one step: two relocalizations and two keyframes ----------------
+STEP_ROWS = ((0, 0.02), (3, 0.6), (0, None), (3, None))   # (seed frame, yaw of a lost row)
+STEP_FRAMES = 3
+STEP_SEEDS = (0, 2**31 + 5, 7, 2**33 + 1)      # Sampler seeds, two above 2**31
+
+
+@pytest.fixture(scope="module")
+def four_rows():
+    """Four sequences whose first step has rows 0 and 1 relocalize (0.02 rad
+    off: the guided attempt; 0.6 rad: the global fallback) and rows 2 and 3
+    keyframe (``frames_since_kf`` one short of the interval), then two more
+    frames; the batch with the JAX package's draws against ``jax.vmap(
+    track_chunk)`` and against each row's own ``track_chunk``, and the batch
+    with the port's keyed draws under ``STEP_SEEDS`` against each row's
+    own."""
+    jcfg, tcfg = P.configs(keyframes=True)
+    jcam, tcam = P.cameras()
+    feats = {s0: _jax_features(_FRAMES[s0]) for s0 in {s0 for s0, _ in STEP_ROWS}}
+    rows, images = [], []
+    for s0, yaw in STEP_ROWS:
+        seed = P.seeded_state(tcfg, feats[s0], _ROOM, _POSES[s0])
+        if yaw is None:
+            seed["frames_since_kf"] = np.asarray(tcfg.vo.keyframe_max_interval - 1, np.int32)
+        rows.append(seed if yaw is None else P.lost_state(seed, yaw))
+        first = s0 if yaw is not None else s0 + 1
+        images.append(np.stack(_FRAMES[first:first + STEP_FRAMES]))
+    images = np.stack(images)
+    active = np.ones(images.shape[:2], bool)
+    jstates = jax.tree.map(lambda *xs: jnp.stack(xs), *[P.jax_state(r) for r in rows])
+    step = jax.jit(jax.vmap(lambda s, im, a: jtrack_chunk(jcam, jcfg, s, im, a)))
+    _, jys = step(jstates, jnp.asarray(images), jnp.asarray(active))
+    out = {"jax": {k: np.asarray(v) for k, v in jys.items()}, "rows": rows, "cfg": tcfg,
+           "cam": tcam, "images": images, "active": active}
+    for name, make in (("jaxdraws", lambda b: P.JaxSampler()), ("keyed", Sampler)):
+        samplers = [make(STEP_SEEDS[b]) for b in range(len(rows))]
+        st, ys = track_chunk_batch(tcam, tcfg, VOState.stack([VOState.from_numpy(r)
+                                                              for r in rows]),
+                                   torch.from_numpy(images), active, samplers)
+        singles = [track_chunk(tcam, tcfg, VOState.from_numpy(r), torch.from_numpy(images[b]),
+                               active[b], make(STEP_SEEDS[b])) for b, r in enumerate(rows)]
+        out[name] = {"state": st, "ys": {k: v.numpy() for k, v in ys.items()},
+                     "singles": [(s, {k: v.numpy() for k, v in y.items()}) for s, y in singles]}
+    return out
+
+
+def test_four_row_step_relocalizes_two_rows_and_keyframes_two(four_rows):
+    for name in ("jaxdraws", "keyed"):
+        s = four_rows[name]["ys"]["summary"][:, 0]
+        assert s[:, _COL["tracking"]].all(), name
+        np.testing.assert_array_equal(s[:, _COL["is_keyframe"]], [0, 0, 1, 1], err_msg=name)
+        assert all(bool(r["last_tracking"]) == (b >= 2)
+                   for b, r in enumerate(four_rows["rows"]))
+
+
+@pytest.mark.parametrize("b", range(len(STEP_ROWS)))
+def test_four_row_step_tracks_like_jax_vmap(four_rows, b):
+    j, t = four_rows["jax"], four_rows["jaxdraws"]["ys"]
+    sj, st = j["summary"][b], t["summary"][b]
+    for name in ("tracking", "is_keyframe", "num_features"):
+        np.testing.assert_array_equal(st[:, _COL[name]], sj[:, _COL[name]], err_msg=name)
+    for name in ("num_matches", "num_inliers"):
+        np.testing.assert_allclose(st[:, _COL[name]], sj[:, _COL[name]], rtol=0.02, err_msg=name)
+    dc = np.linalg.norm(_centres(t["R"][b], t["t"][b]) - _centres(j["R"][b], j["t"][b]), axis=-1)
+    assert dc.max() < 2e-3, dc
+    dR = np.einsum("nij,nik->njk", t["R"][b], j["R"][b])
+    angle = np.arccos(np.clip((np.trace(dR, axis1=1, axis2=2) - 1) / 2, -1, 1))
+    assert angle.max() < 1e-3, angle
+
+
+@pytest.mark.parametrize("draws", ["jaxdraws", "keyed"])
+@pytest.mark.parametrize("b", range(len(STEP_ROWS)))
+def test_four_row_step_equals_each_row_alone(four_rows, draws, b):
+    run = four_rows[draws]
+    s1, y1 = run["singles"][b]
+    t = run["ys"]
+    for name in _INT_FIELDS:
+        np.testing.assert_array_equal(t["summary"][b][:, _COL[name]], y1["summary"][:, _COL[name]],
+                                      err_msg=name)
+    np.testing.assert_allclose(t["R"][b], y1["R"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(t["t"][b], y1["t"], rtol=0, atol=5e-5)
+    row = run["state"].row(b).to_numpy()
+    for k, v in s1.to_numpy().items():
+        if v.dtype.kind in "biu":
+            np.testing.assert_array_equal(row[k], v, err_msg=k)
+
+
+_HOST_READS = ("tolist", "item", "numpy", "__array__", "__bool__", "__int__", "__float__",
+               "__index__")
+
+
+def test_batched_step_reads_nothing_back_outside_device_cond(four_rows, monkeypatch):
+    """``track_chunk_batch`` (a step a frame) and ``track_step_batch`` with
+    every host read of a tensor made to raise, ``device_cond`` alone
+    allowed to read its predicate: the four-row chunk (relocalizations,
+    keyframes, the window BA's condition, the second pass) and a step with
+    every row inactive read nothing else, and give the results of the
+    unguarded run."""
+    from tinyslam_tpu_torch.models import vo as tvo
+    from tinyslam_tpu_torch.models import vo_device as tvd
+
+    allowed, reads, taken = [False], [], []
+
+    def guarded(name):
+        real = getattr(torch.Tensor, name)
+
+        def read(self, *a, **kw):
+            if not allowed[0]:
+                reads.append(name)
+                raise RuntimeError(f"a host read ({name}) outside device_cond")
+            return real(self, *a, **kw)
+        return read
+
+    def cond(pred, true_fn, false_fn, operands=(), names=(None, None)):
+        allowed[0] = True
+        try:
+            p = bool(pred)
+        finally:
+            allowed[0] = False
+        taken.append(names[0] if p else names[1])
+        return true_fn(*operands) if p else false_fn(*operands)
+
+    cfg, cam, images, active = (four_rows[k] for k in ("cfg", "cam", "images", "active"))
+    rows = VOState.stack([VOState.from_numpy(r) for r in four_rows["rows"]])
+    samplers = [Sampler(s) for s in STEP_SEEDS]
+    with monkeypatch.context() as m:
+        for name in _HOST_READS:
+            m.setattr(torch.Tensor, name, guarded(name))
+        m.setattr(tvd, "device_cond", cond)
+        m.setattr(tvo, "device_cond", cond)
+        st, ys = track_chunk_batch(cam, cfg, rows, torch.from_numpy(images), active, samplers)
+        idle, idle_ys = tvd.track_step_batch(cam, cfg, st, torch.from_numpy(images[:, 0]),
+                                             torch.zeros(len(STEP_ROWS), dtype=torch.bool),
+                                             samplers)
+    assert reads == []
+    assert {"reloc", "reloc_global", "keyframe", "second_pass"} <= set(taken)
+    for k, v in ys.items():
+        np.testing.assert_array_equal(v.numpy(), four_rows["keyed"]["ys"][k], err_msg=k)
+    assert not idle_ys["summary"].any()
+
+
+def test_step_with_every_row_inactive_keeps_the_state(four_rows):
+    """Every row inactive: the state as it was, bit for bit, zero summaries;
+    in ``track_chunk_batch`` such a step (the host's flags show it) is
+    skipped and gives what the step gives."""
+    cfg, cam, images = (four_rows[k] for k in ("cfg", "cam", "images"))
+    B = len(STEP_ROWS)
+    states = VOState.stack([VOState.from_numpy(r) for r in four_rows["rows"]])
+    before = states.to_numpy()
+    samplers = [Sampler(s) for s in STEP_SEEDS]
+    st, ys = track_step_batch(cam, cfg, states, torch.from_numpy(images[:, 0]), [False] * B,
+                              samplers)
+    after, kept = states.to_numpy(), st.to_numpy()
+    for k in before:
+        np.testing.assert_array_equal(after[k], before[k], err_msg=k)    # left as it was
+        np.testing.assert_array_equal(kept[k], before[k], err_msg=k)
+    assert not ys["summary"].any()
+    assert torch.equal(ys["R"], states.R) and torch.equal(ys["t"], states.t)
+    active = np.ones((B, STEP_FRAMES), bool)
+    active[:, 1] = False
+    st2, ys2 = track_chunk_batch(cam, cfg, states, torch.from_numpy(images), active, samplers)
+    s1, y1 = track_step_batch(cam, cfg, states, torch.from_numpy(images[:, 0]), [True] * B,
+                              samplers)
+    s1, y2 = track_step_batch(cam, cfg, s1, torch.from_numpy(images[:, 2]), [True] * B,
+                              samplers)
+    assert not ys2["summary"][:, 1].any()
+    assert torch.equal(ys2["R"][:, 1], y1["R"]) and torch.equal(ys2["R"][:, 2], y2["R"])
+    assert torch.equal(ys2["summary"][:, 2], y2["summary"])
+    final, want = st2.to_numpy(), s1.to_numpy()
+    assert [k for k in want if not np.array_equal(final[k], want[k])] == []

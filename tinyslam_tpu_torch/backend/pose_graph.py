@@ -201,7 +201,11 @@ def _gauss_newton(nodes: tuple, meas: tuple, edge_i, edge_j, edge_valid, edge_we
         H, g = preduce(H), preduce(g)
         Hm = H * fr[:, None] * fr[None, :] + held
         L, info = torch.linalg.cholesky_ex(Hm)
-        dx = torch.cholesky_solve((g * fr)[:, None], L)[:, 0]
+        # Two triangular solves, not cholesky_solve (equal on the CPU): in a
+        # captured loop's body cuSOLVER's potrs could allocate its cuBLAS
+        # scratch with memory nodes, which such a body may not hold.
+        y = torch.linalg.solve_triangular(L, (g * fr)[:, None], upper=False)
+        dx = torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
         dx = torch.where(torch.isfinite(dx) & (info == 0), dx, torch.zeros_like(dx))
         nodes = tuple(compose_fn(*exp_fn(dx.view(n, D)), *nodes))
         cost = (w_e * (r * r).sum(-1)).sum()

@@ -8,8 +8,10 @@
   the port's mesh at n ranks on tiny shapes: frame-parallel ORB,
   landmark-sharded BA, the edge-sharded, node-sharded and Sim(3) pose
   graphs, and B sequences tracked under frame parallelism
-  (``parallel/track_dp.py``).  One process a rank; rank 0 prints one line
-  with the JAX line's fields, the backend and the per-stage wall time.
+  (``parallel/track_dp.py``; on the card through the captured
+  ``BatchGraph``).  One process a rank; rank 0 prints one line with the
+  JAX line's fields, the backend and the per-stage wall time, after a line
+  that says which path stage 4 took.
   NCCL where the host has n cards; otherwise gloo ranks sharing the one
   card with CUDA tensors; gloo on the CPU only when ``device="cpu"``::
 
@@ -121,6 +123,9 @@ def dryrun_multichip(n_devices: int, device="cuda", timeout: float = 600.0) -> s
         if p.returncode != 0:
             raise RuntimeError(f"dryrun_multichip({n_devices}): rank {r} exited "
                                f"{p.returncode}:\n{log[-4000:]}")
+    for x in logs[0].splitlines():
+        if x.startswith("track_chunk_dp:"):
+            print(x)
     line = [x for x in logs[0].splitlines() if x.startswith("dryrun_multichip(")][-1]
     print(line)
     return line
@@ -261,6 +266,11 @@ def _dryrun_rank(rank: int, world: int, port: int, device: str, backend: str) ->
 
     stage_str = " ".join(f"{name}={dt * 1e3:.0f}ms" for name, dt in timings)
     if rank == 0:
+        from tinyslam_tpu_torch.models.vo_device import _BATCH_GRAPHS
+
+        replays = sum(g.replays for g in _BATCH_GRAPHS.values())
+        print(f"track_chunk_dp: {'the captured BatchGraph' if replays else 'the plain step'}, "
+              f"{replays} replays on rank 0", flush=True)
         print(f"dryrun_multichip({n}): mesh={{'frame': {frame_ax}, 'landmark': {la}}} "
               f"features={total} ba_cost={float(ba['initial_cost']):.2f}"
               f"->{float(ba['cost']):.2f} pg_cost={costs(pg)} pg_node_cost={costs(pgn)} "

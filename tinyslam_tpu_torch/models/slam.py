@@ -26,11 +26,12 @@ package.  Each stage function here returns the stage's packed rows, read
 back once, and one function unpacks them (``unpack_ingest``,
 ``unpack_probe``, ``unpack_solve``).  On the card a stage is one replay of
 a captured CUDA graph (``utils/cuda_graph.py:Program``, one a stage,
-shape, config and sampler seed, captured when a ``Slam`` is built or, for
-a solve's next padded shape, a few keyframes before a solve can need it,
-and kept for the process); elsewhere, or with ``eager=True``, the eager
-functions run (``_ingest_rows``, ``_loop_probe``, ``_solve_rows``), which
-are the plain versions.  The solve's 20 Gauss-Newton steps are one WHILE
+shape, config and sampler type, the seed one of its inputs; captured
+when a ``Slam`` is built or, for a solve's next padded shape, a few
+keyframes before a solve can need it, and kept for the process);
+elsewhere, or with ``eager=True``, the eager functions run
+(``_ingest_rows``, ``_loop_probe``, ``_solve_rows``), which are the plain
+versions.  The solve's 20 Gauss-Newton steps are one WHILE
 node of its graph (``device_loop``).  The ingest's and the probe's graphs
 share one memory pool; the solves', which the asynchronous back-end
 replays on its worker thread, another.
@@ -64,7 +65,7 @@ from tinyslam_tpu_torch.utils.cuda_graph import (
     indexed_device,
     tree_leaves,
 )
-from tinyslam_tpu_torch.utils.draws import Sampler
+from tinyslam_tpu_torch.utils.draws import Sampler, seed_word
 
 SIGNATURE_BITS = 256     # a keyframe's place-recognition signature
 
@@ -341,22 +342,24 @@ def _probe_params(cfg: SlamConfig) -> dict:
 def _probe_spec(cam: PinholeCamera, cfg: SlamConfig, cur: Features, old_feats: Features,
                 old_ids, old_lm_X, old_lm_valid, map_state, anchor_offset: int, R_cur, t_cur,
                 kf_id: int, sampler: Sampler):
-    """``loop_probe``'s program: (kind, params, body, inputs).  The ids and
-    the offset are device scalars in its static buffers, and the draws are
-    keyed on the device by the sampler's seed: one program a seed."""
+    """``loop_probe``'s program: (kind, params, body, inputs).  The ids, the
+    offset and the sampler's seed are device scalars in its static buffers,
+    and the draws are keyed on the device by that seed: one program serves
+    every seed."""
     kw = _probe_params(cfg)
     inputs = {"cur": cur, "old": old_feats, "old_ids": _cpu_tensor(old_ids, np.int64),
               "old_X": _cpu_tensor(old_lm_X), "old_ok": _cpu_tensor(old_lm_valid, np.bool_),
               "map": map_state, "anchor_offset": torch.tensor(int(anchor_offset)),
               "R": _cpu_tensor(R_cur), "t": _cpu_tensor(t_cur),
-              "kf_id": torch.tensor(int(kf_id))}
+              "kf_id": torch.tensor(int(kf_id)),
+              "seed": torch.tensor(seed_word(sampler), dtype=torch.int64)}
 
     def probe(s):
         return _loop_probe(cam, s["cur"], s["old"], s["old_ids"], s["old_X"], s["old_ok"],
-                           s["map"], s["anchor_offset"], s["R"], s["t"], s["kf_id"], sampler,
-                           **kw)
+                           s["map"], s["anchor_offset"], s["R"], s["t"], s["kf_id"],
+                           sampler.keyed_on(s["seed"]), **kw)
 
-    params = (cam, tuple(kw.items()), type(sampler), getattr(sampler, "seed", None))
+    params = (cam, tuple(kw.items()), type(sampler))
     return "probe", params, probe, inputs
 
 

@@ -34,8 +34,13 @@ the state and bootstraps a fresh submap anchored at the last pose.
 ``track_step_batch`` / ``track_chunk_batch`` track B independent sequences
 (a ``VOState`` with a leading B, ``VOState.stack``) as one program, the
 counterpart of the JAX package's ``vmap(track_chunk)``: the common path
-batched, each decision read back once for all B, the rare branches per
-sequence on its row.
+batched over the B rows, the rare branches ``device_cond``s (a
+relocalization and a keyframe insertion per row, on its row; the second
+pass one masked batched body), so that a step reads nothing back.  On the
+card a chunk of B streams runs as replays of one captured step
+(``BatchGraph``), one replay a step.  Neither graph is keyed by a seed:
+the keyed draws read the samplers' seeds from a static buffer
+(``Sampler.keyed_on``), so one graph serves every seed.
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ from tinyslam_tpu_torch.utils.cuda_graph import (
     tree_leaves,
     warm_checked,
 )
-from tinyslam_tpu_torch.utils.draws import Sampler
+from tinyslam_tpu_torch.utils.draws import Sampler, seed_word
 
 # Ring of per-keyframe features, slot kf_id % KF_RING; it must cover the
 # keyframes of one chunk (at most one a frame), so chunk <= KF_RING.
@@ -215,16 +220,9 @@ class VOState:
         return [self.row(b) for b in range(self.R.shape[0])]
 
     def row(self, b: int) -> "VOState":
-        """Sequence ``b`` (a host int) of the batched state, as views."""
+        """Sequence ``b`` (a host int) of the batched state, as views (the
+        batched step's keyframe bodies write a row through them)."""
         return _tree_map(lambda x: x[b], self)
-
-    def set_row(self, b: int, state: "VOState") -> "VOState":
-        """A new batched state with sequence ``b`` replaced by ``state``."""
-        def put(x, v):
-            y = x.clone()
-            y[b] = v
-            return y
-        return _tree_map(put, self, state)
 
 
 # The pose result of a tracking or relocalization branch.
@@ -493,7 +491,43 @@ def track_chunk(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
 BRANCHES = ("track", "reloc", "reloc_global", "second_pass", "keyframe", "ba")
 
 
-class ChunkGraph:
+class _StepGraph:
+    """What ``ChunkGraph`` and ``BatchGraph`` share: a captured step over a
+    static state (``static``), its branch tally (``captured.tally``, one
+    slot a name of ``captured.names``) and the launch accounting of its
+    bodies."""
+
+    def _hold(self, captured) -> None:
+        self.captured = captured
+        self.summary = captured.outputs
+        self.tally = captured.tally
+        self._accounted = [0] * len(captured.names)
+        self.replays = 0
+
+    def _load(self, state: VOState) -> None:
+        """Copy ``state`` into the static state buffers."""
+        for dst, src in zip(tree_leaves(self.static), tree_leaves(state)):
+            if src is not dst:
+                if src.shape != dst.shape or src.dtype != dst.dtype or src.device != dst.device:
+                    raise ValueError(f"{type(self).__name__}: the state does not fit the "
+                                     f"captured one")
+                dst.copy_(src)
+
+    def account(self, tally) -> dict[str, int]:
+        """Add the launches of the branch bodies run since the last call
+        to the kernels' counters, from ``tally`` as read back (a sequence
+        of numbers, one a name of the graph's branches).  Returns those
+        runs (a batched graph's summed over rows)."""
+        runs = {name: int(v) - a
+                for name, v, a in zip(self.captured.names, tally, self._accounted)}
+        self._accounted = [int(v) for v in tally]
+        for name, k in runs.items():
+            per = self.captured.body_launches.get(name, (0, 0, 0))
+            add_launches([k * x for x in per])
+        return runs
+
+
+class ChunkGraph(_StepGraph):
     """``track_chunk`` on the card as replays of one captured
     ``track_step``, the counterpart of the JAX package's jitted
     ``lax.scan`` of ``lax.cond``s: each ``device_cond`` of the step (the
@@ -503,12 +537,13 @@ class ChunkGraph:
     frame takes.  Nothing in ``track_chunk`` reads the device back.
 
     Built by ``chunk_graph`` for one camera, config, image shape and dtype,
-    device and sampler seed.  It first runs the step with every branch
-    taken (``utils.cuda_graph.warm``) on a copy of the state, twice, the
-    second time with any synchronization an error (a step that reads the
-    device back cannot be captured), then captures it over static buffers:
-    the state, which the graph's last nodes overwrite with the new state,
-    and the image.  A failed capture raises.
+    device and sampler type, never for a seed: the keyed draws read the
+    sampler's seed from a static buffer (``draw_as``).  It first runs the
+    step with every branch taken (``utils.cuda_graph.warm``) on a copy of
+    the state, twice, the second time with any synchronization an error (a
+    step that reads the device back cannot be captured), then captures it
+    over static buffers: the state, which the graph's last nodes overwrite
+    with the new state, the image and the seed.  A failed capture raises.
 
     Each replay adds the launches of the graph outside its branches to
     the kernels' counters at once (``cuda_graph.add_launches``); ``tally``
@@ -524,31 +559,27 @@ class ChunkGraph:
             raise ValueError(f"ChunkGraph: a state on {dev}; the graph runs on the card")
         self.static = _tree_map(torch.clone, state)
         self.image = image.clone()
+        self.seed = torch.full((), seed_word(sampler), dtype=torch.int64, device=dev)
+        keyed = sampler.keyed_on(self.seed)
 
         def step():
-            new, ys = track_step(cam, cfg, self.static, self.image, sampler)
+            new, ys = track_step(cam, cfg, self.static, self.image, keyed)
             for dst, src in zip(tree_leaves(self.static), tree_leaves(new)):
                 if src is not dst:
                     dst.copy_(src)
             return ys["summary"]
 
         def warm_step():
-            track_step(cam, cfg, _tree_map(torch.clone, state), self.image, sampler)
+            track_step(cam, cfg, _tree_map(torch.clone, state), self.image, keyed)
 
         with CAPTURE_LOCK, counters_kept():
             warm_checked(warm_step, dev)
-            self.captured = capture(step, dev, BRANCHES)
-        self.summary = self.captured.outputs
-        self.tally = self.captured.tally
-        self._accounted = [0] * len(BRANCHES)
-        self.replays = 0
+            self._hold(capture(step, dev, BRANCHES))
 
-    def _load(self, state: VOState) -> None:
-        for dst, src in zip(tree_leaves(self.static), tree_leaves(state)):
-            if src is not dst:
-                if src.shape != dst.shape or src.dtype != dst.dtype or src.device != dst.device:
-                    raise ValueError("ChunkGraph: the state does not fit the captured one")
-                dst.copy_(src)
+    def draw_as(self, sampler: Sampler) -> None:
+        """Make the replays draw as ``sampler`` does: its seed into the
+        seed buffer, without blocking."""
+        self.seed.fill_(seed_word(sampler))
 
     def track_chunk(self, state: VOState, images: torch.Tensor, active
                     ) -> tuple[VOState, dict]:
@@ -579,107 +610,50 @@ class ChunkGraph:
         add_launches([n * k for k in self.captured.base])
         return _tree_map(torch.clone, self.static), {"R": Rs, "t": ts, "summary": summaries}
 
-    def account(self, tally) -> dict[str, int]:
-        """Add the launches of the branch bodies run since the last call
-        to the kernels' counters, from ``tally`` as read back (a sequence
-        of numbers, one a name of ``BRANCHES``).  Returns those runs."""
-        runs = {name: int(v) - a for name, v, a in zip(BRANCHES, tally, self._accounted)}
-        self._accounted = [int(v) for v in tally]
-        for name, k in runs.items():
-            per = self.captured.body_launches.get(name, (0, 0, 0))
-            add_launches([k * x for x in per])
-        return runs
-
-
 _GRAPHS: dict = {}
 
 
 def chunk_graph(cam: PinholeCamera, cfg: SlamConfig, state: VOState, image: torch.Tensor,
                 sampler: Sampler) -> ChunkGraph:
     """The ``ChunkGraph`` of this camera, config, image shape and dtype,
-    device and sampler seed, captured at first use and kept for the
+    device and sampler type, captured at first use and kept for the
     process (graphs hold no state between chunks: each chunk loads its
-    own)."""
-    seed = getattr(sampler, "seed", None)
-    key = (cam, cfg, tuple(image.shape), image.dtype, state.device, type(sampler), seed)
+    own), set to draw as ``sampler`` (``ChunkGraph.draw_as``): one graph
+    serves every seed."""
+    key = (cam, cfg, tuple(image.shape), image.dtype, state.device, type(sampler))
     if key not in _GRAPHS:
         _GRAPHS[key] = ChunkGraph(cam, cfg, state, image, sampler)
-    return _GRAPHS[key]
-
-
-def _device_rows(rows: list[int], device: torch.device, dtype=torch.long) -> torch.Tensor:
-    """A host list as a tensor on ``device``: from pinned memory without
-    blocking on the card (a copy from pageable memory synchronizes)."""
-    x = torch.tensor(rows, dtype=dtype)
-    return x.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else x
-
-
-def _take(tree, rows: torch.Tensor | None):
-    """The sequences ``rows`` of a batched tensor or dataclass; all of them
-    (the tree itself) when ``rows`` is None."""
-    return tree if rows is None else _tree_map(lambda x: x.index_select(0, rows), tree)
+    graph = _GRAPHS[key]
+    graph.draw_as(sampler)
+    return graph
 
 
 def _track_rows(cam: PinholeCamera, cfg: SlamConfig, feats: Features, map_state: MapState,
-                rows, R0, t0, radius_px: float) -> dict:
-    """Guided matching and PnP of the sequences ``rows`` from the poses
-    (R0, t0) of those sequences: one K2 launch and one batched
-    ``pnp_refine`` for all of them.  Returns {"idx", "mvalid", "R", "t",
-    "inliers", "num_inliers", "rmse"} over those rows."""
-    f, m = _take(feats, rows), _take(map_state, rows)
-    idx, mvalid = _match_to_map(f, m, cfg.matcher.max_distance, cfg.matcher.ratio,
+                R0, t0, radius_px: float) -> dict:
+    """Guided matching and PnP of every sequence of the batch from its pose
+    (R0, t0): one K2 launch and one batched ``pnp_refine``.  Returns
+    {"idx", "mvalid", "R", "t", "inliers", "num_inliers", "rmse"}, each
+    with a leading B."""
+    idx, mvalid = _match_to_map(feats, map_state, cfg.matcher.max_distance, cfg.matcher.ratio,
                                 cam=cam, R=R0, t=t0, radius_px=radius_px)
-    out = _track_pnp(cam, f, m, idx, mvalid, R0, t0, iters=cfg.vo.pnp_iters,
+    out = _track_pnp(cam, feats, map_state, idx, mvalid, R0, t0, iters=cfg.vo.pnp_iters,
                      inlier_px=cfg.vo.pnp_inlier_px)
-    return {"idx": idx, "mvalid": mvalid, **out}
+    return {"idx": idx, "mvalid": mvalid, **{k: out[k] for k in _POSE_FIELDS}}
 
 
-def _assign(res: dict, rows, part: dict) -> None:
-    """Write ``part`` into the rows ``rows`` (a tensor, None for all, or a
-    host int) of the batch ``res``, whose tensors are the step's own."""
-    for k in res:
-        if rows is None:
-            res[k] = part[k]
-        elif isinstance(rows, int):
-            res[k][rows] = part[k]
-        else:
-            res[k].index_copy_(0, rows, part[k])
+def _by_row(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` where the (B,) ``mask`` holds, else ``old``, row by row."""
+    return torch.where(mask.view(-1, *([1] * (new.dim() - 1))), new, old)
 
 
-def track_step_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
-                     images: torch.Tensor, active, samplers: list[Sampler]
-                     ) -> tuple[VOState, dict]:
-    """One tracked frame of each of B independent sequences: the counterpart
-    of the JAX package's ``vmap(track_step)``, decision for decision each
-    sequence's own ``track_step``.
-
-    ``states`` is a batched ``VOState`` (``VOState.stack``), ``images`` (B,
-    H, W) on its device, ``active`` (B,) bool (host list or tensor): an
-    inactive sequence keeps its state and records a zero summary.
-    ``samplers[b]`` draws sequence b's relocalization samples, under its own
-    key ``("reloc", frame_idx)``, so b draws what its ``track_step`` would.
-
-    The common path runs batched: extraction at each sequence's adaptive
-    threshold (one K1 launch), guided matching of the sequences that
-    tracked their last frame (one K2 launch), PnP, the second pass, the pose
-    and velocity update and the summary.  Each of ``track_step``'s three
-    decisions reads the flags of all B sequences in one readback.  The rare
-    branches run per sequence on its row: the relocalization of a lost
-    sequence (one more readback) and the keyframe insertion with its window
-    BA (one more), each written back with ``VOState.set_row``.  Returns the
-    batched state and {"R" (B, 3, 3), "t" (B, 3), "summary" (B,
-    len(SUMMARY_FIELDS))}.
-    """
+def _step_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState, images: torch.Tensor,
+                active: torch.Tensor, samplers: list) -> tuple[VOState, dict]:
+    """``track_step_batch`` on a batched state handed over to it: the
+    keyframe bodies write their rows of its map, window, keyframe ring and
+    keyframe count in place.  ``active`` is a (B,) bool tensor on the
+    state's device.  Reads nothing back outside ``device_cond``."""
     B = states.R.shape[0]
     dev = states.device
-    active = [bool(a) for a in torch.as_tensor(active).tolist()]
-    if len(active) != B or len(samplers) != B or images.shape[0] != B:
-        raise ValueError(f"track_step_batch: {B} states, {images.shape[0]} images, "
-                         f"{len(active)} flags and {len(samplers)} samplers")
-    if not any(active):
-        return states, {"R": states.R, "t": states.t,
-                        "summary": torch.zeros((B, len(SUMMARY_FIELDS)), dtype=torch.float32,
-                                               device=dev)}
     if images.dtype == torch.uint8:
         images = images.to(torch.float32) * (1.0 / 255.0)
     vo = cfg.vo
@@ -690,40 +664,36 @@ def track_step_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
                                     cfg.frontend.target_fill)
     R_pred, t_pred = se3_compose(states.vel_R, states.vel_t, states.R, states.t)
 
-    # The step's per-sequence results; an inactive row keeps these values,
-    # which track nothing.
-    n = feats.capacity
-    res = {"idx": torch.zeros((B, n), dtype=torch.int32, device=dev),
-           "mvalid": torch.zeros((B, n), dtype=torch.bool, device=dev),
-           "R": states.R.clone(), "t": states.t.clone(),
-           "inliers": torch.zeros((B, n), dtype=torch.bool, device=dev),
-           "rmse": torch.zeros(B, dtype=torch.float32, device=dev),
-           "num_inliers": torch.zeros(B, dtype=torch.int32, device=dev)}
-    last = states.last_tracking.tolist()                        # sync 1
-    tracked = [b for b in range(B) if active[b] and last[b]]
-    if tracked:
-        rows = None if len(tracked) == B else _device_rows(tracked, dev)
-        _assign(res, rows, _track_rows(cam, cfg, feats, states.map, rows, _take(R_pred, rows),
-                                       _take(t_pred, rows), vo.track_radius_px))
+    # The guided pass over every row (one K2 launch, one batched PnP); a row
+    # that lost its last frame overwrites its own with its relocalization.
+    res = _track_rows(cam, cfg, feats, states.map, R_pred, t_pred, vo.track_radius_px)
+    lost = active & ~states.last_tracking
+
+    def relocalize(b: int):
+        idx, mvalid, out = _relocalize(
+            cam, cfg, _tree_map(lambda x: x[b], states.map), feats.map(lambda x: x[b]),
+            R_pred[b], t_pred[b], samplers[b], ("reloc", states.frame_idx[b]))
+        for k, v in {"idx": idx, "mvalid": mvalid, **out}.items():
+            res[k][b] = v
+        return ()
+
     for b in range(B):
-        if active[b] and not last[b]:
-            # Lost last frame: sequence b relocalizes on its own (+1 sync).
-            idx, mvalid, out = _relocalize(
-                cam, cfg, _tree_map(lambda x: x[b], states.map), feats.map(lambda x: x[b]),
-                R_pred[b], t_pred[b], samplers[b], ("reloc", states.frame_idx[b]))
-            _assign(res, b, {"idx": idx, "mvalid": mvalid, **out})
+        device_cond(lost[b], relocalize, lambda b: (), (b,), names=("reloc", None))
 
     if vo.track_two_pass:
         n1 = res["num_inliers"]
-        second = ((n1 >= 15) & (n1 < vo.second_pass_below)).tolist()   # sync 2
-        again = [b for b in range(B) if active[b] and second[b]]
-        if again:
-            rows = None if len(again) == B else _device_rows(again, dev)
-            cur = {k: _take(v, rows) for k, v in res.items()}
-            new = _track_rows(cam, cfg, feats, states.map, rows, cur["R"], cur["t"], 8.0)
+        again = active & (n1 >= 15) & (n1 < vo.second_pass_below)
+
+        def second_pass(cur):
+            # Every row's second pass, one K2 launch; a row keeps it where it
+            # asked for it and found it better.
+            new = _track_rows(cam, cfg, feats, states.map, cur["R"], cur["t"], 8.0)
             better = (new["mvalid"].sum(-1) >= cur["mvalid"].sum(-1)) & (
                 new["num_inliers"] >= cur["num_inliers"])
-            _assign(res, rows, _select(better, new, cur))
+            return _select(again & better, new, cur)
+
+        res = device_cond(again.any(), second_pass, lambda cur: cur, (res,),
+                          names=("second_pass", None))
 
     n_in = res["num_inliers"]
     pose_finite = torch.isfinite(res["R"]).all((-2, -1)) & torch.isfinite(res["t"]).all(-1)
@@ -735,28 +705,36 @@ def track_step_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
     vel_id_R, vel_id_t = se3_identity(device=dev)
     use_vel = tracking & states.last_tracking
     frames_since_kf = states.frames_since_kf + 1
+    # An inactive row keeps its state.
     new_states = states.replace(
-        R=torch.where(tracking[:, None, None], res["R"], states.R),
-        t=torch.where(tracking[:, None], res["t"], states.t),
-        vel_R=torch.where(use_vel[:, None, None], vel_R_acc, vel_id_R),
-        vel_t=torch.where(use_vel[:, None], vel_t_acc, vel_id_t),
-        last_tracking=tracking,
-        frames_since_kf=frames_since_kf,
-        frame_idx=states.frame_idx + 1,
-        threshold=threshold,
+        R=_by_row(active & tracking, res["R"], states.R),
+        t=_by_row(active & tracking, res["t"], states.t),
+        vel_R=_by_row(active, _by_row(use_vel, vel_R_acc, vel_id_R), states.vel_R),
+        vel_t=_by_row(active, _by_row(use_vel, vel_t_acc, vel_id_t), states.vel_t),
+        last_tracking=_by_row(active, tracking, states.last_tracking),
+        frames_since_kf=_by_row(active, frames_since_kf, states.frames_since_kf),
+        frame_idx=_by_row(active, states.frame_idx + 1, states.frame_idx),
+        threshold=_by_row(active, threshold, states.threshold),
     )
     need_kf = tracking & (
         (frames_since_kf >= vo.keyframe_max_interval)
         | ((n_in < vo.keyframe_min_inliers)
            & (frames_since_kf >= vo.keyframe_min_interval))
         | (n_in < vo.keyframe_critical_inliers))
-    kf = need_kf.tolist()                                       # sync 3
+
+    def keyframe(b: int):
+        # Sequence b's keyframe and window BA, written into its row in place.
+        row = new_states.row(b)
+        new = _insert_keyframe(cam, cfg, row, feats.map(lambda x: x[b]), res["mvalid"][b],
+                               res["inliers"][b])
+        for dst, src in zip(tree_leaves(row), tree_leaves(new)):
+            if src is not dst:
+                dst.copy_(src)
+        return ()
+
+    insert = active & need_kf
     for b in range(B):
-        if active[b] and kf[b]:
-            # Sequence b's keyframe and window BA, on its row (+1 sync).
-            new_states = new_states.set_row(b, _insert_keyframe(
-                cam, cfg, new_states.row(b), feats.map(lambda x: x[b]), res["mvalid"][b],
-                res["inliers"][b]))
+        device_cond(insert[b], keyframe, lambda b: (), (b,), names=("keyframe", None))
 
     summary = torch.stack([
         feats.count.to(torch.float32),
@@ -768,32 +746,220 @@ def track_step_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
         res["rmse"],
         threshold,
     ], dim=-1)
-    if not all(active):
-        act = _device_rows(active, dev, torch.bool)
-        new_states = _tree_map(
-            lambda x, y: torch.where(act.view(B, *([1] * (x.dim() - 1))), x, y),
-            new_states, states)
-        summary = torch.where(act[:, None], summary, torch.zeros_like(summary))
+    summary = _by_row(active, summary, torch.zeros_like(summary))
     return new_states, {"R": new_states.R, "t": new_states.t, "summary": summary}
 
 
+def _flags_on(active, B: int, device: torch.device) -> torch.Tensor:
+    """The caller's ``active`` flags (host list, array or tensor) as a bool
+    tensor on ``device``; host flags are copied once, from pinned memory
+    without blocking on the card."""
+    flags = active if isinstance(active, torch.Tensor) else torch.as_tensor(
+        np.asarray(active, dtype=bool))
+    flags = flags.to(torch.bool)
+    if flags.device != device:
+        if flags.device.type == "cpu" and device.type == "cuda":
+            flags = flags.pin_memory()
+        flags = flags.to(device, non_blocking=True)
+    if flags.shape[0] != B:
+        raise ValueError(f"{flags.shape[0]} rows of flags for {B} sequences")
+    return flags
+
+
+def _host_flags(active) -> np.ndarray | None:
+    """The caller's flags as a host array where they are on the host; None
+    for flags on the card (reading them would synchronize)."""
+    if isinstance(active, torch.Tensor):
+        return active.numpy().astype(bool) if active.device.type == "cpu" else None
+    return np.asarray(active, dtype=bool)
+
+
+def track_step_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
+                     images: torch.Tensor, active, samplers: list[Sampler]
+                     ) -> tuple[VOState, dict]:
+    """One tracked frame of each of B independent sequences: the counterpart
+    of the JAX package's ``vmap(track_step)``, decision for decision each
+    sequence's own ``track_step``.
+
+    ``states`` is a batched ``VOState`` (``VOState.stack``; left as it
+    was), ``images`` (B, H, W) on its device, ``active`` (B,) bool (host
+    list or tensor): an inactive sequence keeps its state and records a
+    zero summary.  ``samplers[b]`` draws sequence b's relocalization
+    samples, under its own key ``("reloc", frame_idx)``, so b draws what
+    its ``track_step`` would.
+
+    Nothing reads the device back outside a ``device_cond``: the common
+    path runs over all B rows (extraction at each sequence's adaptive
+    threshold in one K1 launch, the guided pass in one K2 launch and one
+    batched PnP, the pose and velocity update, the summary), each rare
+    branch is a ``device_cond`` of its own: the relocalization of a row
+    that lost its last frame and the keyframe insertion with its window
+    BA, one a row on that row, and the second PnP pass, one masked batched
+    body run where any row asks for it.  Eagerly (the plain version) each
+    of those conditions reads its predicate.  Returns the batched state and
+    {"R" (B, 3, 3), "t" (B, 3), "summary" (B, len(SUMMARY_FIELDS))}.
+    """
+    B = states.R.shape[0]
+    if len(samplers) != B or images.shape[0] != B:
+        raise ValueError(f"track_step_batch: {B} states, {images.shape[0]} images and "
+                         f"{len(samplers)} samplers")
+    flags = _flags_on(active, B, states.device)
+    return _step_batch(cam, cfg, _tree_map(torch.clone, states), images, flags, samplers)
+
+
+# The branch bodies the batched graph's tally counts, summed over rows.
+BATCH_BRANCHES = ("reloc", "reloc_global", "second_pass", "keyframe", "ba")
+
+
+class BatchGraph(_StepGraph):
+    """``track_chunk_batch`` on the card as replays of one captured
+    batched step, the counterpart of the JAX package's jitted
+    ``vmap(track_chunk)``: each ``device_cond`` of ``track_step_batch``
+    (each row's relocalization with its global fallback, the second pass,
+    each row's keyframe insertion with its window BA) is a conditional
+    node, so a replay runs only the bodies its B frames take, and nothing
+    reads the device back.
+
+    Built by ``batch_graph`` for one camera, config, batch size, image
+    shape and dtype, device and sampler types, never for a seed: the
+    samplers' seeds are a (B,) int64 static buffer that the keyed draws
+    read.  It first warms the step with every body run on a copy of the
+    state, twice, the second time with any synchronization an error, then
+    captures it over static buffers: the batched state (its map, window
+    and ring written in place by the keyframe bodies, the rest by the
+    graph's last nodes), the B images, the (B,) ``active`` flags and the
+    seeds.  A failed capture raises.
+
+    Each replay adds the launches of the graph outside its bodies to the
+    kernels' counters at once; ``tally`` (int32, one slot a name of
+    ``BATCH_BRANCHES``, cumulative, summed over rows) counts on the device
+    the bodies that ran, and ``account`` adds their launches once the
+    caller has read it back.
+    """
+
+    def __init__(self, cam: PinholeCamera, cfg: SlamConfig, states: VOState,
+                 images: torch.Tensor, samplers: list[Sampler]):
+        dev = states.device
+        if dev.type != "cuda":
+            raise ValueError(f"BatchGraph: a state on {dev}; the graph runs on the card")
+        B = states.R.shape[0]
+        if images.shape[0] != B or len(samplers) != B:
+            raise ValueError(f"BatchGraph: {B} states, {images.shape[0]} images and "
+                             f"{len(samplers)} samplers")
+        self.static = _tree_map(torch.clone, states)
+        self.images = images.to(dev, copy=True)
+        self.active = torch.ones(B, dtype=torch.bool, device=dev)
+        self.seeds = torch.zeros(B, dtype=torch.int64, device=dev)
+        keyed = [s.keyed_on(self.seeds[b]) for b, s in enumerate(samplers)]
+
+        def step():
+            new, ys = _step_batch(cam, cfg, self.static, self.images, self.active, keyed)
+            for dst, src in zip(tree_leaves(self.static), tree_leaves(new)):
+                if src is not dst:
+                    dst.copy_(src)
+            return ys["summary"]
+
+        def warm_step():
+            _step_batch(cam, cfg, _tree_map(torch.clone, self.static), self.images,
+                        self.active, keyed)
+
+        with CAPTURE_LOCK, counters_kept():
+            warm_checked(warm_step, dev)
+            self._hold(capture(step, dev, BATCH_BRANCHES))
+
+    def track_chunk(self, states: VOState, images: torch.Tensor, active,
+                    samplers: list[Sampler]) -> tuple[VOState, dict]:
+        """``track_chunk_batch``'s result for (B, C, H, W) images and (B, C)
+        flags (host or device) on the card, with no host sync: the states
+        and the samplers' seeds loaded once, then per step one copy of its
+        images and flags into the static buffers, one replay and the
+        copies of its poses and summaries.  A step where the host's flags
+        show no active row is not replayed.  The returned state is a copy
+        of the static one."""
+        B, C = images.shape[:2]
+        dev = self.images.device
+        if images.shape[:1] + images.shape[2:] != self.images.shape or \
+                images.dtype != self.images.dtype:
+            raise ValueError(f"BatchGraph: images {tuple(images.shape)} {images.dtype} for "
+                             f"a graph of {tuple(self.images.shape)} {self.images.dtype}")
+        if len(samplers) != B:
+            raise ValueError(f"BatchGraph: {len(samplers)} samplers for {B} sequences")
+        host = _host_flags(active)
+        flags = _flags_on(active, B, dev)
+        if images.device != dev:
+            images = images.pin_memory().to(dev, non_blocking=True)
+        self._load(states)
+        seeds = torch.tensor([seed_word(s) for s in samplers], dtype=torch.int64)
+        self.seeds.copy_(seeds.pin_memory(), non_blocking=True)
+        Rs = torch.empty((B, C, 3, 3), dtype=torch.float32, device=dev)
+        ts = torch.empty((B, C, 3), dtype=torch.float32, device=dev)
+        summaries = torch.zeros((B, C, len(SUMMARY_FIELDS)), dtype=torch.float32, device=dev)
+        n = 0
+        for c in range(C):
+            if host is None or host[:, c].any():
+                self.images.copy_(images[:, c], non_blocking=True)
+                self.active.copy_(flags[:, c], non_blocking=True)
+                self.captured.graph.replay()
+                summaries[:, c].copy_(self.summary)
+                n += 1
+            Rs[:, c].copy_(self.static.R)
+            ts[:, c].copy_(self.static.t)
+        self.replays += n
+        add_launches([n * k for k in self.captured.base])
+        return _tree_map(torch.clone, self.static), {"R": Rs, "t": ts, "summary": summaries}
+
+
+_BATCH_GRAPHS: dict = {}
+
+
+def batch_graph(cam: PinholeCamera, cfg: SlamConfig, states: VOState, images: torch.Tensor,
+                samplers: list[Sampler]) -> BatchGraph:
+    """The ``BatchGraph`` of this camera, config, batch size, (B, H, W)
+    image shape and dtype, device and sampler types, captured at first use
+    and kept for the process (graphs hold no state between chunks)."""
+    key = (cam, cfg, tuple(images.shape), images.dtype, states.device,
+           tuple(type(s) for s in samplers))
+    if key not in _BATCH_GRAPHS:
+        _BATCH_GRAPHS[key] = BatchGraph(cam, cfg, states, images, samplers)
+    return _BATCH_GRAPHS[key]
+
+
 def track_chunk_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
-                      images: torch.Tensor, active, samplers: list[Sampler]
-                      ) -> tuple[VOState, dict]:
+                      images: torch.Tensor, active, samplers: list[Sampler],
+                      graph: bool = True) -> tuple[VOState, dict]:
     """Track B independent sequences a chunk of C frames each: the
     counterpart of the JAX package's ``vmap(track_chunk)``, each sequence
     as its own ``track_chunk`` would track it.
 
     ``images`` (B, C, H, W), ``active`` (B, C) bool (host lists or
-    tensors), ``samplers`` one a sequence; see ``track_step_batch``.
+    tensors), ``samplers`` one a sequence; see ``track_step_batch``.  On
+    the card the chunk runs through the captured ``BatchGraph`` of this
+    camera, config and shape (the launches of its branch bodies reach the
+    kernels' counters when the caller reads its tally back and calls
+    ``account``); ``graph=False``, or a state elsewhere, runs the plain
+    ``track_step_batch`` a step, which the card's comparisons run beside
+    it.  A step where the host's flags show no active row is skipped.
     Returns the batched state and {"R" (B, C, 3, 3), "t" (B, C, 3),
     "summary" (B, C, len(SUMMARY_FIELDS))}.
     """
-    active = torch.as_tensor(active).tolist()
+    dev = states.device
+    if dev.type == "cuda" and graph:
+        return batch_graph(cam, cfg, states, images[:, 0], samplers).track_chunk(
+            states, images, active, samplers)
+    B, C = images.shape[:2]
+    if len(samplers) != B:
+        raise ValueError(f"track_chunk_batch: {B} sequences and {len(samplers)} samplers")
+    host = _host_flags(active)
+    flags = _flags_on(active, B, dev)
+    states = _tree_map(torch.clone, states)
     Rs, ts, summaries = [], [], []
-    for c in range(images.shape[1]):
-        states, ys = track_step_batch(cam, cfg, states, images[:, c],
-                                      [a[c] for a in active], samplers)
+    for c in range(C):
+        if host is not None and not host[:, c].any():
+            ys = {"R": states.R, "t": states.t,
+                  "summary": torch.zeros((B, len(SUMMARY_FIELDS)), dtype=torch.float32,
+                                         device=dev)}
+        else:
+            states, ys = _step_batch(cam, cfg, states, images[:, c], flags[:, c], samplers)
         Rs.append(ys["R"])
         ts.append(ys["t"])
         summaries.append(ys["summary"])

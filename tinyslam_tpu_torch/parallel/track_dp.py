@@ -6,7 +6,8 @@ Tracking within one sequence is sequential, so the parallelism is across
 sequences: B independent camera streams, each its own ``VOState``, split
 over the mesh's ``frame`` axis.  Each rank tracks its contiguous B/F
 sequences as one batch (``models/vo_device.py:track_chunk_batch``: one K1
-launch a step for all of them, one K2 launch a guided pass), and one
+launch a step for all of them, one K2 launch a guided pass; on the card
+one replay of its captured ``BatchGraph`` a step), and one
 gather over the axis at the end of the chunk returns every sequence's
 state and outputs to every rank, as ``frontend_dp`` returns its batch.
 Ranks on the ``landmark`` axis replicate.

@@ -20,7 +20,10 @@ are: their uniforms are a function of the sampler's seed, the stream and
 the key's number alone (``keyed_uniform``), computed on the device the
 number lies on from integer hashes, so the CPU and the card get the same
 bits, nothing reads the number back, and a captured CUDA graph computes
-each replay's own draws.  A frame's or a candidate's draws do not depend
+each replay's own draws.  The seed, too, may be a device scalar
+(``Sampler.keyed_on``): a captured graph reads it from its static
+buffers, so that one graph serves every seed.  A frame's or a
+candidate's draws do not depend
 on what was drawn before them, and both attempts of one relocalization
 draw the same uniforms, as the reference hands one key to both.  The
 other streams (``"two_view"``, ``"host_reloc"``) draw in call order on
@@ -31,6 +34,8 @@ without blocking, so drawing never synchronizes with the device.
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -59,24 +64,38 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def keyed_uniform(seed: int, stream: int, n, shape, device) -> torch.Tensor:
+def _word(x, dev: torch.device):
+    """The low 32 bits of ``x``: of a host int as an int, of an integer
+    tensor of one element as an int64 0-d tensor on ``dev``, read there
+    and never on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev).reshape(()).to(torch.int64) & _M32
+    return int(x) & _M32
+
+
+def keyed_uniform(seed, stream: int, n, shape, device) -> torch.Tensor:
     """float32 uniforms in [0, 1) of ``shape`` on ``device`` that depend on
     (``seed``, ``stream``, ``n``) alone: element i is the top 24 bits of a
-    hash of the key and i.  ``n`` is a host int or an integer tensor of
-    one element on ``device``, read there and never on the host."""
+    hash of the key and i.  ``seed`` and ``n`` are each a host int or an
+    integer tensor of one element on ``device``, read there and never on
+    the host; a seed gives the same bits either way (its low 32 bits
+    count)."""
     dev = torch.device(device)
     numel = 1
     for s in shape:
         numel *= int(s)
-    head = _mix32(_mul32(seed & _M32, 0x9E3779B1) ^ stream)
-    if isinstance(n, torch.Tensor):
-        key = _mix32(head ^ _mix32(n.to(dev).reshape(()).to(torch.int64) & _M32))
-    else:
-        key = torch.full((), _mix32(head ^ _mix32(int(n) & _M32)), dtype=torch.int64,
-                         device=dev)
+    key = _mix32(_mix32(_mul32(_word(seed, dev), 0x9E3779B1) ^ stream) ^ _mix32(_word(n, dev)))
+    if not isinstance(key, torch.Tensor):
+        key = torch.full((), key, dtype=torch.int64, device=dev)
     i = torch.arange(numel, dtype=torch.int64, device=dev)
     h = _mix32(key ^ _mix32(_mul32(i, 0x9E3779B1)))
     return ((h >> 8).to(torch.float32) * (1.0 / (1 << 24))).reshape(tuple(shape))
+
+
+def seed_word(sampler) -> int:
+    """The 32 bits of ``sampler``'s seed that its keyed draws hash: what a
+    captured graph's seed buffer holds for it."""
+    return int(sampler.seed) & _M32
 
 
 class Sampler:
@@ -86,6 +105,16 @@ class Sampler:
     def __init__(self, seed: int = 0):
         self.seed = int(seed)
         self.generator = torch.Generator().manual_seed(self.seed)
+
+    def keyed_on(self, seed: torch.Tensor) -> "Sampler":
+        """A shallow copy whose keyed streams hash ``seed``, a 0-d integer
+        tensor on the device (a captured graph's seed buffer), in place of
+        this sampler's seed.  It shares this sampler's generator, so the
+        call-order streams go on in order, and this sampler (whose state a
+        checkpoint saves) is left as it was."""
+        out = copy.copy(self)
+        out.seed = seed
+        return out
 
     def uniform(self, shape, device, key=None) -> torch.Tensor:
         """float32 uniforms in [0, 1) of ``shape`` on ``device``."""
