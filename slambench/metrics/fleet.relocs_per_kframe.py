@@ -1,0 +1,11 @@
+"""Relocalization frames a 1,000 frames over all streams: the growth of
+the captured step's ``reloc`` tally (a row's frame after a lost one,
+counted on the card, summed over rows) over the window's frames."""
+
+from slambench.chunks import delta, window
+
+
+def read(rec):
+    chunks = window(rec)
+    k = delta(chunks, "tally", "reloc") if chunks else None
+    return 1e3 * k / rec["attempted"] if k is not None and rec.get("attempted") else None

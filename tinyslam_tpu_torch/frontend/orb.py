@@ -23,6 +23,7 @@ from tinyslam_tpu_torch.ops.compact import select_topk
 from tinyslam_tpu_torch.ops.fast_cuda import fast_pyramid_maps
 from tinyslam_tpu_torch.ops.image import build_pyramid, rgb_to_gray
 from tinyslam_tpu_torch.types import Features
+from tinyslam_tpu_torch.utils.cuda_graph import device_span
 from tinyslam_tpu_torch.utils.profiling import named_scope
 
 
@@ -89,8 +90,10 @@ def extract_batch(images: torch.Tensor, threshold, cfg: FrontendConfig) -> Featu
     if t.dim() > 0 and t.shape != gray.shape[:1]:
         raise ValueError(f"extract_batch: {tuple(t.shape)} thresholds for "
                          f"{gray.shape[0]} frames")
-    maps = fast_pyramid_maps(build_pyramid(gray, cfg.num_levels), t.reshape(t.shape or (1,)),
-                             cfg.border, cfg.streak_length, cfg.blur_sigma)
+    levels = build_pyramid(gray, cfg.num_levels)
+    with device_span("k1"):         # the K1 launch's span in a captured step
+        maps = fast_pyramid_maps(levels, t.reshape(t.shape or (1,)), cfg.border,
+                                 cfg.streak_length, cfg.blur_sigma)
     return _features(maps, cfg, gray.device)
 
 

@@ -91,10 +91,11 @@ class VOStats:
 def _match_to_map(feats: Features, map_state: MapState, max_distance: int,
                   ratio: float, cam: PinholeCamera | None = None,
                   R: torch.Tensor | None = None, t: torch.Tensor | None = None,
-                  radius_px: float = 20.0):
+                  radius_px: float = 20.0, span: str | None = None):
     """Match features to the map.  With a predicted pose (cam, R, t) the
     matching is GUIDED: a map point is only eligible within ``radius_px`` of
     its predicted projection.  Returns (idx (N,) int32, valid (N,) bool).
+    ``span`` names K2's span in a captured step (``match_descriptors``).
 
     A leading B on the features, the map and the pose matches B sequences
     at once (one K2 launch), each guided by its own pose."""
@@ -113,7 +114,7 @@ def _match_to_map(feats: Features, map_state: MapState, max_distance: int,
     m = match_descriptors(
         feats.desc, feats.valid, map_state.desc, map_state.valid,
         max_distance=max_distance, ratio=ratio, cross_check=True,
-        xy_a=xy_a, proj_b=proj, radius_px=radius_px)
+        xy_a=xy_a, proj_b=proj, radius_px=radius_px, span=span)
     return m["idx_b"], m["valid"]
 
 

@@ -41,6 +41,10 @@ card a chunk of B streams runs as replays of one captured step
 (``BatchGraph``), one replay a step.  Neither graph is keyed by a seed:
 the keyed draws read the samplers' seeds from a static buffer
 (``Sampler.keyed_on``), so one graph serves every seed.
+
+Each chunk of either graph, and of ``track_chunk_batch``'s plain path,
+leaves a record of its host times and, on the card, of its replays'
+spans and its bodies' nanoseconds (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ from tinyslam_tpu_torch.models.vo import (
 )
 from tinyslam_tpu_torch.ops.hamming import match_descriptors
 from tinyslam_tpu_torch.types import Features, from_numpy, row, set_row, to_numpy
+from tinyslam_tpu_torch.utils import spans
 from tinyslam_tpu_torch.utils.cuda_graph import (
     CAPTURE_LOCK,
     add_launches,
@@ -573,7 +578,7 @@ class ChunkGraph(_StepGraph):
             track_step(cam, cfg, _tree_map(torch.clone, state), self.image, keyed)
 
         with CAPTURE_LOCK, counters_kept():
-            warm_checked(warm_step, dev)
+            warm_checked(warm_step, dev, BRANCHES)
             self._hold(capture(step, dev, BRANCHES))
 
     def draw_as(self, sampler: Sampler) -> None:
@@ -591,8 +596,10 @@ class ChunkGraph(_StepGraph):
         if images.shape[1:] != self.image.shape or images.dtype != self.image.dtype:
             raise ValueError(f"ChunkGraph: images {tuple(images.shape)} {images.dtype} for "
                              f"a graph of {tuple(self.image.shape)} {self.image.dtype}")
+        rec = spans.Chunk("chunk", images.shape[0])
         active = torch.as_tensor(active).tolist()
         self._load(state)
+        rec.loaded()
         B, dev = images.shape[0], self.image.device
         Rs = torch.empty((B, 3, 3), dtype=torch.float32, device=dev)
         ts = torch.empty((B, 3), dtype=torch.float32, device=dev)
@@ -606,9 +613,12 @@ class ChunkGraph(_StepGraph):
                 n += 1
             Rs[c].copy_(self.static.R)
             ts[c].copy_(self.static.t)
+        rec.launched()
         self.replays += n
         add_launches([n * k for k in self.captured.base])
-        return _tree_map(torch.clone, self.static), {"R": Rs, "t": ts, "summary": summaries}
+        out = _tree_map(torch.clone, self.static)
+        rec.close(self.captured, n)
+        return out, {"R": Rs, "t": ts, "summary": summaries}
 
 _GRAPHS: dict = {}
 
@@ -635,7 +645,7 @@ def _track_rows(cam: PinholeCamera, cfg: SlamConfig, feats: Features, map_state:
     {"idx", "mvalid", "R", "t", "inliers", "num_inliers", "rmse"}, each
     with a leading B."""
     idx, mvalid = _match_to_map(feats, map_state, cfg.matcher.max_distance, cfg.matcher.ratio,
-                                cam=cam, R=R0, t=t0, radius_px=radius_px)
+                                cam=cam, R=R0, t=t0, radius_px=radius_px, span="k2.track")
     out = _track_pnp(cam, feats, map_state, idx, mvalid, R0, t0, iters=cfg.vo.pnp_iters,
                      inlier_px=cfg.vo.pnp_inlier_px)
     return {"idx": idx, "mvalid": mvalid, **{k: out[k] for k in _POSE_FIELDS}}
@@ -809,6 +819,9 @@ def track_step_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
 
 # The branch bodies the batched graph's tally counts, summed over rows.
 BATCH_BRANCHES = ("reloc", "reloc_global", "second_pass", "keyframe", "ba")
+# The sites the batched graph stamps besides its bodies (``device_span``):
+# K1, and K2 in the guided pass and in the second pass (one shape).
+BATCH_SITES = ("k1", "k2.track")
 
 
 class BatchGraph(_StepGraph):
@@ -834,7 +847,9 @@ class BatchGraph(_StepGraph):
     kernels' counters at once; ``tally`` (int32, one slot a name of
     ``BATCH_BRANCHES``, cumulative, summed over rows) counts on the device
     the bodies that ran, and ``account`` adds their launches once the
-    caller has read it back.
+    caller has read it back.  ``captured.stamps`` times each replay, each
+    body and the sites of ``BATCH_SITES`` on the card (``utils/spans.py``);
+    each chunk leaves a record of them (``spans.Chunk``).
     """
 
     def __init__(self, cam: PinholeCamera, cfg: SlamConfig, states: VOState,
@@ -864,8 +879,8 @@ class BatchGraph(_StepGraph):
                         self.active, keyed)
 
         with CAPTURE_LOCK, counters_kept():
-            warm_checked(warm_step, dev)
-            self._hold(capture(step, dev, BATCH_BRANCHES))
+            warm_checked(warm_step, dev, BATCH_BRANCHES, BATCH_SITES)
+            self._hold(capture(step, dev, BATCH_BRANCHES, sites=BATCH_SITES))
 
     def track_chunk(self, states: VOState, images: torch.Tensor, active,
                     samplers: list[Sampler]) -> tuple[VOState, dict]:
@@ -884,6 +899,7 @@ class BatchGraph(_StepGraph):
                              f"a graph of {tuple(self.images.shape)} {self.images.dtype}")
         if len(samplers) != B:
             raise ValueError(f"BatchGraph: {len(samplers)} samplers for {B} sequences")
+        rec = spans.Chunk("batch", C)
         host = _host_flags(active)
         flags = _flags_on(active, B, dev)
         if images.device != dev:
@@ -891,6 +907,7 @@ class BatchGraph(_StepGraph):
         self._load(states)
         seeds = torch.tensor([seed_word(s) for s in samplers], dtype=torch.int64)
         self.seeds.copy_(seeds.pin_memory(), non_blocking=True)
+        rec.loaded()
         Rs = torch.empty((B, C, 3, 3), dtype=torch.float32, device=dev)
         ts = torch.empty((B, C, 3), dtype=torch.float32, device=dev)
         summaries = torch.zeros((B, C, len(SUMMARY_FIELDS)), dtype=torch.float32, device=dev)
@@ -904,9 +921,12 @@ class BatchGraph(_StepGraph):
                 n += 1
             Rs[:, c].copy_(self.static.R)
             ts[:, c].copy_(self.static.t)
+        rec.launched()
         self.replays += n
         add_launches([n * k for k in self.captured.base])
-        return _tree_map(torch.clone, self.static), {"R": Rs, "t": ts, "summary": summaries}
+        out = _tree_map(torch.clone, self.static)
+        rec.close(self.captured, n)
+        return out, {"R": Rs, "t": ts, "summary": summaries}
 
 
 _BATCH_GRAPHS: dict = {}
@@ -949,9 +969,11 @@ def track_chunk_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
     B, C = images.shape[:2]
     if len(samplers) != B:
         raise ValueError(f"track_chunk_batch: {B} sequences and {len(samplers)} samplers")
+    rec = spans.Chunk("plain", C)
     host = _host_flags(active)
     flags = _flags_on(active, B, dev)
     states = _tree_map(torch.clone, states)
+    rec.loaded()
     Rs, ts, summaries = [], [], []
     for c in range(C):
         if host is not None and not host[:, c].any():
@@ -963,8 +985,10 @@ def track_chunk_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
         Rs.append(ys["R"])
         ts.append(ys["t"])
         summaries.append(ys["summary"])
-    return states, {"R": torch.stack(Rs, 1), "t": torch.stack(ts, 1),
-                    "summary": torch.stack(summaries, 1)}
+    rec.launched()
+    out = {"R": torch.stack(Rs, 1), "t": torch.stack(ts, 1), "summary": torch.stack(summaries, 1)}
+    rec.close()
+    return states, out
 
 
 @dataclass

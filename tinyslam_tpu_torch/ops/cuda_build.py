@@ -58,6 +58,10 @@ _SIGNATURES = {
     "tinyslam_graph_if_end": [_P],                 # body stream
     "tinyslam_graph_while_begin": [_P, _P, _P, _P],  # stream, pred, body stream, handle out
     "tinyslam_graph_while_end": [_P, ctypes.c_ulonglong, _P],  # body stream, handle, pred
+    "tinyslam_stamp_mark": [_P, _P],               # slot, stream
+    "tinyslam_stamp_add": [_P, _P, _P],            # begin, accumulator, stream
+    "tinyslam_stamp_step": [_P, _P, _I, _P],       # begin, replay ring, its pairs, stream
+    "tinyslam_stamp_calibrate": [_P, _I, _P],      # stream, trials, out (3 int64)
     "tinyslam_cuda_error_string": [_I],
 }
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from tinyslam_tpu_torch.types import descriptor_signs
+from tinyslam_tpu_torch.utils.cuda_graph import device_span
 
 BIG = 1 << 14  # distance of an invalid or gated-out pair (> 256)
 
@@ -69,7 +70,7 @@ def match_reduce_plain(desc_a, valid_a, desc_b, valid_b, xy_a=None,
 def match_descriptors(desc_a, valid_a, desc_b, valid_b, max_distance: int = 64,
                       ratio: float = 0.9, cross_check: bool = True,
                       pair_mask=None, xy_a=None, proj_b=None,
-                      radius_px: float = 0.0) -> dict:
+                      radius_px: float = 0.0, span: str | None = None) -> dict:
     """Mutual-nearest Hamming matching with Lowe ratio test.
 
     Guided matching (map points eligible only near their predicted
@@ -82,13 +83,16 @@ def match_descriptors(desc_a, valid_a, desc_b, valid_b, max_distance: int = 64,
 
     Returns dict with idx_b (N,) int32, dist (N,) int32 and valid (N,) bool
     (distance bound, ratio test and cross-check passed), (B, N) with a B.
+    ``span`` names the reduction's span in a captured step
+    (``utils/cuda_graph.py:device_span``).
     """
     from tinyslam_tpu_torch.ops.match_cuda import match_reduce
 
     n = desc_a.shape[-2]
-    best, second, idx_b, col_idx = match_reduce(
-        desc_a, valid_a, desc_b, valid_b, xy_a=xy_a, proj_b=proj_b,
-        radius_px=radius_px, pair_mask=pair_mask)
+    with device_span(span):
+        best, second, idx_b, col_idx = match_reduce(
+            desc_a, valid_a, desc_b, valid_b, xy_a=xy_a, proj_b=proj_b,
+            radius_px=radius_px, pair_mask=pair_mask)
     ok = best <= max_distance
     ok &= best.to(torch.float32) <= ratio * second.to(torch.float32)
     if cross_check:

@@ -29,7 +29,12 @@ slot of a device tally when it runs, and the capture records the kernel
 launches each body made (counted by ``launch_counters`` while it was
 captured, its nested bodies excluded), so that a caller can keep the
 kernels' Python launch counters true under replays: a replay makes no
-Python call (``add_launches``).
+Python call (``add_launches``).  Each named body also adds the
+nanoseconds it ran to its slot of the capture's ``tally_ns``, and a step
+captured with names records each replay's span on the card, by stamp
+kernels that read the card's timer (``utils/spans.py``);
+``device_span(name)`` stamps a site that is not a body, into a slot that
+the capture names in ``sites``.
 
 ``device_loop(iters, step, carry)`` runs ``carry, y = step(carry)``
 ``iters`` times and returns the last carry and the ys stacked: eagerly a
@@ -52,6 +57,8 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+
+from tinyslam_tpu_torch.utils import spans
 
 _MODE: contextvars.ContextVar = contextvars.ContextVar("tinyslam_cond_mode", default=None)
 
@@ -100,8 +107,8 @@ def device_cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
     if mode is None:
         return true_fn(*operands) if bool(pred) else false_fn(*operands)
     if isinstance(mode, _Warm):
-        out = mode.run(true_fn, operands)
-        _same_form(tree_leaves(out), tree_leaves(mode.run(false_fn, operands)))
+        out = mode.run(true_fn, operands, names[0])
+        _same_form(tree_leaves(out), tree_leaves(mode.run(false_fn, operands, names[1])))
         return out
     return mode.if_else(pred, true_fn, false_fn, operands, names)
 
@@ -121,6 +128,20 @@ def device_loop(iters: int, step: Callable, carry):
         carry, y = mode.run(step, (carry,))
         return carry, y[None].expand(iters, *y.shape).clone()
     return mode.loop(iters, step, carry)
+
+
+@contextlib.contextmanager
+def device_span(name: str | None):
+    """Stamp the work launched inside the ``with`` as the span ``name``:
+    inside a capture whose ``sites`` name it, its nanoseconds add up in the
+    capture's ``tally_ns``; inside ``warm`` the stamps run into a scratch
+    buffer; eagerly, or for a name the capture lacks, nothing."""
+    mode = _MODE.get()
+    if mode is None or name is None:
+        yield
+        return
+    with mode.span(name):
+        yield
 
 
 MAX_DEPTH = 4           # conditional nodes nested in one another
@@ -155,12 +176,14 @@ class _Warm:
     the first time (a library's workspace for the stream) exists before
     the capture."""
 
-    def __init__(self, device):
+    def __init__(self, device, stamped: tuple = ()):
         dev = None if device is None else indexed_device(device)
-        self.streams = _body_streams(dev) if dev is not None and dev.type == "cuda" else None
+        card = dev is not None and dev.type == "cuda"
+        self.streams = _body_streams(dev) if card else None
+        self.stamps = spans.Stamps(stamped, dev) if card and stamped else None
         self.depth = 0
 
-    def run(self, fn: Callable, operands: tuple):
+    def run(self, fn: Callable, operands: tuple, name=None):
         if self.streams is None:
             return fn(*operands)
         cur, body = torch.cuda.current_stream(), self.streams[self.depth]
@@ -168,19 +191,34 @@ class _Warm:
         self.depth += 1
         try:
             with torch.cuda.stream(body):
-                out = fn(*operands)
+                with self.span(name):
+                    out = fn(*operands)
         finally:
             self.depth -= 1
         cur.wait_stream(body)
         return out
 
+    def span(self, name):
+        """The spans the capture will stamp, into a scratch buffer."""
+        if self.stamps is None:
+            return contextlib.nullcontext()
+        return self.stamps.span(name)
 
-def warm(fn: Callable, device=None):
+
+def warm(fn: Callable, device=None, names: tuple = (), sites: tuple = ()):
     """``fn()`` with every ``device_cond`` in it running both branches
-    (on ``device``'s body streams where it is a card)."""
-    token = _MODE.set(_Warm(device))
+    (on ``device``'s body streams where it is a card).  Given the
+    ``names`` and ``sites`` of the ``capture`` to come, it runs on a card
+    the stamps that the capture will hold, into a scratch buffer."""
+    mode = _Warm(device, tuple(names) + tuple(sites))
+    token = _MODE.set(mode)
     try:
-        return fn()
+        if mode.stamps is not None:
+            mode.stamps.step_begin()
+        out = fn()
+        if mode.stamps is not None:
+            mode.stamps.step_end()
+        return out
     finally:
         _MODE.reset(token)
 
@@ -193,17 +231,18 @@ def warm(fn: Callable, device=None):
 CAPTURE_LOCK = threading.RLock()
 
 
-def warm_checked(fn: Callable, device) -> None:
-    """``warm(fn, device)`` twice, the second time with every synchronizing
-    call an error: a step that reads the device back cannot be captured,
-    and a capture broken midway leaves the device's graph objects in a
-    state that is not safe to destroy.  Raises where ``fn`` synchronizes."""
-    warm(fn, device)
+def warm_checked(fn: Callable, device, names: tuple = (), sites: tuple = ()) -> None:
+    """``warm(fn, device, names, sites)`` twice, the second time with every
+    synchronizing call an error: a step that reads the device back cannot
+    be captured, and a capture broken midway leaves the device's graph
+    objects in a state that is not safe to destroy.  Raises where ``fn``
+    synchronizes."""
+    warm(fn, device, names, sites)
     with CAPTURE_LOCK:
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            warm(fn, device)
+            warm(fn, device, names, sites)
         finally:
             torch.cuda.set_sync_debug_mode(mode)
 
@@ -255,14 +294,17 @@ def _route_thread_to_pool(index: int, pool) -> None:
 
 
 class _Recorder:
-    """The state of one capture: the tally's slots, the launches of each
-    named body, and the streams of the bodies."""
+    """The state of one capture: the tally's slots, the stamps of the step,
+    of its named bodies and of its ``sites``, the launches of each named
+    body, and the streams of the bodies."""
 
-    def __init__(self, names: tuple, device: torch.device):
+    def __init__(self, names: tuple, device: torch.device, sites: tuple = ()):
         self.device = device
         self.streams = _body_streams(device)
         self.slots = {name: i for i, name in enumerate(names)}
         self.tally = torch.zeros(len(names), dtype=torch.int32, device=device)
+        stamped = tuple(names) + tuple(sites)
+        self.stamps = spans.Stamps(stamped, device) if stamped else None
         self.body_launches: dict[str, tuple] = {}
         self.in_bodies = [0] * len(launch_counters())  # launches inside the outermost bodies
         self.in_loops = [0] * len(self.in_bodies)  # launches of the loops' later turns
@@ -290,7 +332,7 @@ class _Recorder:
             body.cuda_stream), "tinyslam_graph_if_begin")
         self._nested.append([0] * len(start))
         try:
-            with torch.cuda.stream(body):
+            with torch.cuda.stream(body), self.span(name):
                 out = make()
                 if name is not None:
                     i = self.slots[name]
@@ -311,6 +353,11 @@ class _Recorder:
         outer = self._nested[-1] if self._nested else self.in_bodies
         outer[:] = [a + b for a, b in zip(outer, total)]
         return out
+
+    def span(self, name: str):
+        if self.stamps is None:
+            return contextlib.nullcontext()
+        return self.stamps.span(name)
 
     def if_else(self, pred, true_fn, false_fn, operands, names):
         # One byte the two set_condition launches read, alive across both.
@@ -404,7 +451,10 @@ class Captured:
     ``base`` those of a replay outside every branch's body (a loop's body
     counted once a turn), ``body_launches[name]`` those of a named branch
     (one set each time it runs), and ``turns``: each loop's turn counter,
-    on the device, as the last replay left it."""
+    on the device, as the last replay left it; ``stamps`` (a
+    ``spans.Stamps``, None for a capture without names or sites): each
+    replay's span and ``tally_ns``, the nanoseconds of each named body and
+    site."""
 
     graph: torch.cuda.CUDAGraph
     outputs: object
@@ -416,12 +466,19 @@ class Captured:
     instantiate_s: float
     pool_bytes: int
     turns: tuple = ()
+    stamps: spans.Stamps | None = None
 
 
-def capture(fn: Callable, device, names: tuple, pool=None) -> Captured:
+def capture(fn: Callable, device, names: tuple, pool=None, sites: tuple = ()) -> Captured:
     """Capture ``fn()`` (on a side stream, after a synchronize of the
     whole device; hold ``CAPTURE_LOCK``) into a CUDA graph whose
-    ``device_cond``s are conditional nodes, and instantiate it.
+    ``device_cond``s are conditional nodes, and instantiate it.  Where
+    ``names`` or ``sites`` name a span, the graph's first and last nodes
+    stamp each replay's span, and each named body and each ``device_span``
+    of ``sites`` adds its nanoseconds to its slot of ``stamps.tally_ns``
+    (``names`` first, then ``sites``); the card's timer is calibrated
+    against the host's clock first (``spans.calibrate``).  Without a name
+    the graph holds no stamp and ``stamps`` is None.
     The capture advances the kernels' launch counters once for every body;
     the caller restores them (``counters_kept``).
     ``pool`` is the memory pool of the graph's allocations
@@ -433,9 +490,11 @@ def capture(fn: Callable, device, names: tuple, pool=None) -> Captured:
     dev = indexed_device(device)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     pool = torch.cuda.graph_pool_handle() if pool is None else pool
-    rec = _Recorder(tuple(names), dev)
+    rec = _Recorder(tuple(names), dev, tuple(sites))
     stream = _graph_streams(dev)[0]
     torch.cuda.synchronize(dev)
+    if rec.stamps is not None:
+        spans.calibrate(dev)
     reserved = torch.cuda.memory_reserved(dev)
     start = launch_counters()
     t0 = time.perf_counter()
@@ -445,7 +504,11 @@ def capture(fn: Callable, device, names: tuple, pool=None) -> Captured:
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 _route_thread_to_pool(dev.index, pool)
+                if rec.stamps is not None:
+                    rec.stamps.step_begin()
                 outputs = fn()
+                if rec.stamps is not None:
+                    rec.stamps.step_end()
             except BaseException:
                 _abandon(graph, dev.index, pool)
                 raise
@@ -462,7 +525,7 @@ def capture(fn: Callable, device, names: tuple, pool=None) -> Captured:
                     base=base, body_launches=dict(rec.body_launches), capture_s=t1 - t0,
                     instantiate_s=t2 - t1,
                     pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
-                    turns=tuple(rec.turns))
+                    turns=tuple(rec.turns), stamps=rec.stamps)
 
 
 class Program:
