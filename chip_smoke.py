@@ -18,7 +18,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      2048 x 2048; and with an explicit (N, M) pair mask (not on the main
      path): the r=20 gate written out as a mask (equal to the guided
      result too) at 2048 x 8192 and a random third of the pairs at 2048 x
-     2048;
+     2048; then the keyframe triangulation's duplicate test and local
+     depth band (``ops/dupband_cuda.py``) at 2048 x 8192 on phase 4's real
+     features and seeded map, bit-equal to its plain version;
   5. the tracked-frame slice at full width with keyframes off
      (``slice_config()``): frame 0 seeds the map at its ray-cast 3D points,
      DeviceVO tracks frames 1-24 of the bench orbit on the card; every
@@ -54,7 +56,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      PyTorch as the plain version, one ``index_add_`` on the card as the
      library call), each kernel's bound from this run's shapes, and the
      device time (profiler) of one keyframe insertion, one relocalization
-     frame and one graph solve;
+     frame and one graph solve; the duplicate-test kernel beside its plain
+     version and its bound, its launches and the rows that took its
+     overflow pass over the smoke;
   8. DeviceVO from frame 0 under the default ``SlamConfig()``, no state
      handed over, on the plain path (``graph=False``: (d) and (g) read its
      Python calls per attempt; phase 17 runs the same frames through the
@@ -638,16 +642,17 @@ def _graph_phase(cam, frames, dev, smi, kf_run, boot_run):
     from tinyslam_tpu_torch import SlamConfig
     from tinyslam_tpu_torch.models import vo_device as vd
     from tinyslam_tpu_torch.models.vo_device import BRANCHES, DeviceVO, VOState
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda
     from tinyslam_tpu_torch.utils.draws import Sampler
 
     cfg = SlamConfig()
     failures = []
-    total = {"fast_score_map_fused": 0, "match_reduce_streaming": 0}
+    total = {"fast_score_map_fused": 0, "match_reduce_streaming": 0, "dup_band": 0}
 
     def counted():
         out = {"fast_score_map_fused": fast_cuda.LAUNCHES,
-               "match_reduce_streaming": match_cuda.LAUNCHES}
+               "match_reduce_streaming": match_cuda.LAUNCHES,
+               "dup_band": dupband_cuda.LAUNCHES}
         for k, v in out.items():
             total[k] += v
         return out
@@ -655,7 +660,7 @@ def _graph_phase(cam, frames, dev, smi, kf_run, boot_run):
     # a. Phase 6's seeded frames 1-188 on the plain path (phase 6 ran them
     # through the graph).
     torch.cuda.synchronize()
-    fast_cuda.LAUNCHES = match_cuda.LAUNCHES = 0
+    fast_cuda.LAUNCHES = match_cuda.LAUNCHES = dupband_cuda.LAUNCHES = 0
     vo = DeviceVO(cfg, cam, chunk=CHUNK, device=dev, graph=False)
     vo.state = VOState.from_numpy(kf_run["seed"], dev)
     n = N_KF_FRAMES - 1
@@ -688,7 +693,7 @@ def _graph_phase(cam, frames, dev, smi, kf_run, boot_run):
     # b. Phase 8's script (bootstrap, the forced relocalization at frame 60,
     # the kidnap, the blank frames and the reboot, the second submap)
     # through the graph; syncs counted per tracked frame fed.
-    fast_cuda.LAUNCHES = match_cuda.LAUNCHES = 0
+    fast_cuda.LAUNCHES = match_cuda.LAUNCHES = dupband_cuda.LAUNCHES = 0
     vo = DeviceVO(cfg, cam, chunk=CHUNK, device=dev, sampler=Sampler(0))
     fed_syncs = []                # (dispatched a chunk, syncs) per tracked frame fed
     rebooted = []                 # syncs of the frames that rebooted the tracker
@@ -741,7 +746,7 @@ def _graph_phase(cam, frames, dev, smi, kf_run, boot_run):
     # The chunk that phase 17f traces: the third keyframe's, with its BA.
     kf_chunk = [i for i, s in enumerate(kf_run["stats"]) if s[4]][2] // CHUNK * CHUNK
     before = graph.tally.tolist()
-    fast_cuda.LAUNCHES = match_cuda.LAUNCHES = 0
+    fast_cuda.LAUNCHES = match_cuda.LAUNCHES = dupband_cuda.LAUNCHES = 0
     for c in range(0, n, CHUNK):
         part = images[c:c + CHUNK]
         if c == kf_chunk:
@@ -757,15 +762,15 @@ def _graph_phase(cam, frames, dev, smi, kf_run, boot_run):
             and np.array_equal(torch.cat(ts).cpu().numpy(), kf_run["t"]))
     col = np.array([s[:7] for s in kf_run["stats"]], np.float32)
     same &= np.array_equal(torch.cat(sums)[:, :7].cpu().numpy(), col)
-    graph.account(graph.tally.tolist())
-    counted()
+    accounted = graph.account(graph.tally.tolist())
+    launched = counted()
     c = graph.captured
     print(f"17c phase 6's frames in {len(chunk_syncs)} chunks of {CHUNK} through "
           f"ChunkGraph.track_chunk: syncs per chunk {sorted(set(chunk_syncs))}, results "
           f"{'equal to' if same else 'DIFFERENT from'} phase 6's; branch bodies run "
           f"{runs}; the graph: capture {c.capture_s:.3f} s, instantiation "
           f"{c.instantiate_s:.3f} s, pool {c.pool_bytes} B, launches outside the "
-          f"branches {c.base} (K1, K2, assembly) a replay, in each branch "
+          f"branches {c.base} (K1, K2, assembly, duplicate test) a replay, in each branch "
           f"{c.body_launches}  [{smi}]")
     # e. The second pass as a conditional node or as a select over both
     # sides: its body's card time on phase 6's first frame, and how often
@@ -788,6 +793,9 @@ def _graph_phase(cam, frames, dev, smi, kf_run, boot_run):
           f"both sides would add it to the other {n - runs['second_pass']}  [{smi}]")
     if any(chunk_syncs):
         failures.append(f"chunk replays synchronized: {chunk_syncs}")
+    if not 0 < launched["dup_band"] == 2 * accounted["keyframe"]:
+        failures.append(f"17c: the duplicate test launched {launched['dup_band']} times in "
+                        f"{accounted['keyframe']} keyframe bodies (two a body expected)")
     if not same:
         failures.append("ChunkGraph.track_chunk differs from phase 6's DeviceVO run")
     for key, g in vd._GRAPHS.items():
@@ -806,33 +814,35 @@ def _replay_trace(replay, dev, smi):
     K1 and K2 kernel events are counted against the counts that
     ``ChunkGraph`` works out for the same chunk: the graph's launches
     outside the branches a replay, and each branch body's launches times
-    the times the device tally says it ran.  Run after phase 11 has traced:
+    the times the device tally says it ran; so are the keyframe body's
+    duplicate-test kernels.  Run after phase 11 has traced:
     the profiler slows this process's later launches."""
     import json
 
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda
     from tinyslam_tpu_torch.utils import profiling
 
     graph, state, part = replay
-    kernels = ("fast_pyramid_kernel", "match_reduce_kernel")
+    kernels = ("fast_pyramid_kernel", "match_reduce_kernel", "dupband_kernel")
     for attempt in range(3):    # a trace now and then comes back empty
         graph.account(graph.tally.tolist())
-        fast_cuda.LAUNCHES = match_cuda.LAUNCHES = 0
+        fast_cuda.LAUNCHES = match_cuda.LAUNCHES = dupband_cuda.LAUNCHES = 0
         with profiling.trace(REC_DIR / "replay_trace", device=dev, cpu=False) as log_dir:
             graph.track_chunk(state, part, [True] * len(part))
         runs = graph.account(graph.tally.tolist())
-        worked = [fast_cuda.LAUNCHES, match_cuda.LAUNCHES]
+        worked = [fast_cuda.LAUNCHES, match_cuda.LAUNCHES, dupband_cuda.LAUNCHES]
         events = [e for e in json.loads((log_dir / "trace.json").read_text())["traceEvents"]
                   if e.get("cat") == "kernel"]
         seen = [sum(name in e.get("name", "") for e in events) for name in kernels]
         if events:
             break
     print(f"17f one chunk of {len(part)} replays traced (attempt {attempt + 1}): "
-          f"{len(events)} kernel events; K1, K2 in the trace {seen}, worked out by "
-          f"ChunkGraph {worked}; branch bodies run {runs}  [{smi}]")
-    if not events or seen != worked:
-        raise AssertionError(f"graph phase: the traced replays launched K1, K2 {seen} "
-                             f"times, ChunkGraph counts {worked}")
+          f"{len(events)} kernel events; K1, K2, duplicate test in the trace {seen}, worked "
+          f"out by ChunkGraph {worked}; branch bodies run {runs}  [{smi}]")
+    if not events or seen != worked or not runs["keyframe"]:
+        raise AssertionError(f"graph phase: the traced replays launched K1, K2, the "
+                             f"duplicate test {seen} times, ChunkGraph counts {worked}, "
+                             f"keyframe bodies {runs['keyframe']}")
 
 
 def _slam_replay_trace(records, dev, smi):
@@ -858,10 +868,11 @@ def _slam_replay_trace(records, dev, smi):
         prog, inputs = _stage_program(name, args, dev)
         cfg = args[0] if name == "solve_graph" else args[1]
         pg = cfg.pose_graph
-        want = {"kf_ingest": (0, 1, 0), "loop_probe": (0, 1 + max(2, pg.loop_candidates), 0),
-                "solve_graph": (0, 0, pg.gn_iters)}[name]
+        want = {"kf_ingest": (0, 1, 0, 0),
+                "loop_probe": (0, 1 + max(2, pg.loop_candidates), 0, 0),
+                "solve_graph": (0, 0, pg.gn_iters, 0)}[name]
         want_turns = [pg.gn_iters] if name == "solve_graph" else []
-        traced = (0, 0, 1) if name == "solve_graph" else want
+        traced = (0, 0, 1) if name == "solve_graph" else want[:3]
         prog(inputs)
         # A trace now and then comes back empty, or without a WHILE body's
         # kernels (a solve's trace of 348 kernel events, not ~585, in one
@@ -899,7 +910,7 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
     from tinyslam_tpu_torch.models import vo_device as vd
     from tinyslam_tpu_torch.models.vo import _triangulate_and_insert, row
     from tinyslam_tpu_torch.models.vo_device import SUMMARY_FIELDS, DeviceVO, VOState
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda
     from tinyslam_tpu_torch.ops.hamming import match_descriptors
     from tinyslam_tpu_torch.utils.draws import Sampler
 
@@ -911,6 +922,7 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
     torch.cuda.synchronize()
     fast_cuda.LAUNCHES = 0
     match_cuda.LAUNCHES = 0
+    dupband_cuda.LAUNCHES = 0
     feats0 = extract_features(torch.from_numpy(frames[0]).to(dev), thr, fe)
     seed = _seeded(cfg, feats0, room, cam, poses[0])
     n_seed = int(seed.map.valid.sum())
@@ -928,7 +940,8 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
         vo.process(im)
     vo.flush()
     launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
-                "match_reduce_streaming": match_cuda.LAUNCHES}
+                "match_reduce_streaming": match_cuda.LAUNCHES,
+                "dup_band": dupband_cuda.LAUNCHES}
     # The tracked frames' launches (less the seed frame's extraction).
     run = _run_record(vo, {**launches,
                            "fast_score_map_fused": launches["fast_score_map_fused"] - 1},
@@ -1039,6 +1052,9 @@ def _keyframe_phase(cam, room, poses, frames, dev, smi):
     if launches["match_reduce_streaming"] < n + 5 * n_kf:
         failures.append(f"K2 launched {launches['match_reduce_streaming']} times, "
                         f"expected >= {n + 5 * n_kf}")
+    if launches["dup_band"] != 2 * n_kf:
+        failures.append(f"the duplicate test launched {launches['dup_band']} times, "
+                        f"expected {2 * n_kf} (two a keyframe)")
     if syncs[late & ~is_kf].max() > 3 or syncs[late & is_kf].max() > 4:
         failures.append(f"syncs per frame {syncs.tolist()} exceed 3 (4 on a keyframe)")
     if failures:
@@ -1062,7 +1078,7 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
     from tinyslam_tpu_torch.models.two_view import TwoViewEstimator
     from tinyslam_tpu_torch.models.vo import VisualOdometry, _match_to_map, _reloc_attempt
     from tinyslam_tpu_torch.models.vo_device import SUMMARY_FIELDS, DeviceVO, VOState
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda
     from tinyslam_tpu_torch.utils.draws import Sampler
     from tinyslam_tpu_torch.utils.evaluation import ate_rmse
 
@@ -1153,6 +1169,7 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
     torch.cuda.synchronize()
     fast_cuda.LAUNCHES = 0
     match_cuda.LAUNCHES = 0
+    dupband_cuda.LAUNCHES = 0
     # a, b, d: bootstrap, tracking to frame 100, a forced relocalization.
     for i in range(RELOC_FRAME):
         feed(i)
@@ -1188,7 +1205,8 @@ def _bootstrap_phase(cam, poses, frames, dev, smi, cfg=None):
     flush()
     torch.cuda.synchronize()
     launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
-                "match_reduce_streaming": match_cuda.LAUNCHES}
+                "match_reduce_streaming": match_cuda.LAUNCHES,
+                "dup_band": dupband_cuda.LAUNCHES}
     run = _run_record(vo, launches, script=script)
     attempts = per_attempt("two_view")
     reloc_attempts = per_attempt("reloc")
@@ -1613,7 +1631,7 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
     from tinyslam_tpu_torch.models import slam as sm
     from tinyslam_tpu_torch.models.slam import DeviceSlam, Slam
     from tinyslam_tpu_torch.models.vo_device import DeviceVO
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda, scatter_cuda
     from tinyslam_tpu_torch.utils.draws import Sampler
     from tinyslam_tpu_torch.utils.evaluation import ate_rmse
 
@@ -1695,12 +1713,14 @@ def _slam_phase(cam, poses, frames, dev, smi, cfg=None, n=N_SLAM):
         torch.cuda.synchronize()
         fast_cuda.LAUNCHES = 0
         match_cuda.LAUNCHES = 0
+        dupband_cuda.LAUNCHES = 0
         scatter_cuda.LAUNCHES = 0
         slam_secs = run_timed(slam.process_frame, slam.finalize, images)
         torch.cuda.synchronize()
         launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
                     "match_reduce_streaming": match_cuda.LAUNCHES,
-                    "ordered_scatter_add": scatter_cuda.LAUNCHES}
+                    "ordered_scatter_add": scatter_cuda.LAUNCHES,
+                    "dup_band": dupband_cuda.LAUNCHES}
     finally:
         for k, f in real.items():
             setattr(sm, k, f)
@@ -2070,7 +2090,7 @@ def _slam_graph_phase(label, records, dev, smi, timing: bool):
         _, in_call = _with_sync_count(lambda: getattr(sm, name)(*args))
         c = prog.captured
         print(f"{label} {name} program: syncs in a load and replay {in_replay}, in a stage call "
-              f"{in_call}; launches a replay (K1, K2, assembly) {c.base}; capture "
+              f"{in_call}; launches a replay (K1, K2, assembly, duplicate test) {c.base}; capture "
               f"{c.capture_s:.3f} s, instantiation {c.instantiate_s:.3f} s, pool bytes "
               f"{c.pool_bytes}; replays so far {prog.replays}  [{smi}]")
         if in_replay != 0 or in_call != 1:
@@ -2134,7 +2154,7 @@ def _dataset_phase(dev, smi):
     from tinyslam_tpu_torch.data.undistort import Undistorter
     from tinyslam_tpu_torch.geometry.camera import PinholeCamera
     from tinyslam_tpu_torch.models import DeviceSlam
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda
     from tinyslam_tpu_torch.utils.draws import Sampler
     from tinyslam_tpu_torch.utils.evaluation import ate_rmse
 
@@ -2155,7 +2175,7 @@ def _dataset_phase(dev, smi):
                 slam.num_loop_closures, round(float(ate), 4))
 
     failures = []
-    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0}
+    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0, "dup_band": 0}
     cases = (
         (TUM_SEQ, N_TUM, TumSequence, FR1_INTRINSICS, FR1_DIST,
          (REF_TUM_TRACKED, REF_TUM_KEYFRAMES, REF_TUM_CLOSURES, REF_TUM_ATE)),
@@ -2199,12 +2219,14 @@ def _dataset_phase(dev, smi):
         torch.cuda.synchronize()
         fast_cuda.LAUNCHES = 0
         match_cuda.LAUNCHES = 0
+        dupband_cuda.LAUNCHES = 0
         with contextlib.redirect_stdout(text):
             rc = run.main(argv)
         torch.cuda.synchronize()
         k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
         launches["fast_score_map_fused"] += k1
         launches["match_reduce_streaming"] += k2
+        launches["dup_band"] += dupband_cuda.LAUNCHES
         text = text.getvalue()
         m = re.search(_SUMMARY, text, re.M)
         a = re.search(r"^ATE RMSE \(Sim3\): ([\d.]+) m$", text, re.M)
@@ -2253,7 +2275,7 @@ def _loop_phase(dev, smi):
 
     from tinyslam_tpu_torch import SlamConfig, eval_ate
     from tinyslam_tpu_torch.models import slam as sm
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda, scatter_cuda
     from tinyslam_tpu_torch.utils.draws import Sampler
 
     t_phase = time.perf_counter()
@@ -2264,7 +2286,8 @@ def _loop_phase(dev, smi):
           f"({f'rendered and written in {secs:.1f} s' if secs else 'reused'})  [{smi}]")
     C = max(2, SlamConfig().pose_graph.loop_candidates)
     iters = SlamConfig().pose_graph.gn_iters
-    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0, "ordered_scatter_add": 0}
+    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0, "ordered_scatter_add": 0,
+                "dup_band": 0}
     real = {k: getattr(sm, k) for k in ("kf_ingest", "loop_probe", "solve_graph")}
     failures, runs, made, real_slam = [], [], [], eval_ate.DeviceSlam
     first = records = None
@@ -2289,12 +2312,14 @@ def _loop_phase(dev, smi):
             torch.cuda.synchronize()
             fast_cuda.LAUNCHES = 0
             match_cuda.LAUNCHES = 0
+            dupband_cuda.LAUNCHES = 0
             scatter_cuda.LAUNCHES = 0
             t_run = time.perf_counter()
             out = eval_ate.run_sequence("fr1_loop_like", "tum", root, "slam", "device",
                                         device=dev, sampler=Sampler(seed))
             torch.cuda.synchronize()
             k1, k2, k3 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES, scatter_cuda.LAUNCHES
+            launches["dup_band"] += dupband_cuda.LAUNCHES
         finally:
             for k, f in real.items():
                 setattr(sm, k, f)
@@ -2351,18 +2376,20 @@ def _bench_phase(frames, smi):
     import torch
 
     from tinyslam_tpu_torch import bench
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     fast_cuda.LAUNCHES = 0
     match_cuda.LAUNCHES = 0
+    dupband_cuda.LAUNCHES = 0
     tr = bench.bench_tracked(chunk=BENCH_CHUNK, chunks_timed=BENCH_CHUNKS_TIMED, rounds=1,
                              frames=frames)
     fe = bench.bench_frontend(frames=frames[:BENCH_FE_FRAMES])
     torch.cuda.synchronize()
     launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
-                "match_reduce_streaming": match_cuda.LAUNCHES}
+                "match_reduce_streaming": match_cuda.LAUNCHES,
+                "dup_band": dupband_cuda.LAUNCHES}
     for row, res, fps in (("tracked", tr, tr["tracked_fps"]),
                           ("front-end", fe, fe["frontend_fps"])):
         pf = res["per_frame"]
@@ -2427,7 +2454,7 @@ def _budget_phase(dev, smi, loop_run):
 
     from tinyslam_tpu_torch import SlamConfig, error_budget, eval_ate
     from tinyslam_tpu_torch.data.tum import TumSequence
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda, scatter_cuda
     from tinyslam_tpu_torch.utils.evaluation import ate_rmse
 
     root, _ = eval_ate.dataset_sequence(eval_ate.fr1_loop_spec(N_LOOP))
@@ -2437,6 +2464,7 @@ def _budget_phase(dev, smi, loop_run):
         torch.cuda.synchronize()
         fast_cuda.LAUNCHES = 0
         match_cuda.LAUNCHES = 0
+        dupband_cuda.LAUNCHES = 0
         scatter_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
         rep = error_budget.budget_for_sequence("fr1_loop_like", "tum", root, device=dev, seed=0)
@@ -2444,7 +2472,8 @@ def _budget_phase(dev, smi, loop_run):
         wall = time.perf_counter() - t0
         launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
                     "match_reduce_streaming": match_cuda.LAUNCHES,
-                    "ordered_scatter_add": scatter_cuda.LAUNCHES}
+                    "ordered_scatter_add": scatter_cuda.LAUNCHES,
+                    "dup_band": dupband_cuda.LAUNCHES}
     finally:
         error_budget.DeviceSlam = real
     slam = made[-1]
@@ -2529,7 +2558,7 @@ def _recovery_phase(cam, room, poses, frames, dev, smi, slice_cfg, slice_seed, s
     from tinyslam_tpu_torch.models import vo_device as vd
     from tinyslam_tpu_torch.models.slam import DeviceSlam
     from tinyslam_tpu_torch.models.vo_device import DeviceVO
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda
     from tinyslam_tpu_torch.ops.brief import brief_samples
     from tinyslam_tpu_torch.ops.compact import select_topk
     from tinyslam_tpu_torch.ops.fast_cuda import fast_pyramid_maps
@@ -2541,7 +2570,7 @@ def _recovery_phase(cam, room, poses, frames, dev, smi, slice_cfg, slice_seed, s
     from tinyslam_tpu_torch.utils.faults import Heartbeat, SnapshotPolicy
 
     failures = []
-    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0}
+    launches = {"fast_score_map_fused": 0, "match_reduce_streaming": 0, "dup_band": 0}
     shutil.rmtree(REC_DIR, ignore_errors=True)
 
     def counted(fn):
@@ -2550,11 +2579,13 @@ def _recovery_phase(cam, room, poses, frames, dev, smi, slice_cfg, slice_seed, s
         torch.cuda.synchronize()
         fast_cuda.LAUNCHES = 0
         match_cuda.LAUNCHES = 0
+        dupband_cuda.LAUNCHES = 0
         out = fn()
         torch.cuda.synchronize()
         k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
         launches["fast_score_map_fused"] += k1
         launches["match_reduce_streaming"] += k2
+        launches["dup_band"] += dupband_cuda.LAUNCHES
         return out, k1, k2
 
     def timed_ms(fn):
@@ -2952,7 +2983,7 @@ def _dist_phase(frames, dev, smi, timed):
     from tinyslam_tpu_torch.backend.pose_graph import optimize_pose_graph
     from tinyslam_tpu_torch.config import PoseGraphConfig
     from tinyslam_tpu_torch.frontend.orb import extract_batch, extract_features
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda
     from tinyslam_tpu_torch.ops.fast import fast_maps
     from tinyslam_tpu_torch.ops.image import build_pyramid
     from tinyslam_tpu_torch.parallel import (bundle_adjust_sharded, extract_features_batch,
@@ -2978,10 +3009,12 @@ def _dist_phase(frames, dev, smi, timed):
         torch.cuda.synchronize()
         fast_cuda.LAUNCHES = 0
         match_cuda.LAUNCHES = 0
+        dupband_cuda.LAUNCHES = 0
         batch = extract_features_batch(ims, thr, fe, mesh=mesh)
         torch.cuda.synchronize()
         launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
-                    "match_reduce_streaming": match_cuda.LAUNCHES}
+                    "match_reduce_streaming": match_cuda.LAUNCHES,
+                    "dup_band": dupband_cuda.LAUNCHES}
         print("phase 12b launches:", launches)
         if launches["fast_score_map_fused"] != 1:
             raise AssertionError(f"K1 launched {launches['fast_score_map_fused']} times for "
@@ -3169,7 +3202,7 @@ def _multiseq_phase(cam, room, poses, frames, dev, smi, timed):
     from tinyslam_tpu_torch.models import vo_device as vd
     from tinyslam_tpu_torch.models.vo_device import (SUMMARY_FIELDS, VOState, track_chunk,
                                                      track_chunk_batch, track_step_batch)
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda
     from tinyslam_tpu_torch.ops.fast import fast_maps
     from tinyslam_tpu_torch.ops.hamming import match_reduce_plain
     from tinyslam_tpu_torch.ops.image import build_pyramid
@@ -3235,12 +3268,18 @@ def _multiseq_phase(cam, room, poses, frames, dev, smi, timed):
     states = g_states = VOState.stack(seeds)
     names = [n for n, _ in _named_leaves(states)]
     steps, outs, g_syncs, diffs = [], [], [], []
-    e_k, g_k = [0, 0], [0, 0]
+    e_k, g_k = [0, 0, 0], [0, 0, 0]
+
+    def counts():
+        return fast_cuda.LAUNCHES, match_cuda.LAUNCHES, dupband_cuda.LAUNCHES
+
     torch.cuda.synchronize()
     fast_cuda.LAUNCHES = 0
     match_cuda.LAUNCHES = 0
+    dupband_cuda.LAUNCHES = 0
     for c in range(MS_FRAMES):
         k1, k2, n_pass = fast_cuda.LAUNCHES, match_cuda.LAUNCHES, len(passes)
+        at = counts()
 
         def step(states=states, c=c):
             return track_step_batch(cam, cfg, states, images[:, c], active[:, c], samplers)
@@ -3254,24 +3293,25 @@ def _multiseq_phase(cam, room, poses, frames, dev, smi, timed):
         outs.append(ys)
         steps.append((fast_cuda.LAUNCHES - k1, match_cuda.LAUNCHES - k2,
                       passes[n_pass:], syncs))
-        e_k = [e_k[0] + fast_cuda.LAUNCHES - k1, e_k[1] + match_cuda.LAUNCHES - k2]
-        k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
+        e_k = [k + now - was for k, now, was in zip(e_k, counts(), at)]
+        at = counts()
         (g_states, g_ys), k = _with_sync_count(
             lambda g_states=g_states, c=c: graph.track_chunk(
                 g_states, images[:, c:c + 1], active[:, c:c + 1], samplers))
         g_syncs.append(k)
-        g_k = [g_k[0] + fast_cuda.LAUNCHES - k1, g_k[1] + match_cuda.LAUNCHES - k2]
+        g_k = [k + now - was for k, now, was in zip(g_k, counts(), at)]
         bad = [n for n, a, b in zip(names, tree_leaves(states), tree_leaves(g_states))
                if not _same_bits(a, b)]
         bad += [k for k in ("R", "t", "summary") if not _same_bits(ys[k], g_ys[k][:, 0])]
         if bad:
             diffs.append((c, bad))
-    k1, k2 = fast_cuda.LAUNCHES, match_cuda.LAUNCHES
+    at = counts()
     runs = graph.account(graph.tally.tolist())
-    g_k = [g_k[0] + fast_cuda.LAUNCHES - k1, g_k[1] + match_cuda.LAUNCHES - k2]
+    g_k = [k + now - was for k, now, was in zip(g_k, counts(), at)]
     torch.cuda.synchronize()
     launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
-                "match_reduce_streaming": match_cuda.LAUNCHES}
+                "match_reduce_streaming": match_cuda.LAUNCHES,
+                "dup_band": dupband_cuda.LAUNCHES}
     summ = torch.stack([y["summary"] for y in outs], 1).cpu().numpy()     # (B, C, 8)
     R_b = torch.stack([y["R"] for y in outs], 1).cpu().numpy()
     t_b = torch.stack([y["t"] for y in outs], 1).cpu().numpy()
@@ -3288,14 +3328,17 @@ def _multiseq_phase(cam, room, poses, frames, dev, smi, timed):
     print(f"phase 13a: the captured BatchGraph against the plain step, {MS_FRAMES} steps in "
           f"lockstep: every state tensor ({len(names)}), R, t and summary "
           f"{'bit-equal at every step' if not diffs else f'DIFFERENT at {diffs[:3]}'}; branch "
-          f"runs (summed over rows) graph {runs}, plain {taken}; K1, K2 launches graph {g_k}, "
-          f"plain {e_k}  [{smi}]")
+          f"runs (summed over rows) graph {runs}, plain {taken}; K1, K2, duplicate test "
+          f"launches graph {g_k}, plain {e_k}  [{smi}]")
     if diffs:
         failures.append(f"13a: the graph and the plain step differ at (step, fields) {diffs[:3]}")
     if runs != taken:
         failures.append(f"13a: branch runs graph {runs}, plain {taken}")
     if g_k != e_k:
-        failures.append(f"13a: K1, K2 launches graph {g_k}, plain {e_k}")
+        failures.append(f"13a: K1, K2, duplicate test launches graph {g_k}, plain {e_k}")
+    if not 0 < g_k[2] == 2 * runs["keyframe"]:
+        failures.append(f"13a: the duplicate test launched {g_k[2]} times in the graph's "
+                        f"{runs['keyframe']} keyframe bodies (two a body expected)")
     if not tracking[active].all() or tracking[~active].any():
         failures.append(f"13a: tracked {tracking.tolist()} of active {active.tolist()}")
     if not was_lost[MS_STALE, 0]:
@@ -3486,7 +3529,7 @@ def main() -> None:
     from tinyslam_tpu_torch.frontend.orb import extract_features
     from tinyslam_tpu_torch.geometry.camera import PinholeCamera
     from tinyslam_tpu_torch.models.vo_device import DeviceVO, VOState, track_chunk
-    from tinyslam_tpu_torch.ops import cuda_build, fast_cuda, hamming, match_cuda
+    from tinyslam_tpu_torch.ops import cuda_build, dupband_cuda, fast_cuda, hamming, match_cuda
     from tinyslam_tpu_torch.ops.fast import fast_maps
     from tinyslam_tpu_torch.ops.hamming import match_reduce_plain
     from tinyslam_tpu_torch.ops.image import build_pyramid
@@ -3615,6 +3658,26 @@ def main() -> None:
                        & (got[0].float() <= cfg.matcher.ratio * got[1].float())).sum())
         print(f"K2 {name}: N={case['desc_a'].shape[0]} M={case['desc_b'].shape[0]} "
               f"exact; rows passing distance+ratio {n_match}")
+    # The keyframe triangulation's duplicate test and local band: frame 1's
+    # features against the seeded map seen from pose 0 (2048 x 8192).
+    z_m = pc[:, 2].contiguous()
+    in_view = (m_state.valid & (z_m > 0.02) & (proj[:, 0] > 0) & (proj[:, 0] < 2 * cam.cx + 1)
+               & (proj[:, 1] > 0) & (proj[:, 1] < 2 * cam.cy + 1))
+    db_args = (feats1.xy, feats1.desc, proj[:, 0].contiguous(), proj[:, 1].contiguous(), z_m,
+               m_state.desc, m_state.valid, in_view, cfg.vo.dup_radius_px)
+    for label, g, w in zip(("dup", "z_local", "n_neigh"), dupband_cuda.dup_band(*db_args),
+                           dupband_cuda.dup_band_plain(*db_args)):
+        if not torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                           w.view(torch.int32) if w.is_floating_point() else w):
+            raise AssertionError(f"dup_band 2048x8192: {label} differs at "
+                                 f"{int((g != w).sum())} rows")
+        if label == "n_neigh":
+            db_neigh = w
+    print(f"dup_band N={n} M={m} r={cfg.vo.dup_radius_px}: bit-equal; map points in view "
+          f"{int(in_view.sum())}, neighbours within 40 px a row: mean "
+          f"{float(db_neigh.float().mean()):.1f}, max {int(db_neigh.max())}")
+    timed.append(("dup_band 2048x8192", lambda: dupband_cuda.dup_band(*db_args),
+                  lambda: dupband_cuda.dup_band_plain(*db_args)))
     k2_shapes = {}          # the main path's shapes, timed in phase 7
     for name, case, r in cases:
         if not name.startswith("random"):
@@ -3627,6 +3690,7 @@ def main() -> None:
     torch.cuda.synchronize()
     fast_cuda.LAUNCHES = 0
     match_cuda.LAUNCHES = 0
+    dupband_cuda.LAUNCHES = 0
     feats0 = extract_features(torch.from_numpy(frames[0]).to(dev), thr, fe)
     seed = _seeded(cfg, feats0, room, cam, poses[0])
     print(f"seeded map: {int(seed.map.valid.sum())} landmarks of "
@@ -3643,7 +3707,8 @@ def main() -> None:
         chunk_s.append(time.perf_counter() - t_start)
     vo.flush()
     launches = {"fast_score_map_fused": fast_cuda.LAUNCHES,
-                "match_reduce_streaming": match_cuda.LAUNCHES}
+                "match_reduce_streaming": match_cuda.LAUNCHES,
+                "dup_band": dupband_cuda.LAUNCHES}
     stats = vo.stats
     n_timed = N_FRAMES - 1 - CHUNK
     print("inliers per frame:", [s.num_inliers for s in stats], f" [{card}]")
@@ -3814,6 +3879,25 @@ def main() -> None:
           f"distance matrices) {lib_ms['4x2048x8192']} ms; launches on phase 13's path "
           f"{ms_launches['match_reduce_streaming']}  [{smi}]")
     k2_ms, k2_plain_ms = ms["K2 real guided r=20"]
+    # The duplicate test's bound: its inputs read once (the rows' pixels
+    # and descriptors, the map's projections, depths, descriptors and two
+    # masks) and its outputs written once, or the squared pixel distance of
+    # every pair (2 subtractions, 2 products, 1 sum) at the float32 rate.
+    db_bytes = sum(x.numel() * x.element_size() for x in db_args[:-1]) + n * (1 + 4 + 4)
+    db_bound = _bound_ms(db_bytes, 5 * n * m, FP32_FLOPS_PER_S)
+    db_ms, db_plain_ms = ms["dup_band 2048x8192"]
+    db_launches = sum(x["dup_band"]
+                      for x in (launches, kf_launches, boot_launches, slam_launches,
+                                data_launches, rec_launches, dist_launches, ms_launches,
+                                loop_launches, budget_launches, bench_launches,
+                                graph_launches))
+    torch.cuda.synchronize()
+    db_overflow = int(dupband_cuda.overflow_rows(dev))
+    print(f"dup_band 2048x8192 (keyframe triangulation), device: kernel {db_ms:.4f} ms, plain "
+          f"{db_plain_ms:.4f} ms; bound {db_bound[0]:.5f} ms ({db_bound[1]}, {db_bytes} B), "
+          f"kernel at {100 * db_bound[0] / db_ms:.1f}% of it; launches on the main path "
+          f"{db_launches} (phase 13's {ms_launches['dup_band']}, phase 17's "
+          f"{graph_launches['dup_band']}), rows through the overflow pass {db_overflow}  [{smi}]")
     # A relocalization frame's trace is the largest; it goes last.
     rel_wall = _time_ms(reloc_frame, reps=5, warmup=1)
     rel_dev = _device_ms(reloc_frame, reps=5)
@@ -3875,6 +3959,12 @@ def main() -> None:
          "max_abs_err": 0.0, "ms": pg_ms[pg_label][0], "plain_ms": pg_ms[pg_label][1],
          "bound_ms": pg_ms[pg_label][3][0], "bound_by": pg_ms[pg_label][3][1],
          "library_ms": pg_ms[pg_label][2]},
+        {"name": "dup_band", "route": "cuda",
+         "source": "tinyslam_tpu_torch/csrc/dupband.cu",
+         "replaces": "none (XLA: tinyslam_tpu/models/vo.py:204)",
+         "launches": db_launches, "overflow_rows": db_overflow,
+         "max_abs_err": 0.0, "ms": db_ms, "plain_ms": db_plain_ms,
+         "bound_ms": db_bound[0], "bound_by": db_bound[1], "library_ms": None},
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_main:.1f} s  [{smi}]")
     print(json.dumps({"kernels": kernels}))

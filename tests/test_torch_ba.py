@@ -30,7 +30,7 @@ from tinyslam_tpu_torch.backend.ba import ba_normal_blocks, schur_reduce
 from tinyslam_tpu_torch.backend.residuals import reprojection_residuals
 from tinyslam_tpu_torch.geometry import epipolar as tepi
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
-from tinyslam_tpu_torch.models.vo import nanmedian
+from tinyslam_tpu_torch.ops.stats import nanmedian
 
 
 def T(a) -> torch.Tensor:

@@ -23,7 +23,7 @@ import torch_parity as P      # tests/ is on sys.path (pytest's rootdir-less pre
 from tinyslam_tpu_torch.frontend.orb import extract_features
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
 from tinyslam_tpu_torch.models.vo_device import DeviceVO, VOState, track_chunk
-from tinyslam_tpu_torch.ops import fast, fast_cuda, hamming, match_cuda
+from tinyslam_tpu_torch.ops import dupband_cuda, fast, fast_cuda, hamming, match_cuda
 from tinyslam_tpu_torch.utils.draws import Sampler, seed_word
 
 pytestmark = pytest.mark.cuda
@@ -351,7 +351,7 @@ def test_device_loop_capture_equals_eager(dev, iters):
     x0 = {"x": torch.linspace(0.5, 1.5, n * D, device=dev)}
     want = solve(x0)
     prog = Program(solve, x0, dev)
-    assert tuple(prog.captured.base) == (0, 0, iters)
+    assert tuple(prog.captured.base) == (0, 0, iters, 0)
     before = scatter_cuda.LAUNCHES
     for _ in range(2):
         got = prog(x0)
@@ -977,3 +977,119 @@ def test_batch_graphs_of_two_sizes_stay_right_after_k2_scratch_grows(dev):
     for B, case in runs.items():
         _assert_runs_equal(*_batch_runs(*case, range(B), dev)[:2])
     assert len(filler) == 64
+
+
+def _dupband_both(case, r, dev):
+    """The kernel's and the plain version's (dup, z_local, n_neigh) on the
+    card for a ``P.dupband_scene``; checks the launch count and that the
+    overflow count grew by the rows with more neighbours than the list
+    holds (and a depth that is not NaN)."""
+    args = [torch.from_numpy(case[k]).to(dev) for k in P.DUPBAND_ARGS]
+    counter = dupband_cuda.overflow_rows(dev)
+    before, launches = int(counter), dupband_cuda.LAUNCHES
+    got = dupband_cuda.dup_band(*args, r)
+    assert dupband_cuda.LAUNCHES == launches + 1
+    want = dupband_cuda.dup_band_plain(*args, r)
+    over = int(((want[2] > dupband_cuda.list_cap()) & ~torch.isnan(want[1])).sum())
+    assert int(counter) - before == over
+    for name, g, w in zip(("dup", "z_local", "n_neigh"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)    # NaN bit for bit
+        assert torch.equal(g, w), name
+    return want, over
+
+
+@pytest.mark.parametrize("seed", range(20))
+def test_dupband_kernel_bit_equal_at_the_keyframe_shape(dev, seed):
+    """2048 features against 8192 map slots, the keyframe's shape, with
+    the main path's 48 px gate: bit-equal on 20 scenes."""
+    want, _ = _dupband_both(P.dupband_scene(100 + seed, n=2048, m=8192), 48.0, dev)
+    assert want[0].any() and (want[2] >= 5).any()
+
+
+@pytest.mark.parametrize("n,m", [(100, 333), (1, 50), (17, 257), (2047, 8191), (300, 5000)])
+@pytest.mark.parametrize("r", [48.0, 20.5, 0.0])
+def test_dupband_kernel_bit_equal_at_other_shapes(dev, n, m, r):
+    """Ragged row blocks and map tiles, another gate, and no gate."""
+    _dupband_both(P.dupband_scene(n * 7 + m, n=n, m=m), r, dev)
+
+
+@pytest.mark.parametrize("r", [48.0, 0.0])
+@pytest.mark.parametrize("kind", sorted(P.DUPBAND_EDGES))
+def test_dupband_kernel_edge_cases(dev, kind, r):
+    """No neighbour, odd and even counts with ties, distances at 40 and 48
+    px, Hamming 40 and 41, invalid and out-of-view slots, NaN depths."""
+    want, _ = _dupband_both(P.dupband_edge(kind), r, dev)
+    assert int(want[2][0]) == P.DUPBAND_EDGES[kind][1][2]
+
+
+def test_dupband_kernel_overflow_pass(dev):
+    """A cluster of 1,500 map points within 25 px: rows with more
+    neighbours than the list holds take the overflow pass, bit-equal, and
+    the card's count of such rows grows by their number."""
+    want, over = _dupband_both(P.dupband_scene(7, n=2048, m=8192, cluster=1500), 48.0, dev)
+    assert over >= 100 and int(want[2].max()) > 2 * dupband_cuda.list_cap()
+
+
+def test_insert_keyframe_with_the_kernel_equals_the_plain_block(dev, monkeypatch):
+    """A row of the batched case after a tracked chunk on the card: its
+    keyframe insertion (two triangulations, observations, the window BA)
+    gives the same map, window and state bit for bit with the kernel and
+    with the plain block in its place."""
+    from tinyslam_tpu_torch.models import vo as vo_module
+    from tinyslam_tpu_torch.models import vo_device as vd
+
+    cfg, cam, states, images, active = _batch_case(4, dev)
+    states, _ = vd.track_chunk_batch(cam, cfg, states, images, active,
+                                     [Sampler(b) for b in range(4)])
+    row = vd._tree_map(torch.clone, states.row(2))
+    feats = extract_features(images[2, -1], row.threshold, cfg.frontend)
+    none = torch.zeros_like(feats.valid)
+    before = dupband_cuda.LAUNCHES
+    kernel = vd._insert_keyframe(cam, cfg, row, feats, none, none).to_numpy()
+    assert dupband_cuda.LAUNCHES == before + 2
+    monkeypatch.setattr(vo_module, "dup_band", dupband_cuda.dup_band_plain)
+    plain = vd._insert_keyframe(cam, cfg, row, feats, none, none).to_numpy()
+    assert dupband_cuda.LAUNCHES == before + 2
+    assert [k for k in kernel if not np.array_equal(kernel[k], plain[k], equal_nan=
+                                                    kernel[k].dtype.kind == "f")] == []
+    assert kernel["map.valid"].sum() > row.map.valid.sum().item()      # it inserted
+
+
+def test_batch_graph_with_the_kernel_runs_the_same_work_as_the_plain_block(dev, monkeypatch):
+    """Two chunks of four rows through a captured ``BatchGraph`` with the
+    kernel, then through one captured with the plain block in its place,
+    from the same states and seeds: every pose, per-frame summary (tracked
+    flag, inliers, keyframe flag), map and window bit for bit.  The kernel's
+    graph launches it twice a keyframe body run, as its counter says; the
+    plain graph never."""
+    from tinyslam_tpu_torch.models import vo as vo_module
+    from tinyslam_tpu_torch.models import vo_device as vd
+
+    cfg, cam, states, images, active = _batch_case(4, dev)
+    samplers = [Sampler(3_000_000_000 + b) for b in range(4)]
+    half = BATCH_FRAMES // 2
+
+    def run():
+        g = vd.batch_graph(cam, cfg, states, images[:, 0], samplers)
+        g.account(g.tally.tolist())
+        before, st, out = dupband_cuda.LAUNCHES, states, []
+        for part in (slice(0, half), slice(half, BATCH_FRAMES)):
+            st, ys = g.track_chunk(st, images[:, part], active[:, part], samplers)
+            out.append({k: v.cpu().numpy() for k, v in ys.items()})
+        runs = g.account(g.tally.tolist())
+        ys = {k: np.concatenate([o[k] for o in out], axis=1) for k in out[0]}
+        return st.to_numpy(), ys, runs, dupband_cuda.LAUNCHES - before
+
+    monkeypatch.setattr(vd, "_BATCH_GRAPHS", {})
+    kernel = run()
+    monkeypatch.setattr(vd, "_BATCH_GRAPHS", {})
+    monkeypatch.setattr(vo_module, "dup_band", dupband_cuda.dup_band_plain)
+    plain = run()
+    assert [k for k in kernel[0] if not np.array_equal(kernel[0][k], plain[0][k], equal_nan=
+                                                       kernel[0][k].dtype.kind == "f")] == []
+    for k in ("R", "t", "summary"):
+        assert np.array_equal(kernel[1][k], plain[1][k]), k
+    assert kernel[2] == plain[2] and kernel[2]["keyframe"] >= 2
+    assert kernel[3] == 2 * kernel[2]["keyframe"] and plain[3] == 0

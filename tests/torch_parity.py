@@ -351,3 +351,85 @@ def multi_sequences(frames, poses, room, features_of, tcfg):
     active = np.ones((len(MULTI_STARTS), MULTI_FRAMES), bool)
     active[2, -MULTI_INACTIVE:] = False
     return seeds, np.stack(images), active
+
+
+# The triangulation's duplicate test and local depth band
+# (``ops/dupband_cuda.py``): scenes over a 752x480 image, as numpy arrays
+# (xy, desc, u, v, z, mdesc, valid, in_view) in ``dup_band``'s order.
+DUPBAND_ARGS = ("xy", "desc", "u", "v", "z", "mdesc", "valid", "in_view")
+
+
+def dupband_scene(seed, n=96, m=640, cluster=0):
+    """Features and map points over the image; a third of the features
+    carry a map point's descriptor with a few bits flipped, near its
+    projection.  ``cluster`` > 0 puts that many map points (depths with
+    ties and a few NaN) within 25 px of (300, 200), and the last eighth of
+    the features within 30 px of it: rows with more neighbours than the
+    kernel's list holds."""
+    rng = np.random.default_rng(seed)
+    w, h = 752.0, 480.0
+    u = rng.uniform(-20, w + 20, m).astype(np.float32)
+    v = rng.uniform(-20, h + 20, m).astype(np.float32)
+    z = rng.uniform(0.5, 8.0, m).astype(np.float32)
+    if cluster:
+        ang, rad = rng.uniform(0, 2 * np.pi, cluster), 25 * np.sqrt(rng.random(cluster))
+        u[:cluster] = 300 + rad * np.cos(ang)
+        v[:cluster] = 200 + rad * np.sin(ang)
+        z[:cluster] = np.round(rng.uniform(1.0, 3.0, cluster), 1)
+        z[rng.integers(0, cluster, cluster // 50)] = np.nan
+    mdesc = rng.integers(0, 2**32, (m, 8), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    valid = rng.random(m) < 0.85
+    in_view = valid & (u > 0) & (u < w) & (v > 0) & (v < h)
+    xy = np.stack([rng.uniform(0, w, n), rng.uniform(0, h, n)], -1).astype(np.float32)
+    desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    near = rng.integers(0, m, n // 3)
+    desc[: n // 3] = mdesc[near]
+    desc[: n // 3, 0] ^= rng.integers(0, 2**8, n // 3, dtype=np.uint32).view(np.int32)
+    xy[: n // 3] = np.stack([u[near], v[near]], -1) + rng.normal(0, 30, (n // 3, 2))
+    if cluster:
+        k = max(n // 8, 1)
+        xy[-k:] = np.array([300.0, 200.0]) + rng.uniform(-30, 30, (k, 2))
+    return dict(xy=xy.astype(np.float32), desc=desc, u=u, v=v, z=z, mdesc=mdesc,
+                valid=valid, in_view=in_view)
+
+
+# One feature at (100, 100) against a hand-built map, by kind: the map's
+# points as (u, v, z, descriptor bits flipped from the feature's, valid,
+# in view), and what the block gives: (dup at r=48, dup at r=0, n_neigh,
+# z_local).
+DUPBAND_EDGES = {
+    "none": ([(300.0, 300.0, 2.0, 0, True, True)], (False, True, 0, np.nan)),
+    "odd": ([(100 + k, 100.0, z, 99, True, True) for k, z in enumerate([3.0, 1.0, 2.0])],
+            (False, False, 3, 2.0)),
+    "even_ties": ([(100.0, 100 + k, z, 99, True, True)
+                   for k, z in enumerate([2.0, 5.0, 2.0, 5.0, 1.0, 7.0])],
+                  (False, False, 6, 3.5)),
+    # squared distances exactly 40^2 (out, twice) and just under it (in)
+    "at_40px": ([(140.0, 100.0, 1.0, 99, True, True), (139.99, 100.0, 4.0, 99, True, True),
+                 (100.0, 60.0, 9.0, 99, True, True)], (False, False, 1, 4.0)),
+    # squared distance exactly 48^2, Hamming 0: a duplicate only without the gate
+    "at_48px": ([(148.0, 100.0, 1.0, 0, True, True)], (False, True, 0, np.nan)),
+    "hamming_40": ([(110.0, 100.0, 1.0, 40, True, True)], (True, True, 1, 1.0)),
+    "hamming_41": ([(110.0, 100.0, 1.0, 41, True, True)], (False, False, 1, 1.0)),
+    # an invalid and an out-of-view slot that would otherwise match
+    "masked": ([(105.0, 100.0, 1.0, 0, False, False), (106.0, 100.0, 2.0, 0, True, False),
+                (107.0, 100.0, 3.0, 90, True, True)], (False, True, 1, 3.0)),
+    # a far valid slot with a similar descriptor
+    "far_similar": ([(600.0, 400.0, 1.0, 10, True, True)], (False, True, 0, np.nan)),
+    "nan_depth": ([(101.0, 100.0, np.nan, 99, True, True), (102.0, 100.0, 4.0, 99, True, True),
+                   (103.0, 100.0, 6.0, 99, True, True)], (False, False, 3, 5.0)),
+}
+
+
+def dupband_edge(kind):
+    """The scene of ``DUPBAND_EDGES[kind]``."""
+    pts = DUPBAND_EDGES[kind][0]
+    u, v, z = (np.array([p[i] for p in pts], np.float32) for i in range(3))
+    mdesc = np.zeros((len(pts), 8), np.int32)
+    for j, p in enumerate(pts):
+        bits = np.zeros(256, np.uint8)
+        bits[: p[3]] = 1
+        mdesc[j] = np.packbits(bits).view(np.int32)
+    return dict(xy=np.array([[100.0, 100.0]], np.float32), desc=np.zeros((1, 8), np.int32),
+                u=u, v=v, z=z, mdesc=mdesc, valid=np.array([p[4] for p in pts]),
+                in_view=np.array([p[5] for p in pts]))

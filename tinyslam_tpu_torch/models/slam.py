@@ -54,9 +54,10 @@ from tinyslam_tpu_torch.config import SlamConfig
 from tinyslam_tpu_torch.geometry.camera import PinholeCamera
 from tinyslam_tpu_torch.geometry.pnp import pnp_ransac
 from tinyslam_tpu_torch.geometry.sim3 import sim3_compose, sim3_inverse, sim3_to_se3
-from tinyslam_tpu_torch.models.vo import VisualOdometry, _match_to_map, nanmedian
+from tinyslam_tpu_torch.models.vo import VisualOdometry, _match_to_map
 from tinyslam_tpu_torch.models.vo_device import KF_RING, DeviceVO
 from tinyslam_tpu_torch.ops.hamming import match_descriptors
+from tinyslam_tpu_torch.ops.stats import nanmedian
 from tinyslam_tpu_torch.models.vo import MapState
 from tinyslam_tpu_torch.types import Features, descriptor_signs
 from tinyslam_tpu_torch.utils.cuda_graph import (

@@ -8,7 +8,8 @@ Two reference behaviours of the JAX CPU path are kept on purpose, for
 parity: a scatter with repeated indices keeps the LAST row's write
 (``_last_writer``; torch leaves the order of ``index_put_`` undefined),
 and a median over an even count averages the two middle values, as
-``jnp.nanmedian`` does (``nanmedian``; ``torch.nanmedian`` takes the lower).
+``jnp.nanmedian`` does (``ops/stats.py``'s ``nanmedian``; ``torch.nanmedian``
+takes the lower).
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ from tinyslam_tpu_torch.geometry.se3 import (
     se3_log,
 )
 from tinyslam_tpu_torch.models.two_view import TwoViewEstimator
-from tinyslam_tpu_torch.ops.hamming import hamming_distance_matrix, match_descriptors
+from tinyslam_tpu_torch.ops.dupband_cuda import dup_band
+from tinyslam_tpu_torch.ops.hamming import match_descriptors
+from tinyslam_tpu_torch.ops.stats import nanmedian
 from tinyslam_tpu_torch.types import Features, from_numpy, row, set_row, to_numpy
 from tinyslam_tpu_torch.utils.cuda_graph import device_cond
 from tinyslam_tpu_torch.utils.draws import Sampler
@@ -129,19 +132,6 @@ def _track_pnp(cam: PinholeCamera, feats: Features, map_state: MapState,
                       iters=iters, inlier_px=inlier_px)
 
 
-def nanmedian(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Median over ``dim`` ignoring NaN, with ``jnp.nanmedian``'s
-    semantics: the mean of the two middle values for an even count, NaN
-    where every value is NaN.  ``torch.sort`` puts NaN last."""
-    s = torch.sort(x, dim=dim).values
-    n = (~torch.isnan(x)).sum(dim, keepdim=True)
-    lo = torch.div(n - 1, 2, rounding_mode="floor").clamp_min(0)
-    hi = torch.div(n, 2, rounding_mode="floor")
-    med = (s.gather(dim, lo) + s.gather(dim, hi)) * 0.5
-    med = torch.where(n > 0, med, torch.full_like(med, float("nan")))
-    return med.squeeze(dim)
-
-
 def _last_writer(idx: torch.Tensor, size: int) -> torch.Tensor:
     """For a scatter of rows to slots ``idx``, the row whose write each of
     ``size`` slots keeps, or -1: the last row, as the JAX CPU reference
@@ -218,21 +208,16 @@ def _triangulate_and_insert(
     band_ok = (za > band_lo * med_z) & (za < band_hi * med_z)
     accept &= torch.where(have_scene & torch.isfinite(med_z), band_ok, True)
 
-    # Duplicates: a similar descriptor projecting near the candidate.
-    d_map = hamming_distance_matrix(feats_a.desc, map_state.desc)   # (N, M)
-    proj_m = torch.stack([u_m, v_m], dim=-1)
-    pdist2 = ((feats_a.xy[:, None, :] - proj_m[None, :, :]) ** 2).sum(-1)
-    similar = (d_map <= 40) & map_state.valid[None, :]
-    if dup_radius_px > 0:
-        similar &= (pdist2 < dup_radius_px ** 2) & in_view[None, :]
-    accept &= ~similar.any(dim=1)
-
-    # Local depth band: the median depth of map points within 40 px.
-    neigh = (pdist2 < 40.0 ** 2) & in_view[None, :]
-    z_local = nanmedian(torch.where(neigh, z_map[None, :], nan), dim=1)
+    # Duplicates (a similar descriptor projecting near the candidate) and
+    # the local depth band (the median depth of map points within 40 px):
+    # one kernel on the card (``ops/dupband_cuda.py``).
+    dup, z_local, n_neigh = dup_band(feats_a.xy, feats_a.desc, u_m, v_m, z_map,
+                                     map_state.desc, map_state.valid, in_view,
+                                     dup_radius_px)
+    accept &= ~dup
     lb = max(local_band, 1.0)
     local_ok = (za > z_local / lb) & (za < z_local * lb)
-    use_local = (neigh.sum(1) >= 5) & torch.isfinite(z_local) & (local_band > 1.0)
+    use_local = (n_neigh >= 5) & torch.isfinite(z_local) & (local_band > 1.0)
     accept &= torch.where(use_local, local_ok, True)
 
     # Accepted candidates by feature score into the first free slots.

@@ -87,6 +87,7 @@ from tinyslam_tpu_torch.utils.cuda_graph import (
     capture,
     counters_kept,
     device_cond,
+    device_span,
     tree_leaves,
     warm_checked,
 )
@@ -338,13 +339,14 @@ def _insert_keyframe(cam: PinholeCamera, cfg: SlamConfig, state: VOState,
             feats.desc, feats.valid, ref_feats.desc, ref_feats.valid,
             max_distance=cfg.matcher.max_distance, ratio=cfg.matcher.ratio,
             cross_check=True)
-        new_map, _ = _triangulate_and_insert(
-            cam, state.map, kf_id, state.R, state.t, feats,
-            row(state.win_R, ref), row(state.win_t, ref), ref_feats,
-            m["idx_b"], m["valid"], already,
-            max_new=cfg.frontend.features_per_level,
-            band_lo=cfg.vo.tri_band_lo, band_hi=cfg.vo.tri_band_hi,
-            dup_radius_px=cfg.vo.dup_radius_px, local_band=cfg.vo.tri_local_band)
+        with device_span("tri"):
+            new_map, _ = _triangulate_and_insert(
+                cam, state.map, kf_id, state.R, state.t, feats,
+                row(state.win_R, ref), row(state.win_t, ref), ref_feats,
+                m["idx_b"], m["valid"], already,
+                max_new=cfg.frontend.features_per_level,
+                band_lo=cfg.vo.tri_band_lo, band_hi=cfg.vo.tri_band_hi,
+                dup_radius_px=cfg.vo.dup_radius_px, local_band=cfg.vo.tri_local_band)
         state = state.replace(map=new_map)
         # Second-view registration of the landmarks just triangulated.
         state = _record_kf_obs(cam, cfg, state, ref, ref_feats)
@@ -527,7 +529,7 @@ class _StepGraph:
                 for name, v, a in zip(self.captured.names, tally, self._accounted)}
         self._accounted = [int(v) for v in tally]
         for name, k in runs.items():
-            per = self.captured.body_launches.get(name, (0, 0, 0))
+            per = self.captured.body_launches.get(name, (0,) * len(self.captured.base))
             add_launches([k * x for x in per])
         return runs
 
@@ -820,8 +822,9 @@ def track_step_batch(cam: PinholeCamera, cfg: SlamConfig, states: VOState,
 # The branch bodies the batched graph's tally counts, summed over rows.
 BATCH_BRANCHES = ("reloc", "reloc_global", "second_pass", "keyframe", "ba")
 # The sites the batched graph stamps besides its bodies (``device_span``):
-# K1, and K2 in the guided pass and in the second pass (one shape).
-BATCH_SITES = ("k1", "k2.track")
+# K1, K2 in the guided pass and in the second pass (one shape), and each
+# keyframe's two triangulations (``_insert_keyframe``).
+BATCH_SITES = ("k1", "k2.track", "tri")
 
 
 class BatchGraph(_StepGraph):

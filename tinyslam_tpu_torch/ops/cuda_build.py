@@ -50,6 +50,13 @@ _SIGNATURES = {
     ],
     "tinyslam_match_ctas_per_sm": [_I],   # mode
     "tinyslam_pack_mask": [_P, _I, _I, _I, _P, _P],   # mask, rows, m, words, out, stream
+    "tinyslam_dupband": [
+        _P, _P, _P, _P, _P, _P, _P, _P,    # xy, desc, u, v, z, map desc, valid, in_view
+        _I, _I, _I, _F,                    # n, m, gate, r2
+        _P, _P, _P, _P,                    # dup, z_local, n_neigh, overflow
+        _P,                                # stream
+    ],
+    "tinyslam_dupband_cap": [],
     "tinyslam_ordered_scatter": [
         _P, _P, _P, _P, _I, _I,            # vals, perm, ptr, out, size, float64
         _P,                                # stream

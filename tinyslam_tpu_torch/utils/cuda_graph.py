@@ -247,36 +247,38 @@ def warm_checked(fn: Callable, device, names: tuple = (), sites: tuple = ()) -> 
             torch.cuda.set_sync_debug_mode(mode)
 
 
-def launch_counters() -> tuple[int, int, int]:
-    """The Python launch counters of the port's kernels: K1
-    (``ops/fast_cuda.py``), K2 (``ops/match_cuda.py``) and the pose
-    graph's assembly (``ops/scatter_cuda.py``)."""
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
+def _counted():
+    """The modules of the port's kernels, in ``launch_counters`` order."""
+    from tinyslam_tpu_torch.ops import dupband_cuda, fast_cuda, match_cuda, scatter_cuda
 
-    return fast_cuda.LAUNCHES, match_cuda.LAUNCHES, scatter_cuda.LAUNCHES
+    return fast_cuda, match_cuda, scatter_cuda, dupband_cuda
+
+
+def launch_counters() -> tuple[int, int, int, int]:
+    """The Python launch counters of the port's kernels: K1
+    (``ops/fast_cuda.py``), K2 (``ops/match_cuda.py``), the pose graph's
+    assembly (``ops/scatter_cuda.py``) and the triangulation's duplicate
+    test and local band (``ops/dupband_cuda.py``)."""
+    return tuple(m.LAUNCHES for m in _counted())
 
 
 def add_launches(launches) -> None:
     """Add ``launches`` (one number a counter of ``launch_counters``) to
     the kernels' counters."""
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
-
-    fast_cuda.LAUNCHES += int(launches[0])
-    match_cuda.LAUNCHES += int(launches[1])
-    scatter_cuda.LAUNCHES += int(launches[2])
+    for m, k in zip(_counted(), launches, strict=True):
+        m.LAUNCHES += int(k)
 
 
 @contextlib.contextmanager
 def counters_kept():
     """Restore the kernels' launch counters on leaving: launches made while
     warming or capturing a step are none of the main path's."""
-    from tinyslam_tpu_torch.ops import fast_cuda, match_cuda, scatter_cuda
-
     saved = launch_counters()
     try:
         yield
     finally:
-        fast_cuda.LAUNCHES, match_cuda.LAUNCHES, scatter_cuda.LAUNCHES = saved
+        for m, k in zip(_counted(), saved):
+            m.LAUNCHES = k
 
 
 def _route_thread_to_pool(index: int, pool) -> None:

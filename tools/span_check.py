@@ -8,8 +8,10 @@ benchmark's ``mh01_fleet8`` cell (8 streams of 752x480, 16-step chunks):
 1. the cell's set-up and a window of ``--seconds`` through the captured
    step, as the benchmark's traced run has it; the new per-layer metrics
    as the benchmark's readers give them (``slambench/metrics/``), the
-   harvest's time, the calibration's error, the stamps a step runs and
-   the card timer's step (the gcd of the replays' spans);
+   harvest's time, the calibration's error, the stamps a step runs, the
+   card timer's step (the gcd of the replays' spans), and the
+   duplicate-test kernel's launches and rows through its overflow pass
+   (``ops/dupband_cuda.py``);
 2. a stamp node's device time: a captured chain of 500 small kernels with
    and without a span around each, replayed between CUDA events;
 3. the recorder's host time a chunk: a chunk record opened, advanced and
@@ -92,8 +94,8 @@ def recorder_host_us(graph, n: int = 2000) -> float:
 
 
 READERS = ("fleet.graph_ms_per_step", "fleet.card_ms_per_step", "fleet.keyframe_ms_per_step",
-           "fleet.keyframes_per_kframe", "fleet.relocs_per_kframe", "device.graph_idle_share",
-           "device.idle_share", "fleet.caller_ms_per_chunk")
+           "fleet.tri_ms_per_step", "fleet.keyframes_per_kframe", "fleet.relocs_per_kframe",
+           "device.graph_idle_share", "device.idle_share", "fleet.caller_ms_per_chunk")
 
 
 def main() -> None:
@@ -107,6 +109,7 @@ def main() -> None:
     torch.set_num_threads(1)
     from slambench import chunks, harness
     from tinyslam_tpu_torch.models.vo_device import BATCH_BRANCHES, _BATCH_GRAPHS
+    from tinyslam_tpu_torch.ops import dupband_cuda
     from tinyslam_tpu_torch.utils import spans
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -121,6 +124,8 @@ def main() -> None:
     cell = harness.load_module("traffic", w["traffic"]).Cell(run)
     out["setup_s"] = time.perf_counter() - t0
     graph = next(iter(_BATCH_GRAPHS.values()))
+    overflow = dupband_cuda.overflow_rows(dev)
+    overflow_before = int(overflow)                 # a sync, before the window
     rec = cell.window(args.seconds)
 
     # 1. the readers, the harvest, calibration, stamps a step, the timer's step
@@ -134,6 +139,14 @@ def main() -> None:
     runs = {n: chunks.delta(win, "tally", n) for n in BATCH_BRANCHES}
     out["replays"] = replays
     out["body_runs"] = runs
+    # The duplicate-test kernel in the window: its launches (a keyframe
+    # body's, from the tally) and the rows of those that took its overflow
+    # pass (the card's count, read after the harvest's sync).
+    per_body = graph.captured.body_launches["keyframe"][3]
+    rows = runs["keyframe"] * per_body * cell.cfg.frontend.max_features
+    out["dup_band"] = {"launches_a_keyframe_body": per_body,
+                       "launches": runs["keyframe"] * per_body,
+                       "overflow_rows": int(overflow) - overflow_before, "rows": rows}
     # step: 2, k1: 2, k2.track: 2 a launch (the guided pass, and the second
     # pass where it runs), each body run: 2
     out["stamp_nodes_per_step"] = (4 + 2 * (replays + runs["second_pass"]) / replays
